@@ -1,0 +1,93 @@
+"""FlatParams: a dict of parameter tensors as ONE padded 1-D buffer.
+
+Counterpart of ``repro/utils/flatparams.py``. The flat index of a scalar is
+its offset in leaf order, and that index is the counter the in-kernel
+directions are keyed on. So the leaf order must be the reference's: jax
+flattens a dict in sorted-key order (softmax: ``b`` then ``w``), and a
+``state_dict`` or insertion order would silently walk other directions.
+
+``n_pad`` is the reference's too: the valid length rounded up to a multiple
+of ``block_rows·128`` (65,536 at the default 512 rows). The pad region is
+walked by the kernels and is part of the client deltas; ``unflatten`` drops
+it.
+
+Buffers may carry leading batch dimensions (``[M, n_pad]`` for the M
+clients of a round): ``unflatten`` slices the last dimension and keeps the
+leading ones on every leaf.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.zo_axpy import BLOCK_ROWS, LANES
+
+
+@dataclass(frozen=True)
+class FlatSpec:
+    """Static description of a flattened parameter dict."""
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    offsets: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    d: int                      # total valid scalar count
+    n_pad: int                  # padded buffer length (block multiple)
+    block: int                  # pad granularity in elements
+
+
+def _leaves(params):
+    if not isinstance(params, dict) or any(
+            not isinstance(v, torch.Tensor) for v in params.values()):
+        raise TypeError("FlatParams takes a flat dict of tensors")
+    names = tuple(sorted(params))
+    return names, [params[k] for k in names]
+
+
+def flat_spec(params, *, block: int = 0) -> FlatSpec:
+    """The FlatSpec of a parameter dict (leaves in sorted-key order)."""
+    block = block or BLOCK_ROWS * LANES
+    names, leaves = _leaves(params)
+    shapes = tuple(tuple(l.shape) for l in leaves)
+    sizes, offsets, off = [], [], 0
+    for leaf in leaves:
+        offsets.append(off)
+        sizes.append(leaf.numel())
+        off += leaf.numel()
+    return FlatSpec(names=names, shapes=shapes,
+                    dtypes=tuple(l.dtype for l in leaves),
+                    offsets=tuple(offsets), sizes=tuple(sizes), d=off,
+                    n_pad=off + ((-off) % block), block=block)
+
+
+def flatten(params, spec: FlatSpec) -> torch.Tensor:
+    """Dict -> float32 ``[n_pad]`` buffer (pad region zero)."""
+    _, leaves = _leaves(params)
+    parts = [l.reshape(-1).to(torch.float32) for l in leaves]
+    pad = spec.n_pad - spec.d
+    if pad:
+        parts.append(torch.zeros(pad, dtype=torch.float32,
+                                 device=parts[0].device))
+    return torch.cat(parts)
+
+
+def unflatten(buf: torch.Tensor, spec: FlatSpec) -> dict:
+    """``[..., >= d]`` buffer -> dict of ``[..., *shape]`` views, cast back
+    to the leaf dtypes."""
+    lead = tuple(buf.shape[:-1])
+    return {name: buf[..., off:off + n].reshape(lead + shp).to(dt)
+            for name, shp, dt, off, n in zip(spec.names, spec.shapes,
+                                             spec.dtypes, spec.offsets,
+                                             spec.sizes)}
+
+
+def flat_geometry(params, block_rows: int = 0):
+    """(spec, block_rows) for a block-rows setting; 0 means the default.
+
+    The one mapping from the config's ``flat_block_rows`` to the buffer
+    geometry; the second value is what the kernels' plain versions take as
+    their reduction block (None for the default)."""
+    spec = flat_spec(params, block=block_rows * LANES if block_rows else 0)
+    return spec, (block_rows or None)
