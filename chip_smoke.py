@@ -8,26 +8,41 @@ each of which raises on a failure (the script then exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Hold every kernel against its plain PyTorch version on the card, at the
-   main path's shapes (M = 10 clients, n_pad = 65,536, d = 7,850, b2 = 20),
-   for both direction kinds and a ragged length that is not a multiple of
-   the CUDA block. Tolerances: the sign kind bitwise; the normal kind within
-   4 ulp of the magnitude of the summed terms; the reductions within a
-   relative 1e-5 (another summation order). Each kernel is timed with CUDA
-   events beside its plain version and its bound.
-3. The main path, through the entry points a user calls: softmax regression
-   784x10 (the paper's Sec. V-B model) on 50 clients with the FedZOConfig
-   defaults (N=50, M=10, H=5, b1=25, b2=20), flat_params and size-weighted
-   aggregation, 5 rounds; the same with AirComp (channel scheduling, 5 dB);
-   the SmallCNN (28x28x1, width 8), 2 rounds. The launch counters are set
-   to 0 before each run and must equal exactly what the run implies.
-4. A small-input reference: a short softmax run on the card against the
-   same run on the CPU (plain versions), within the float32 tolerance of a
-   ZO trajectory.
+   main paths' shapes, and time it with CUDA events beside its plain
+   version, its bound and (where one exists) one PyTorch library call.
+   - The four ZO kernels at the flat round's shapes (M = 10 clients,
+     n_pad = 65,536, d = 7,850, b2 = 20), for both direction kinds and a
+     ragged length that is not a multiple of the CUDA block. Tolerances:
+     the sign kind bitwise; the normal kind within 4 ulp of the magnitude of
+     the summed terms; the reductions within a relative 1e-5 (another
+     summation order).
+   - zo_walk, zo_replay and zo_dirnorms again at the Qwen2-0.5B train
+     step's width (M = 1, n_pad = 494,075,904, d = 494,032,768, b2 = 8).
+   - rmsnorm ([512, 896] and the [7168, 64] rows of a qk_norm) and
+     flash_attention (q [4, 128, 14, 64], k/v [4, 128, 2, 64], causal; a
+     ragged S = 100, a window of 32, a non-causal call), each in float32
+     and bfloat16. Tolerances: float32 within a relative 1e-5 (another
+     summation order); bfloat16 within 1 bf16 ulp of the output (the two
+     float32 results round to neighbouring bf16 values at most).
+3. The main paths, through the entry points a user calls:
+   - softmax regression 784x10 (the paper's Sec. V-B model) on 50 clients
+     with the FedZOConfig defaults (N=50, M=10, H=5, b1=25, b2=20),
+     flat_params and size-weighted aggregation, 5 rounds; the same with
+     AirComp (channel scheduling, 5 dB); the SmallCNN (28x28x1, width 8),
+     2 rounds;
+   - the cross-silo FedZO train step on Qwen2-0.5B at full width in
+     float32 (arXiv:2407.10671; 494 M parameters, random weights from seed
+     0), batch 4 x seq 128 of the synthetic LM stream, b2 = 8, 4 steps.
+   The launch counters are set to 0 before each run (each train step) and
+   must equal exactly what it implies.
+4. Small-input references: a short softmax run and 3 train steps of
+   qwen2-0.5b-smoke, each on the card against the same run on the CPU
+   (plain versions), within the float32 tolerance of a ZO trajectory.
 
 The line before the last is the JSON kernel table, the last line
-``{"ok": true, "device": {...}}``. ``--profile DIR`` adds a torch.profiler
-trace of one softmax round (kernel time by name, device busy share),
-written to DIR.
+``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
+traces of one softmax round and one Qwen2-0.5B train step (kernel time by
+name, device busy share), written to DIR.
 """
 from __future__ import annotations
 
@@ -49,6 +64,8 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 INT32_OP_PER_S = FP32_FLOP_PER_S / 4
+# bfloat16 on the tensor cores, dense (data sheet)
+BF16_FLOP_PER_S = 989e12
 # int32 operations of the Threefry-2x32 evaluations a kernel makes
 # (csrc/threefry.cuh). Each evaluation: 20 rounds of (add, rotate, xor), five
 # key injections of two adds, and the add of the counter word that changes
@@ -62,6 +79,11 @@ THREEFRY_THREAD_OPS = 8
 
 M, N_PAD, D, B2 = 10, 65536, 7850, 20
 RAGGED = N_PAD + 77
+# the Qwen2-0.5B train step: flat buffer of one client, b2 = 8 directions,
+# batch 4 x seq 128 = 512 token rows of d_model 896; 14 q heads over 2 kv
+# heads of dim 64
+QWEN_D, QWEN_N_PAD, QWEN_B2 = 494_032_768, 494_075_904, 8
+LM_B, LM_S, LM_HQ, LM_HKV, LM_HD, LM_DM = 4, 128, 14, 2, 64, 896
 
 
 def die(msg):
@@ -275,10 +297,221 @@ def threefry_ops(evals, threads):
 def bound(nbytes, ops, kind):
     """Least time: the larger of bytes over HBM rate and operations over the
     peak rate of their type."""
+    rate = {"int": INT32_OP_PER_S, "fp32": FP32_FLOP_PER_S,
+            "bf16": BF16_FLOP_PER_S}[kind]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / (INT32_OP_PER_S if kind == "int" else FP32_FLOP_PER_S) * 1e3
+    t_ops = ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bf16_ulp_err(torch, got, want, floor):
+    """max |got - want| in units of the bfloat16 spacing at |want|, the
+    spacing taken no finer than at ``floor``."""
+    w = want.float().abs().clamp_min(floor)
+    _, e = torch.frexp(w)                 # w = m * 2**e, m in [0.5, 1)
+    spacing = torch.ldexp(torch.ones_like(w), e - 8)  # 8 significant bits
+    return float(((got.float() - want.float()).abs() / spacing).max())
+
+
+def check_lm_kernels(torch, ops, plain_rms, plain_flash):
+    """Phase 2, transformer kernels. Returns {kernel: row of the JSON
+    table, without launches}."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+    rows, lines = {}, []
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    # rmsnorm: the block norms' [B*S, d_model] and a qk_norm's
+    # [B*S*Hq, head_dim] rows. float32: elementwise relative 1e-5 (another
+    # summation order of the mean square); bf16: 1 ulp of the output
+    errs = []
+    for r, d in ((LM_B * LM_S, LM_DM), (LM_B * LM_S * LM_HQ, LM_HD)):
+        for dt in (torch.float32, torch.bfloat16):
+            x, sc = rnd(r, d, dtype=dt), (1.0 + 0.1 * rnd(d)).to(dt)
+            got = ops.rmsnorm(x, sc, eps=1e-6)
+            want = plain_rms.rmsnorm_plain(x, sc, eps=1e-6)
+            check(got.dtype == dt and got.shape == x.shape,
+                  f"rmsnorm {dt}: output {got.dtype} {tuple(got.shape)}")
+            if dt == torch.float32:
+                rel = float(((got - want).abs()
+                             / want.abs().clamp_min(1e-30)).max())
+                check(rel <= 1e-5, f"rmsnorm fp32 [{r}, {d}]: rel {rel}")
+                lines.append(f"rmsnorm fp32 [{r}, {d}]: max rel {rel:.2e}")
+            else:
+                u = bf16_ulp_err(torch, got, want, 1e-30)
+                check(u <= 1, f"rmsnorm bf16 [{r}, {d}]: {u} bf16 ulp")
+                lines.append(f"rmsnorm bf16 [{r}, {d}]: {u:.0f} bf16 ulp, "
+                             f"bitwise {torch.equal(got, want)}")
+            errs.append(float((got.float() - want.float()).abs().max()))
+    r, d = LM_B * LM_S, LM_DM
+    x, sc = rnd(r, d), 1.0 + 0.1 * rnd(d)
+    ms = median_ms(torch, lambda: ops.rmsnorm(x, sc, eps=1e-6), 100)
+    plain_ms = median_ms(torch,
+                         lambda: plain_rms.rmsnorm_plain(x, sc, eps=1e-6), 50)
+    # yardstick only, never called by the port
+    library_ms = median_ms(
+        torch, lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-6), 100)
+    rows["rmsnorm"] = dict(
+        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:29", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(2 * r * d * 4 + d * 4, 4 * r * d, "fp32"))
+    xb, scb = x.bfloat16(), sc.bfloat16()
+    lines.append("rmsnorm bf16 [512, 896]: ms {:.5f} plain {:.5f} library "
+                 "{:.5f}".format(
+                     median_ms(torch, lambda: ops.rmsnorm(xb, scb), 100),
+                     median_ms(torch,
+                               lambda: plain_rms.rmsnorm_plain(xb, scb), 50),
+                     median_ms(torch, lambda: F.rms_norm(
+                         xb, (d,), weight=scb, eps=1e-6), 100)))
+
+    # flash attention, [B, S, H, D] layout. float32: max |err| within 1e-5
+    # of max |out| (the dot products and the softmax sums run in another
+    # order); bf16: 1 bf16 ulp of the output, the ulp taken no finer than at
+    # 1e-5 * max |out| (below that the float32 reordering, not the final
+    # rounding, decides which neighbour the two results round to)
+    errs = []
+    cases = [("main", LM_B, LM_S, True, 0), ("ragged S=100", 2, 100, True, 0),
+             ("window 32", 2, LM_S, True, 32),
+             ("non-causal S=100", 2, 100, False, 0)]
+    for name, b, sq, causal, window in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = rnd(b, sq, LM_HQ, LM_HD, dtype=dt)
+            k = rnd(b, sq, LM_HKV, LM_HD, dtype=dt)
+            v = rnd(b, sq, LM_HKV, LM_HD, dtype=dt)
+            got = ops.attention(q, k, v, causal=causal, window=window)
+            want = plain_flash.flash_attention_plain(q, k, v, causal=causal,
+                                                     window=window)
+            check(got.dtype == dt and got.shape == q.shape,
+                  f"attention {name}: output {got.dtype} {tuple(got.shape)}")
+            top = float(want.float().abs().max())
+            if dt == torch.float32:
+                rel = float((got - want).abs().max()) / top
+                check(rel <= 1e-5, f"attention {name} fp32: rel {rel}")
+                lines.append(f"flash_attention {name} fp32: max err / max "
+                             f"|out| {rel:.2e}")
+            else:
+                u = bf16_ulp_err(torch, got, want, 1e-5 * top)
+                check(u <= 1, f"attention {name} bf16: {u} bf16 ulp")
+                lines.append(f"flash_attention {name} bf16: {u:.2f} bf16 "
+                             f"ulp, bitwise {torch.equal(got, want)}")
+            errs.append(float((got.float() - want.float()).abs().max()))
+    q = rnd(LM_B, LM_S, LM_HQ, LM_HD)
+    k, v = rnd(LM_B, LM_S, LM_HKV, LM_HD), rnd(LM_B, LM_S, LM_HKV, LM_HD)
+
+    def sdpa(q, k, v):
+        # yardstick only, never called by the port: [B, H, S, D] views
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    ms = median_ms(torch, lambda: ops.attention(q, k, v, causal=True), 50)
+    plain_ms = median_ms(
+        torch, lambda: plain_flash.flash_attention_plain(q, k, v), 20)
+    library_ms = median_ms(torch, lambda: sdpa(q, k, v), 50)
+    pairs = LM_S * (LM_S + 1) // 2          # causal (q, k) pairs per head
+    flops = 4 * LM_HD * pairs * LM_B * LM_HQ  # q.k and p.v multiply-adds
+    nbytes = 4 * LM_B * LM_S * LM_HD * (2 * LM_HQ + 2 * LM_HKV)
+    rows["flash_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:90",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, **bound(nbytes, flops, "fp32"))
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    bb = bound(nbytes // 2, flops, "bf16")
+    lines.append(
+        "flash_attention bf16 main: ms {:.5f} plain {:.5f} library {:.5f} "
+        "bound {:.5f} ({})".format(
+            median_ms(torch, lambda: ops.attention(qb, kb, vb), 50),
+            median_ms(torch, lambda: plain_flash.flash_attention_plain(
+                qb, kb, vb), 20),
+            median_ms(torch, lambda: sdpa(qb, kb, vb), 50),
+            bb["bound_ms"], bb["bound_by"]))
+    for line in lines:
+        print(line)
+    return rows
+
+
+def check_full_width(torch, ops, plain):
+    """Phase 2, the flat kernels at the Qwen2-0.5B train step's width: one
+    client row of n_pad = 494,075,904, b2 = 8. Returns {kernel: fields for
+    the row's ``full_width`` entry}. Same tolerances as at the round's
+    shapes, except the norms: a float32 sum of 120,615 chunk partials (the
+    kernel) against one of 7,539 block sums (the plain version) differs by
+    about sqrt(n)·ulp of the total, so a relative 1e-4."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    x = torch.randn(1, QWEN_N_PAD, generator=g, device=dev) * 0.02
+    k = torch.randint(0, 2 ** 32, (1, 2), generator=g, device=dev,
+                      dtype=torch.int64)
+    # the walk's and replay's own scales: mu/|v| and lr·coeff/(b2·|v|)
+    ab = torch.randn(1, 2, generator=g, device=dev) * 5e-8
+    c = torch.randn(1, QWEN_B2, generator=g, device=dev) * 1e-9
+    # |v| <= 5.9 for Box-Muller on 24-bit uniforms: a bound on the summed
+    # terms' magnitude for the 4-ulp check
+    out, lines = {}, []
+
+    got = ops.zo_walk(x, k, (3, 4), ab)
+    want = plain.zo_walk_plain(x, k, (3, 4), ab)
+    exact = torch.equal(got, want)
+    u = 0.0 if exact else ulp_err(
+        torch, got, want, x.abs() + 5.9 * ab.abs().sum(1, keepdim=True))
+    check(u <= 4, f"zo_walk full width: {u} ulp")
+    walk_err = float((got - want).abs().max())
+    lines.append(f"zo_walk full width: bitwise {exact}, max_abs_err "
+                 f"{walk_err:.3e}")
+    del got, want
+    got = ops.zo_replay(x, k, c)
+    want = plain.zo_replay_plain(x, k, c)
+    exact = torch.equal(got, want)
+    u = 0.0 if exact else ulp_err(
+        torch, got, want, x.abs() + 5.9 * c.abs().sum(1, keepdim=True))
+    check(u <= 4, f"zo_replay full width: {u} ulp")
+    replay_err = float((got - want).abs().max())
+    lines.append(f"zo_replay full width: bitwise {exact}, max_abs_err "
+                 f"{replay_err:.3e}")
+    del got, want
+    got = ops.zo_dirnorms(k, QWEN_D, b2=QWEN_B2)
+    want = plain.zo_dirnorms_plain(k, QWEN_D, b2=QWEN_B2)
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(rel <= 1e-4, f"zo_dirnorms full width: rel {rel}")
+    lines.append(f"zo_dirnorms full width: rel {rel:.2e} "
+                 f"(norms^2/d {(got / QWEN_D).flatten().tolist()})")
+
+    m, n, b2, d = 1, QWEN_N_PAD, QWEN_B2, QWEN_D
+    norm_chunk = ops.build.load()["zo_axpy"].zo_norm_chunk()
+    out["zo_walk"] = dict(
+        max_abs_err=walk_err,
+        ms=median_ms(torch, lambda: ops.zo_walk(x, k, (3, 4), ab), 8),
+        plain_ms=median_ms(torch, lambda: plain.zo_walk_plain(
+            x, k, (3, 4), ab), 1, trials=1),
+        **bound(m * n * 8, threefry_ops(2 * m * n, m * n), "int"))
+    out["zo_replay"] = dict(
+        max_abs_err=replay_err,
+        ms=median_ms(torch, lambda: ops.zo_replay(x, k, c), 8),
+        plain_ms=median_ms(torch, lambda: plain.zo_replay_plain(x, k, c), 1,
+                           trials=1),
+        **bound(m * n * 8 + m * b2 * 4, threefry_ops(b2 * m * n, m * n),
+                "int"))
+    out["zo_dirnorms"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=median_ms(torch, lambda: ops.zo_dirnorms(k, d, b2=b2), 8),
+        plain_ms=median_ms(torch, lambda: plain.zo_dirnorms_plain(
+            k, d, b2=b2), 1, trials=1),
+        **bound(m * 16 + m * b2 * 4,
+                threefry_ops(m * b2 * d, m * b2 * -(-d // norm_chunk) * 256),
+                "int"))
+    for name, f in out.items():
+        lines.append(f"{name} full width: ms {f['ms']:.4f} plain "
+                     f"{f['plain_ms']:.1f} bound {f['bound_ms']:.4f} "
+                     f"({f['bound_by']})")
+    for line in lines:
+        print(line)
+    return out
 
 
 def run_main_path(torch, ops, neural, FedZOConfig):
@@ -314,7 +547,8 @@ def run_main_path(torch, ops, neural, FedZOConfig):
         iters = rounds * cfg.local_iters
         want = {"zo_walk": iters * cfg.b2 + (rounds if cfg.aircomp else 0),
                 "zo_replay": iters, "zo_dirnorms": iters,
-                "aircomp_reduce": rounds if cfg.aircomp else 0}
+                "aircomp_reduce": rounds if cfg.aircomp else 0,
+                "rmsnorm": 0, "flash_attention": 0}
         check(counts == want, f"{name}: launches {counts} != {want}")
         evals = {k: float(v)
                  for k, v in neural.task_eval(task)(params).items()}
@@ -332,6 +566,90 @@ def run_main_path(torch, ops, neural, FedZOConfig):
         print(f"{name}: evals {json.dumps(evals)}")
         for k in total:
             total[k] += counts[k]
+    return total
+
+
+def lm_setup(arch, dtype):
+    """(model, train-step config, token stream) of the cross-silo train
+    step as ``repro/launch/train.py`` sets it up, for ``arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_token_stream
+    from repro_torch.models import api
+    cfg = get_config(arch).replace(dtype=dtype)
+    model = api.build(cfg)
+    # the launcher's synthetic stream: 200k tokens over a 4096-token subset
+    toks = lm_token_stream(200_000, min(cfg.vocab, 4096), seed=0)
+    return model, toks
+
+
+def lm_batch(torch, toks, rng, batch, seq, device):
+    from repro_torch.data.synthetic import lm_batches
+    b = lm_batches(toks, batch, seq, rng)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def run_qwen_train(torch, ops, FedZOConfig, steps=4, profile_dir=None):
+    """Phase 3, the Qwen2-0.5B train step at full width. Returns {kernel:
+    launches summed over the steps}."""
+    import numpy as np
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten
+
+    model, toks = lm_setup("qwen2-0.5b", "float32")
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spec = flat_spec(params)
+    check(spec.d == QWEN_D and spec.n_pad == QWEN_N_PAD,
+          f"qwen2-0.5b: d {spec.d}, n_pad {spec.n_pad}")
+    fcfg = FedZOConfig(lr=1e-4, mu=1e-3, b2=QWEN_B2, estimator="sphere",
+                       flat_params=True)
+    step = fedzo.make_train_step(model.loss, fcfg)
+    rng, key = np.random.default_rng(0), prng.key(1)
+    L = cfg.n_layers
+    want = {"zo_walk": fcfg.b2, "zo_replay": 1, "zo_dirnorms": 1,
+            "aircomp_reduce": 0,
+            "rmsnorm": (1 + fcfg.b2) * (2 * L + 1),
+            "flash_attention": (1 + fcfg.b2) * L}
+    total = {k: 0 for k in ops.LAUNCHES}
+    per_step, losses, norms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        batch = lm_batch(torch, toks, rng, 4, 128, "cuda")
+        ks = prng.split(key, 2)
+        key, sub = ks[0], ks[1]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, mets = step(params, batch, sub)
+        torch.cuda.synchronize()
+        per_step.append(1e3 * (time.perf_counter() - t0))
+        counts = dict(ops.LAUNCHES)
+        check(counts == want, f"qwen2-0.5b step: launches {counts} != {want}")
+        for k in total:
+            total[k] += counts[k]
+        losses.append(float(mets["loss"]))
+        norms.append(float(mets["coeff_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    for name, vals in (("loss", losses), ("coeff_norm", norms)):
+        check(all(map(math.isfinite, vals)), f"qwen2-0.5b: {name} {vals}")
+    check(all(c > 0 for c in norms), f"qwen2-0.5b: coeff_norm {norms}")
+    check(bool(torch.isfinite(flatten(params, spec)).all()),
+          "qwen2-0.5b: parameters not finite")
+    steady = sorted(per_step[1:])  # step 1 carries one-time set-up
+    print(f"qwen2_0_5b_train: d {spec.d} n_pad {spec.n_pad}; init "
+          f"{init_s:.2f} s; ms/step {[round(t, 2) for t in per_step]} "
+          f"(median after step 1 {steady[len(steady) // 2]:.2f}); peak "
+          f"memory {peak / 2**30:.2f} GiB; launches per step {want}")
+    print(f"qwen2_0_5b_train: loss {losses} coeff_norm {norms}")
+    if profile_dir:
+        batch = lm_batch(torch, toks, rng, 4, 128, "cuda")
+        profile_call(torch, lambda: step(params, batch, key),
+                     profile_dir, "qwen2_train_step")
     return total
 
 
@@ -357,40 +675,85 @@ def check_small_reference(torch, neural, FedZOConfig):
           f"{worst:.3e}")
 
 
-def profile_round(torch, neural, FedZOConfig, out_dir):
+def check_lm_small_reference(torch, FedZOConfig):
+    """Phase 4: 3 train steps of qwen2-0.5b-smoke on the card and on the
+    CPU (plain versions) from the same init."""
+    import numpy as np
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+
+    model, toks = lm_setup("qwen2-0.5b-smoke", "float32")
+    fcfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=4, flat_params=True)
+    step = fedzo.make_train_step(model.loss, fcfg)
+    init = model.init(prng.key(0), device="cpu")
+    spec = flat_spec(init)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = unflatten(flatten(init, spec).to(dev), spec)
+        rng, key, mets = np.random.default_rng(0), prng.key(1), []
+        for _ in range(3):
+            batch = lm_batch(torch, toks, rng, 2, 16, dev)
+            ks = prng.split(key, 2)
+            key, sub = ks[0], ks[1]
+            params, m = step(params, batch, sub)
+            mets.append((float(m["loss"]), float(m["coeff_norm"])))
+        runs[dev] = (flatten(params, spec).cpu(), mets)
+    # each coefficient is d.(L+ - L)/mu with d = 361,600: one float32 ulp of
+    # the loss (4.8e-7 at 6.3; the card sums the matmuls in another order)
+    # moves it by 17, and a step moves each weight by lr/b2 of the
+    # coefficient-weighted unit directions (|v_i| <= ~8e-3): ~1e-4 per ulp
+    # per step, so 1e-3 over 3 steps; port vs JAX on the CPU reads 2.1e-4
+    worst = float((runs["cuda"][0] - runs["cpu"][0]).abs().max())
+    check(worst <= 1e-3, f"qwen2-0.5b-smoke card vs CPU: max |diff| {worst}")
+    print(f"small reference (qwen2-0.5b-smoke, 3 train steps): card vs CPU "
+          f"max |param diff| {worst:.3e}; (loss, coeff_norm) card "
+          f"{runs['cuda'][1]} cpu {runs['cpu'][1]}")
+
+
+def profile_call(torch, fn, out_dir, tag):
+    """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
+    time by name and the device busy share (kernel time over wall time),
+    written to ``out_dir/<tag>_trace.json`` and ``<tag>_profile.txt``."""
     from torch.profiler import ProfilerActivity, profile
-    task = neural.make_task("softmax", n_features=784, n_classes=10,
-                            n_clients=50)
-    cfg = FedZOConfig(flat_params=True, weight_by_size=True)
-    neural.run(task, cfg, 1)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        neural.run(task, cfg, 1, eval_every=0)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir,
-                                          "softmax_round_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
     avgs = prof.key_averages()
     table = avgs.table(sort_by="self_cuda_time_total", row_limit=25)
-    with open(os.path.join(out_dir, "softmax_round_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{tag}_profile.txt"), "w") as f:
         f.write(table)
     # kernels are the events on the CUDA device; aten ops on the CPU carry a
     # copy of their kernels' time and are left out so nothing counts twice
     device_us = sum(e.self_device_time_total for e in avgs
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"profile: one softmax round (no eval) wall {wall * 1e3:.3f} ms, "
-          f"kernel time {device_us / 1e3:.3f} ms, device busy share "
+    print(f"profile {tag}: wall {wall * 1e3:.3f} ms, kernel time "
+          f"{device_us / 1e3:.3f} ms, device busy share "
           f"{device_us / 1e3 / (wall * 1e3):.3f}")
     print(table)
+
+
+def profile_round(torch, neural, FedZOConfig, out_dir):
+    """One softmax round (no eval) under the profiler."""
+    task = neural.make_task("softmax", n_features=784, n_classes=10,
+                            n_clients=50)
+    cfg = FedZOConfig(flat_params=True, weight_by_size=True)
+    profile_call(torch, lambda: neural.run(task, cfg, 1, eval_every=0),
+                 out_dir, "softmax_round")
 
 
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one softmax round into DIR")
+                    help="also profile one softmax round and one "
+                    "Qwen2-0.5B train step into DIR")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -403,7 +766,8 @@ def main(argv):
 
     from repro_torch.configs.base import FedZOConfig
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels import zo_aircomp, zo_axpy
+    from repro_torch.kernels import (flash_attention, rmsnorm, zo_aircomp,
+                                     zo_axpy)
     from repro_torch.workloads import neural
 
     smi = smi_line()
@@ -416,17 +780,28 @@ def main(argv):
     for src, log in build.BUILD_LOG.items():
         if src != "seconds":
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill")):
                     print(f"ptxas {src}: {line.strip()}")
 
     rows = check_kernels(torch, ops, zo_axpy, zo_aircomp)
+    rows.update(check_lm_kernels(torch, ops, rmsnorm, flash_attention))
+    for name, f in check_full_width(torch, ops, zo_axpy).items():
+        rows[name]["full_width"] = f
+    torch.cuda.empty_cache()
     launches = run_main_path(torch, ops, neural, FedZOConfig)
+    for name, n in run_qwen_train(torch, ops, FedZOConfig,
+                                  profile_dir=args.profile).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
     check_small_reference(torch, neural, FedZOConfig)
+    check_lm_small_reference(torch, FedZOConfig)
     if args.profile:
         profile_round(torch, neural, FedZOConfig, args.profile)
 
     kernels = []
-    for name in ("zo_walk", "zo_replay", "zo_dirnorms", "aircomp_reduce"):
+    for name in ("zo_walk", "zo_replay", "zo_dirnorms", "aircomp_reduce",
+                 "rmsnorm", "flash_attention"):
         check(launches[name] > 0, f"{name} never launched on the main path")
         kernels.append({"name": name, "route": "cuda", **rows[name],
                         "launches": launches[name]})

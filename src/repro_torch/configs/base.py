@@ -1,15 +1,18 @@
-"""FedZO hyperparameters: a jax-free copy of the reference's FedZOConfig
-(``repro/configs/base.py``).
+"""Configs: a jax-free copy of the reference's ``FedZOConfig`` and
+``ModelConfig`` (``repro/configs/base.py``).
 
-The field set and defaults are the reference's, so a config built for one
+The field sets and defaults are the reference's, so a config built for one
 package means the same run in the other. The port implements the flat-buffer
-route (``flat_params=True``) of the fedzo strategy; fields that select a route
-it does not have yet are rejected at the round (``core/fedzo.py``), never
-silently ignored.
+route (``flat_params=True``) of the fedzo strategy and the dense model
+family; fields that select a route it does not have yet are rejected where
+they are used (``core/fedzo.py``, ``models/api.py``), never silently
+ignored.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass
@@ -50,3 +53,89 @@ class FedZOConfig:
     dyn_alpha: float = 0.0
     surrogate_beta: float = 0.5
     surrogate_fraction: float = 0.5
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
+    source: str                 # citation for the assigned config
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    # attention flavor
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0      # 0 = full causal; >0 = window size
+    long_context_window: int = 16_384  # window used for long_500k decode
+    # ffn flavor
+    act: str = "swiglu"          # swiglu | geglu | gelu
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0            # expert intermediate size
+    n_dense_layers: int = 0      # leading dense layers (DeepSeek: 3)
+    router_aux_coef: float = 0.001
+    capacity_factor: float = 1.25
+    # MLA / MTP (DeepSeek)
+    mla: Optional[object] = None  # MLA dims (not ported: build rejects it)
+    mtp: bool = False            # multi-token-prediction extra head
+    # SSM
+    ssm_kind: str = ""           # rwkv6 | mamba (hybrid uses mamba)
+    ssm_state: int = 0
+    # enc-dec / VLM
+    encoder_layers: int = 0
+    cross_attn_every: int = 0    # vlm: 1 cross-attn layer per this many self layers
+    n_frontend_tokens: int = 0   # stubbed modality tokens (audio frames / image patches)
+    # misc
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    # ---- derived ----
+    @property
+    def kv_groups(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant of the same family: tiny dims, same structure
+        (the reference's rule, field for field; MLA dims are not ported)."""
+        kw = dict(
+            name=self.name + "-smoke",
+            n_layers=2,
+            d_model=min(self.d_model, 128),
+            d_ff=min(self.d_ff, 256),
+            vocab=min(self.vocab, 512),
+            dtype="float32",
+            long_context_window=64,
+        )
+        if self.n_heads:
+            kw["n_heads"] = min(self.n_heads, 4)
+            kw["n_kv_heads"] = min(self.n_kv_heads, 2)
+            kw["head_dim"] = min(self.head_dim, 32) if self.head_dim else 0
+        if self.n_experts:
+            kw["n_experts"] = min(self.n_experts, 4)
+            kw["top_k"] = min(self.top_k, 2)
+            kw["moe_d_ff"] = min(self.moe_d_ff, 128)
+            kw["n_dense_layers"] = min(self.n_dense_layers, 1)
+            kw["capacity_factor"] = 4.0
+        if self.ssm_state:
+            kw["ssm_state"] = min(self.ssm_state, 8)
+        if self.encoder_layers:
+            kw["encoder_layers"] = 2
+        if self.cross_attn_every:
+            kw["cross_attn_every"] = 2
+        if self.n_frontend_tokens:
+            kw["n_frontend_tokens"] = 16
+        if self.sliding_window:
+            kw["sliding_window"] = 32
+        return self.replace(**kw)

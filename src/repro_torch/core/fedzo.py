@@ -13,6 +13,12 @@ One local iterate is one ``zo_dirnorms`` (sphere norms), b2 × (one
 ``zo_walk`` + one loss forward over the M parameter sets), then one
 ``zo_replay``. ``jax.grad`` has no counterpart here: the path is forward-only.
 
+The cross-silo mode's unit, ``local_iterate`` / ``make_train_step``
+(``repro/core/fedzo.py:95-115, 554-563``), is the same flat iterate on ONE
+client: a row of the batched iterate with the key reshaped to ``[1, 2]``
+and the loss wrapped to return ``[1]``. It drives any (nested) parameter
+dict, e.g. the dense transformer of ``models/api.py``.
+
 Routes the port does not have yet raise ``NotImplementedError``: the pytree
 and batched-direction (wide) local phases, faults, the wireless channel
 model, and the strategy hooks (client state, loss wraps, state functions).
@@ -77,6 +83,49 @@ def flat_local_iterate(loss_fn, buf, spec, batch, keys, cfg: FedZOConfig,
         buf, spec, keys, coeffs, scale=-cfg.lr, kind=cfg.estimator,
         block_rows=block_rows, inv=inv)
     return buf, coeffs, base
+
+
+def _first_row(tree):
+    """Leaves ``[1, ...]`` -> ``[...]`` (views), through nested dicts."""
+    return {k: _first_row(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
+def local_iterate(loss_fn, params, batch, rng, cfg: FedZOConfig):
+    """One stochastic zeroth-order update (Eq. 5-6): x ← x − η ∇̃F(x).
+
+    ``loss_fn(params, batch) -> scalar``; ``params`` a (nested) dict of
+    tensors on the run's device; ``rng`` a raw key ``[2]``. Returns
+    (new_params, coeffs ``[b2]``, base_loss). Flat route only: the
+    parameters are flattened once, walked and replayed by the kernels, and
+    unflattened once (leaves are views of the new buffer).
+    """
+    check_flat_route(cfg)
+    spec, br = flat_geometry(params, cfg.flat_block_rows)
+    buf = flatten(params, spec)[None]
+    keys = rng.reshape(1, 2).to(buf.device)
+
+    def loss1(p, b):
+        return loss_fn(_first_row(p), b).reshape(1)
+
+    buf, coeffs, base = flat_local_iterate(loss1, buf, spec, batch, keys,
+                                           cfg, block_rows=br)
+    return unflatten(buf[0], spec), coeffs[0], base[0]
+
+
+def make_train_step(loss_fn, cfg: FedZOConfig):
+    """Cross-silo train step: one local ZO iterate.
+
+    signature: (params, batch, rng) -> (params, metrics) with metrics
+    ``loss`` (the base loss) and ``coeff_norm`` (‖coeffs‖₂).
+    """
+    def step(params, batch, rng):
+        new_params, coeffs, base = local_iterate(loss_fn, params, batch,
+                                                 rng, cfg)
+        return new_params, {"loss": base,
+                            "coeff_norm": torch.linalg.norm(coeffs)}
+
+    return step
 
 
 def _flat_phase_scan(loss_fn, buf0, spec, br, keys, batches, cfg):

@@ -8,9 +8,9 @@ Fashion-MNIST is replaced by a deterministic synthetic generator that
 preserves the *shape of the problem*: class-conditional Gaussian images
 (classes are linearly separable enough for softmax regression to train,
 like F-MNIST), optionally squashed to [0, 1] pixels for the image track.
-Only the classification generators and partitioners of the reference are
-copied; its host minibatch sampler and LM corpus are not on the port's
-path.
+The classification generators and partitioners and the LM corpus
+(``lm_token_stream``, ``lm_batches``: the cross-silo train step's data) are
+copied; the reference's host minibatch sampler is not on the port's path.
 
 Non-iid split (Sec. V-B, following McMahan et al.): sort by label, cut into
 2·N shards, deal 2 shards per client → each client sees ≤ 4 distinct labels
@@ -166,3 +166,27 @@ def federated_classification(n_train, n_test, n_clients, *, n_features=784,
         raise ValueError(f"unknown partition {partition!r}; use dirichlet | "
                          f"shards | iid | uneven")
     return clients, {"x": x[n_train:], "y": y[n_train:]}
+
+
+def lm_token_stream(n_tokens, vocab, seed=0, order=3):
+    """Deterministic synthetic LM corpus: a random Markov chain over the
+    vocabulary (gives a learnable non-uniform next-token distribution)."""
+    rng = np.random.default_rng(seed)
+    state = rng.integers(0, vocab)
+    # sparse transition structure: each token has `order` likely successors
+    succ = rng.integers(0, vocab, size=(vocab, order))
+    toks = np.empty(n_tokens, np.int32)
+    jumps = rng.random(n_tokens)
+    choices = rng.integers(0, order, n_tokens)
+    for i in range(n_tokens):
+        state = succ[state, choices[i]] if jumps[i] < 0.9 \
+            else rng.integers(0, vocab)
+        toks[i] = state
+    return toks
+
+
+def lm_batches(tokens, batch, seq, rng: np.random.Generator):
+    starts = rng.integers(0, len(tokens) - seq - 1, size=batch)
+    x = np.stack([tokens[s:s + seq] for s in starts])
+    y = np.stack([tokens[s + 1:s + seq + 1] for s in starts])
+    return {"tokens": x, "labels": y}

@@ -1,9 +1,10 @@
 """Build the CUDA kernels with ``nvcc`` on first use and load them.
 
-Each source in ``kernels/csrc/`` is compiled on its own into a shared
-library with a plain C interface, and the libraries are loaded with
-``ctypes``: no PyTorch headers are involved, so a build takes seconds. All
-sources compile in parallel, one ``nvcc`` each. The libraries go to
+Each source in ``kernels/csrc/`` (the ZO kernels, RMSNorm, flash
+attention) is compiled on its own into a shared library with a plain C
+interface, and the libraries are loaded with ``ctypes``: no PyTorch
+headers are involved, so a build takes seconds. All sources compile in
+parallel, one ``nvcc`` each. The libraries go to
 ``build/repro_torch_kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources and flags, so a changed
 source is rebuilt and an unchanged one is reused.
@@ -30,12 +31,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
-SOURCES = ("zo_axpy.cu", "zo_aircomp.cu")
+SOURCES = ("zo_axpy.cu", "zo_aircomp.cu", "rmsnorm.cu",
+           "flash_attention.cu")
 HEADERS = ("threefry.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures of the launchers (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "zo_axpy": {
@@ -48,6 +50,14 @@ SIGNATURES = {
         "aircomp_block_cols": [],
         "aircomp_max_rows": [],
         "aircomp_reduce_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "rmsnorm": {
+        "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_head_dim_ok": [_I],
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _P],
     },
 }
 

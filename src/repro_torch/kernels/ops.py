@@ -1,7 +1,10 @@
-"""Wrappers of the four ZO kernels: dispatch by device, launch counters.
+"""Kernel wrappers: dispatch by device, launch counters.
 
-A tensor on the CPU goes to the kernel's plain PyTorch version
-(``kernels/zo_axpy.py``, ``kernels/zo_aircomp.py``). A tensor on a CUDA
+The four ZO kernels of the flat FedZO round and the two of the dense
+transformer forward (RMSNorm, flash attention). A tensor on the CPU goes to
+the kernel's plain PyTorch version (``kernels/zo_axpy.py``,
+``kernels/zo_aircomp.py``, ``kernels/rmsnorm.py``,
+``kernels/flash_attention.py``). A tensor on a CUDA
 device goes to the hand-written kernel (``kernels/csrc/*.cu``), built on
 first use, or the call raises: there is no fallback. After every launch the
 C launcher's ``cudaGetLastError`` is checked, and the kernel's counter in
@@ -14,17 +17,21 @@ and scratch are allocated here with ``torch.empty``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.kernels.zo_aircomp import aircomp_reduce_plain
 from repro_torch.kernels.zo_axpy import (zo_dirnorms_plain, zo_replay_plain,
                                          zo_walk_plain)
 
 LAUNCHES = {"zo_walk": 0, "zo_replay": 0, "zo_dirnorms": 0,
-            "aircomp_reduce": 0}
+            "aircomp_reduce": 0, "rmsnorm": 0, "flash_attention": 0}
 _KIND_CODE = {"normal": 0, "sign": 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches():
@@ -46,6 +53,13 @@ def _need(t, name, dtype, shape, device):
         raise ValueError(f"{name}: need contiguous {dtype} {tuple(shape)} on "
                          f"{device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def _dtype_code(t, name):
+    if t.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, got "
+                         f"{t.dtype}")
+    return _DTYPE_CODE[t.dtype]
 
 
 def _kind(kind):
@@ -156,3 +170,56 @@ def aircomp_reduce(deltas, scale, d, *, block_rows=None):
            "aircomp_reduce")
     LAUNCHES["aircomp_reduce"] += 1
     return mean, sq
+
+
+def rmsnorm(x, scale, *, eps=1e-6):
+    """RMSNorm over the last dim of x ``[..., D]``: ``x · rsqrt(mean(x²) +
+    eps) · scale`` in float32, returned in x's dtype. x and scale float32 or
+    bfloat16."""
+    if _on_cpu(x):
+        return rmsnorm_plain(x, scale, eps=eps)
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    xc = _dtype_code(x, "x")
+    sc = _dtype_code(scale, "scale")
+    _need(x, "x", x.dtype, x.shape, x.device)
+    _need(scale, "scale", scale.dtype, (D,), x.device)
+    out = torch.empty_like(x)
+    lib = build.load()["rmsnorm"]
+    _check(lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                              rows, D, float(eps), xc, sc, _stream()),
+           "rmsnorm")
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Flash attention on the reference wrapper's layout: q ``[B, Sq, Hq,
+    D]``, k/v ``[B, Sk, Hkv, D]`` -> ``[B, Sq, Hq, D]`` in q's dtype.
+
+    GQA (``Hq`` a multiple of ``Hkv``); ``window`` > 0 keeps keys with
+    ``q_pos − k_pos < window``. Any Sq, Sk: the kernel masks its own ragged
+    edge, so there is no padding and no restriction on non-causal calls.
+    """
+    if _on_cpu(q):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    code = _dtype_code(q, "q")
+    _need(q, "q", q.dtype, (B, Sq, Hq, D), q.device)
+    _need(k, "k", q.dtype, (B, Sk, Hkv, D), q.device)
+    _need(v, "v", q.dtype, (B, Sk, Hkv, D), q.device)
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    lib = build.load()["flash_attention"]
+    if not lib.flash_head_dim_ok(D):
+        raise ValueError(f"attention: head dim {D} not built (32, 64, 128)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    _check(lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
+        Hq, Hkv, D, int(bool(causal)), int(window), float(scale), code,
+        _stream()), "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

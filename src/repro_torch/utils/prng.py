@@ -23,7 +23,10 @@ Integer outputs are bitwise jax's. ``normal`` evaluates XLA's float32
 erfinv polynomial, but log1p and the rounding order differ, so it agrees
 within a few ulp.
 Keys are host-side control state: they live on the CPU, and the few words a
-kernel needs are moved to the card by the caller.
+kernel needs are moved to the card by the caller. The bulk draws
+(``random_bits``, ``uniform``, ``normal``) run on the device given by
+``device=`` (default: the key's), so a model's init draws its hundreds of
+millions of normals on the card; integer results do not depend on the device.
 """
 from __future__ import annotations
 
@@ -99,15 +102,17 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([x0, x1], dim=-1)
 
 
-def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
     """32-bit ``jax.random.bits``: counters are the row-major iota of
-    ``shape`` (high words 0 below 2**32 elements), output ``bits1 ^ bits2``."""
+    ``shape`` (high words 0 below 2**32 elements), output ``bits1 ^ bits2``.
+    Computed on ``device`` (default: the key's)."""
     shape = tuple(shape)
     size = math.prod(shape)
     if size >= 2 ** 32:
         raise NotImplementedError("random bits of 2**32 elements or more")
-    k0, k1 = _words(k, len(shape))
-    lo = torch.arange(size, dtype=torch.int64).reshape(shape)
+    dev = k.device if device is None else torch.device(device)
+    k0, k1 = _words(k.to(dev), len(shape))
+    lo = torch.arange(size, dtype=torch.int64, device=dev).reshape(shape)
     x0, x1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return x0 ^ x1
 
@@ -152,14 +157,15 @@ def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
     return x
 
 
-def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0, *,
+            device=None) -> torch.Tensor:
     """float32 ``jax.random.uniform``: 23 mantissa bits under exponent 0,
     shifted and scaled in float32."""
-    bits = random_bits(k, shape)
+    bits = random_bits(k, shape, device=device)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32)
-    hi = torch.tensor(maxval, dtype=torch.float32)
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -190,9 +196,9 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(k: torch.Tensor, shape) -> torch.Tensor:
+def normal(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
     """float32 ``jax.random.normal``: ``sqrt(2)·erfinv(u)`` with u uniform
     on ``(nextafter(-1, 0), 1)``. Within a few ulp of jax (3 measured on
     10^5 draws: log1p and rounding order differ from XLA's)."""
-    u = uniform(k, shape, _NORMAL_LO, 1.0)
+    u = uniform(k, shape, _NORMAL_LO, 1.0, device=device)
     return erfinv(u) * _SQRT2
