@@ -24,6 +24,11 @@ each of which raises on a failure (the script then exits non-zero):
      and bfloat16. Tolerances: float32 within a relative 1e-5 (another
      summation order); bfloat16 within 1 bf16 ulp of the output (the two
      float32 results round to neighbouring bf16 values at most).
+   - zo_axpy and zo_axpy2, bitwise, for float32 and bfloat16 x with u, v
+     in x's dtype or float32: ragged n (1, 7, 65,537), views at odd element
+     offsets, and Qwen2-0.5B's largest leaves (the tied embedding
+     [151,936, 896], the stacked w_gate [24, 896, 4,864]); timed at the
+     embedding beside torch.add.
 3. The main paths, through the entry points a user calls:
    - softmax regression 784x10 (the paper's Sec. V-B model) on 50 clients
      with the FedZOConfig defaults (N=50, M=10, H=5, b1=25, b2=20),
@@ -33,16 +38,24 @@ each of which raises on a failure (the script then exits non-zero):
    - the cross-silo FedZO train step on Qwen2-0.5B at full width in
      float32 (arXiv:2407.10671; 494 M parameters, random weights from seed
      0), batch 4 x seq 128 of the synthetic LM stream, b2 = 8, 4 steps.
+   - the pytree route (the reference's default): ``ops.tree_axpy2`` once
+     over the full-width Qwen2-0.5B tree (14 leaves, held against the plain
+     version leaf by leaf); the training CLI ``repro_torch.launch.train``
+     on Qwen2-0.5B in float32, 3 steps (2·b2 zo_axpy launches per leaf and
+     step); softmax 784x10 with flat_params off, 2 rounds, and one AirComp
+     round.
    The launch counters are set to 0 before each run (each train step) and
    must equal exactly what it implies.
-4. Small-input references: a short softmax run and 3 train steps of
-   qwen2-0.5b-smoke, each on the card against the same run on the CPU
-   (plain versions), within the float32 tolerance of a ZO trajectory.
+4. Small-input references: a short softmax run on each route and 3 train
+   steps of qwen2-0.5b-smoke on each route, each on the card against the
+   same run on the CPU (plain versions), within the float32 tolerance of a
+   ZO trajectory.
 
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
 traces of one softmax round and one Qwen2-0.5B train step (kernel time by
-name, device busy share), written to DIR.
+name, device busy share), written to DIR, and the kernel table (no
+timeline) of one pytree softmax round and one pytree Qwen2-0.5B step.
 """
 from __future__ import annotations
 
@@ -84,6 +97,9 @@ RAGGED = N_PAD + 77
 # heads of dim 64
 QWEN_D, QWEN_N_PAD, QWEN_B2 = 494_032_768, 494_075_904, 8
 LM_B, LM_S, LM_HQ, LM_HKV, LM_HD, LM_DM = 4, 128, 14, 2, 64, 896
+# the Qwen2-0.5B parameter tree: 14 leaves; the largest are the tied
+# embedding and the stacked MLP weights
+QWEN_LEAVES, QWEN_EMBED, QWEN_W_GATE = 14, (151_936, 896), (24, 896, 4_864)
 
 
 def die(msg):
@@ -514,6 +530,118 @@ def check_full_width(torch, ops, plain):
     return out
 
 
+def check_axpy_kernels(torch, ops, plain):
+    """Phase 2, zo_axpy and zo_axpy2: bitwise against their plain versions
+    (both round the product, then the sum, in float32; the build never
+    contracts them into an FMA). Returns {kernel: row of the JSON table,
+    without launches}."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dev, f32, bf16 = "cuda", torch.float32, torch.bfloat16
+    lines, errs = [], {"zo_axpy": [], "zo_axpy2": []}
+
+    def view(shape, dt, off):
+        base = torch.randn(math.prod(shape) + off, generator=g,
+                           device=dev).to(dt)
+        return base[off:].view(shape)
+
+    # the pytree route's scalars: mu and lr*c_n/b2, tensors on the card
+    a, b = torch.randn(2, generator=g, device=dev) * 1e-3
+    cases = [((1,), (0, 0, 0)), ((7,), (0, 0, 0)), ((65_537,), (0, 0, 0)),
+             ((65_537,), (1, 1, 1)), ((65_537,), (3, 0, 5)),
+             (QWEN_EMBED, (0, 0, 0)), (QWEN_W_GATE, (0, 0, 0))]
+    for dts in ((f32, f32, f32), (bf16, bf16, bf16), (bf16, f32, f32),
+                (bf16, bf16, f32)):
+        for shape, offs in cases:
+            x, u, v = (view(shape, dt, off) for dt, off in zip(dts, offs))
+            tag = (f"{'/'.join(str(t)[6:] for t in dts)} {list(shape)} "
+                   f"offsets {offs}")
+            got = ops.axpy(x, u, a)
+            want = plain.zo_axpy_plain(x, u, a)
+            check(got.dtype == x.dtype and torch.equal(got, want),
+                  f"zo_axpy {tag} differs")
+            errs["zo_axpy"].append(float((got.float() - want.float())
+                                         .abs().max()))
+            got = ops.axpy2(x, u, v, a, b)
+            want = plain.zo_axpy2_plain(x, u, v, torch.stack([a, b]))
+            check(got.dtype == x.dtype and torch.equal(got, want),
+                  f"zo_axpy2 {tag} differs")
+            errs["zo_axpy2"].append(float((got.float() - want.float())
+                                          .abs().max()))
+            del x, u, v, got, want
+    lines.append(f"zo_axpy, zo_axpy2: bitwise in all {len(errs['zo_axpy'])} "
+                 f"cases (dtypes, ragged, offsets, Qwen2 leaves)")
+    # times at the embedding leaf in float32: each array read once, the
+    # output written once; two flops per term
+    x, u, v = (view(QWEN_EMBED, f32, 0) for _ in range(3))
+    n = x.numel()
+    mu = torch.full((), 1e-3, device=dev)
+    rows = {
+        "zo_axpy": dict(
+            source="src/repro_torch/kernels/csrc/axpy.cu",
+            replaces="src/repro/kernels/zo_axpy.py:103",
+            max_abs_err=max(errs["zo_axpy"]),
+            ms=median_ms(torch, lambda: ops.axpy(x, u, mu), 20),
+            plain_ms=median_ms(torch, lambda: plain.zo_axpy_plain(x, u, mu),
+                               5),
+            # yardstick only, never called by the port
+            library_ms=median_ms(torch, lambda: torch.add(x, u, alpha=1e-3),
+                                 20),
+            **bound(12 * n, 2 * n, "fp32")),
+        "zo_axpy2": dict(
+            source="src/repro_torch/kernels/csrc/axpy.cu",
+            replaces="src/repro/kernels/zo_axpy.py:80",
+            max_abs_err=max(errs["zo_axpy2"]),
+            ms=median_ms(torch, lambda: ops.axpy2(x, u, v, -mu, mu), 20),
+            plain_ms=median_ms(torch, lambda: plain.zo_axpy2_plain(
+                x, u, v, torch.stack([-mu, mu])), 5),
+            library_ms=None, **bound(16 * n, 4 * n, "fp32"))}
+    xb = x.bfloat16()
+    lines.append("zo_axpy bf16 x, f32 u {}: ms {:.5f} plain {:.5f} library "
+                 "{:.5f} bound {:.5f}".format(
+                     list(QWEN_EMBED),
+                     median_ms(torch, lambda: ops.axpy(xb, u, mu), 20),
+                     median_ms(torch, lambda: plain.zo_axpy_plain(xb, u, mu),
+                               5),
+                     median_ms(torch, lambda: torch.add(xb, u, alpha=1e-3),
+                               20),
+                     bound(8 * n, 2 * n, "fp32")["bound_ms"]))
+    # a direction that is a view at an odd element offset (the counter
+    # convention slices one flat buffer) takes the scalar loop throughout
+    uo = view(QWEN_EMBED, f32, 1)
+    lines.append("zo_axpy float32 {}, u at element offset 1 (scalar loop): "
+                 "ms {:.5f} bound {:.5f}".format(
+                     list(QWEN_EMBED),
+                     median_ms(torch, lambda: ops.axpy(x, uo, mu), 20),
+                     rows["zo_axpy"]["bound_ms"]))
+    del uo
+    for name, per in (("zo_axpy", 12), ("zo_axpy2", 16)):
+        r = rows[name]
+        lines.append(f"{name} float32 {list(QWEN_EMBED)}: ms {r['ms']:.5f} "
+                     f"plain {r['plain_ms']:.5f} library {r['library_ms']} "
+                     f"bound {r['bound_ms']:.5f} ({r['bound_by']}); whole "
+                     f"Qwen2-0.5B tree ({QWEN_D:,} float32) bound "
+                     f"{per * QWEN_D / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    for line in lines:
+        print(line)
+    return rows
+
+
+def route_launches(ops, cfg, rounds, n_leaves):
+    """Launches of ``rounds`` simulated rounds: the flat route's walks,
+    replays and norms per iterate (one launch covers the cohort), or the
+    pytree route's zo_axpy per client, iterate, direction end and leaf."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    iters = rounds * cfg.local_iters
+    if cfg.flat_params:
+        want.update(zo_walk=iters * cfg.b2 + (rounds if cfg.aircomp else 0),
+                    zo_replay=iters, zo_dirnorms=iters,
+                    aircomp_reduce=rounds if cfg.aircomp else 0)
+    else:
+        want["zo_axpy"] = (iters * cfg.n_participating * 2 * cfg.b2
+                           * n_leaves)
+    return want
+
+
 def run_main_path(torch, ops, neural, FedZOConfig):
     """Phase 3. Returns {kernel: launches summed over the runs}."""
     softmax = neural.make_task("softmax", n_features=784, n_classes=10,
@@ -521,11 +649,14 @@ def run_main_path(torch, ops, neural, FedZOConfig):
     cnn = neural.make_task("cnn", image_shape=(28, 28, 1), width=8,
                            n_clients=50)
     base = dict(flat_params=True, weight_by_size=True)
+    air = dict(aircomp=True, channel_schedule=True, snr_db=5.0)
     runs = [("softmax_flat", softmax, FedZOConfig(**base), 5),
-            ("softmax_aircomp", softmax,
-             FedZOConfig(**base, aircomp=True, channel_schedule=True,
-                         snr_db=5.0), 5),
-            ("cnn_flat", cnn, FedZOConfig(**base), 2)]
+            ("softmax_aircomp", softmax, FedZOConfig(**base, **air), 5),
+            ("cnn_flat", cnn, FedZOConfig(**base), 2),
+            # the pytree route, the reference's default (flat_params off)
+            ("softmax_pytree", softmax, FedZOConfig(weight_by_size=True), 2),
+            ("softmax_aircomp_pytree", softmax,
+             FedZOConfig(weight_by_size=True, **air), 1)]
     total = {k: 0 for k in ops.LAUNCHES}
     for name, task, cfg, rounds in runs:
         # one round per call, the carry passed back in, so each round is
@@ -544,11 +675,7 @@ def run_main_path(torch, ops, neural, FedZOConfig):
             for k, v in res.metrics.items():
                 mets.setdefault(k, []).extend(v.cpu().tolist())
         counts = dict(ops.LAUNCHES)
-        iters = rounds * cfg.local_iters
-        want = {"zo_walk": iters * cfg.b2 + (rounds if cfg.aircomp else 0),
-                "zo_replay": iters, "zo_dirnorms": iters,
-                "aircomp_reduce": rounds if cfg.aircomp else 0,
-                "rmsnorm": 0, "flash_attention": 0}
+        want = route_launches(ops, cfg, rounds, len(params))
         check(counts == want, f"{name}: launches {counts} != {want}")
         evals = {k: float(v)
                  for k, v in neural.task_eval(task)(params).items()}
@@ -558,7 +685,8 @@ def run_main_path(torch, ops, neural, FedZOConfig):
             check(bool(torch.isfinite(p).all()), f"{name}: param {k}")
         check(mets["mean_local_loss"][-1] < mets["first_loss"][0],
               f"{name}: loss did not descend: {mets}")
-        steady = sorted(per_round[1:])  # round 1 carries one-time set-up
+        # round 1 carries one-time set-up (a one-round run has only it)
+        steady = sorted(per_round[1:]) or per_round
         print(f"{name}: ms/round {[round(t, 3) for t in per_round]} "
               f"(median after round 1 {steady[len(steady) // 2]:.3f}); "
               f"launches {counts}")
@@ -611,10 +739,10 @@ def run_qwen_train(torch, ops, FedZOConfig, steps=4, profile_dir=None):
     step = fedzo.make_train_step(model.loss, fcfg)
     rng, key = np.random.default_rng(0), prng.key(1)
     L = cfg.n_layers
-    want = {"zo_walk": fcfg.b2, "zo_replay": 1, "zo_dirnorms": 1,
-            "aircomp_reduce": 0,
-            "rmsnorm": (1 + fcfg.b2) * (2 * L + 1),
-            "flash_attention": (1 + fcfg.b2) * L}
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(zo_walk=fcfg.b2, zo_replay=1, zo_dirnorms=1,
+                rmsnorm=(1 + fcfg.b2) * (2 * L + 1),
+                flash_attention=(1 + fcfg.b2) * L)
     total = {k: 0 for k in ops.LAUNCHES}
     per_step, losses, norms = [], [], []
     torch.cuda.reset_peak_memory_stats()
@@ -653,6 +781,82 @@ def run_qwen_train(torch, ops, FedZOConfig, steps=4, profile_dir=None):
     return total
 
 
+def run_tree_axpy2(torch, ops, plain):
+    """Phase 3, ``ops.tree_axpy2`` (the MeZO unperturb-and-reperturb pass)
+    once over the full-width Qwen2-0.5B tree in float32: x the weights, u
+    and v two sphere directions, (a, b) = (-mu, +mu) with mu = 1e-3 on the
+    card. One zo_axpy2 per leaf; each leaf bitwise its plain version.
+    Returns the launches."""
+    from repro_torch.core import estimator
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import _leaves
+
+    model, _ = lm_setup("qwen2-0.5b", "float32")
+    params = model.init(prng.key(0), device="cuda")
+    u = estimator.sample_direction(prng.key(7), params, "sphere")
+    v = estimator.sample_direction(prng.key(8), params, "sphere")
+    mu = torch.full((), 1e-3, device="cuda")
+    ops.reset_launches()
+    out = ops.tree_axpy2(params, u, v, -mu, mu)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["zo_axpy2"] = QWEN_LEAVES
+    check(counts == want, f"tree_axpy2: launches {counts} != {want}")
+    ab = torch.stack([-mu, mu])
+    for (path, got), (_, x), (_, uu), (_, vv) in zip(
+            _leaves(out), _leaves(params), _leaves(u), _leaves(v)):
+        check(torch.equal(got, plain.zo_axpy2_plain(x, uu, vv, ab)),
+              f"tree_axpy2 leaf {'/'.join(path)} differs")
+    print(f"tree_axpy2 (Qwen2-0.5B, {len(_leaves(out))} leaves): every leaf "
+          f"bitwise its plain version; launches {counts}")
+    return counts
+
+
+def run_qwen_pytree_cli(torch, ops, steps=3):
+    """Phase 3, the pytree train step at full width through the training
+    CLI in this process: Qwen2-0.5B in float32 (as the flat run, for the
+    same reason), the launcher's batch 4 x seq 128, b2 = 8, mu = 1e-3, lr =
+    1e-4. Per step: 2·b2 zo_axpy per leaf (b2 perturbations, b2 replayed
+    updates), nine forwards' RMSNorms and attentions, nothing else.
+    Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("qwen2-0.5b")
+    b2, L = 8, cfg.n_layers
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(zo_axpy=2 * b2 * QWEN_LEAVES,
+                rmsnorm=(1 + b2) * (2 * L + 1), flash_attention=(1 + b2) * L)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", "qwen2-0.5b", "--override", "dtype=float32",
+                      "--steps", str(steps), "--batch", "4", "--seq", "128",
+                      "--b2", str(b2), "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prev = dict.fromkeys(ops.LAUNCHES, 0)
+    for i, cum in enumerate(res.launches):
+        per = {k: cum[k] - prev[k] for k in cum}
+        check(per == want, f"pytree CLI step {i}: launches {per} != {want}")
+        prev = cum
+    check(all(map(math.isfinite, res.history)),
+          f"pytree CLI: loss {res.history}")
+    check(all(bool(torch.isfinite(t).all()) for t in
+              tree_leaves(res.params)), "pytree CLI: parameters not finite")
+    steady = sorted(res.step_ms[1:]) or res.step_ms
+    print(f"qwen2_0_5b_pytree_cli: ms/step "
+          f"{[round(t, 1) for t in res.step_ms]} (median after step 1 "
+          f"{steady[len(steady) // 2]:.1f}); whole CLI {wall:.1f} s; peak "
+          f"memory {peak / 2**30:.2f} GiB; loss {res.history}; launches per "
+          f"step {want}")
+    return dict(res.launches[-1])
+
+
 def check_small_reference(torch, neural, FedZOConfig):
     """Phase 4: the same short run on the card and on the CPU."""
     kw = dict(n_train=320, n_test=96, n_clients=6, n_features=24,
@@ -675,16 +879,40 @@ def check_small_reference(torch, neural, FedZOConfig):
           f"{worst:.3e}")
 
 
-def check_lm_small_reference(torch, FedZOConfig):
+def check_pytree_small_reference(torch, neural, FedZOConfig):
+    """Phase 4: the golden softmax_counter configuration (the pytree route
+    with the counter convention; 6 clients, 24x4 softmax), 8 rounds on the
+    card and on the CPU. Same limit as the flat run's, for the same
+    reason (a loss ulp moves a coefficient by d.ulp/mu ~ 0.012); port vs
+    JAX on the CPU reads 1.2e-4 for this config."""
+    kw = dict(n_train=320, n_test=96, n_clients=6, n_features=24,
+              n_classes=4, alpha=0.5)
+    cfg = FedZOConfig(n_devices=6, n_participating=3, local_iters=2, b1=8,
+                      b2=4, lr=5e-2, mu=1e-3, direction_conv="counter",
+                      weight_by_size=True, seed=11)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = neural.make_task("softmax", device=dev, **kw)
+        res = neural.run(task, cfg, 8, eval_rows=96)
+        out[dev] = {k: v.cpu() for k, v in res.params.items()}
+    worst = max(float((out["cuda"][k] - out["cpu"][k]).abs().max())
+                for k in out["cpu"])
+    check(worst <= 2e-3, f"pytree card vs CPU run: max |diff| {worst}")
+    print(f"small reference (softmax_counter, pytree, 8 rounds): card vs CPU "
+          f"max |diff| {worst:.3e}")
+
+
+def check_lm_small_reference(torch, FedZOConfig, flat_params=True):
     """Phase 4: 3 train steps of qwen2-0.5b-smoke on the card and on the
-    CPU (plain versions) from the same init."""
+    CPU (plain versions) from the same init, on the flat or the pytree
+    route."""
     import numpy as np
     from repro_torch.core import fedzo
     from repro_torch.utils import prng
     from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
 
     model, toks = lm_setup("qwen2-0.5b-smoke", "float32")
-    fcfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=4, flat_params=True)
+    fcfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=4, flat_params=flat_params)
     step = fedzo.make_train_step(model.loss, fcfg)
     init = model.init(prng.key(0), device="cpu")
     spec = flat_spec(init)
@@ -704,17 +932,23 @@ def check_lm_small_reference(torch, FedZOConfig):
     # moves it by 17, and a step moves each weight by lr/b2 of the
     # coefficient-weighted unit directions (|v_i| <= ~8e-3): ~1e-4 per ulp
     # per step, so 1e-3 over 3 steps; port vs JAX on the CPU reads 2.1e-4
+    # (flat route) and 3.2e-4 (pytree route)
+    route = "flat" if flat_params else "pytree"
     worst = float((runs["cuda"][0] - runs["cpu"][0]).abs().max())
-    check(worst <= 1e-3, f"qwen2-0.5b-smoke card vs CPU: max |diff| {worst}")
-    print(f"small reference (qwen2-0.5b-smoke, 3 train steps): card vs CPU "
-          f"max |param diff| {worst:.3e}; (loss, coeff_norm) card "
+    check(worst <= 1e-3, f"qwen2-0.5b-smoke {route} card vs CPU: max |diff| "
+          f"{worst}")
+    print(f"small reference (qwen2-0.5b-smoke, {route}, 3 train steps): card "
+          f"vs CPU max |param diff| {worst:.3e}; (loss, coeff_norm) card "
           f"{runs['cuda'][1]} cpu {runs['cpu'][1]}")
 
 
-def profile_call(torch, fn, out_dir, tag):
+def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
-    written to ``out_dir/<tag>_trace.json`` and ``<tag>_profile.txt``."""
+    written to ``out_dir/<tag>_profile.txt`` and, with ``timeline``, the
+    chrome trace ``<tag>_trace.json`` (left out for calls of hundreds of
+    thousands of launches, whose trace is larger than the run may bring
+    back)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -725,7 +959,8 @@ def profile_call(torch, fn, out_dir, tag):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
+    if timeline:
+        prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
     avgs = prof.key_averages()
     table = avgs.table(sort_by="self_cuda_time_total", row_limit=25)
     with open(os.path.join(out_dir, f"{tag}_profile.txt"), "w") as f:
@@ -741,19 +976,38 @@ def profile_call(torch, fn, out_dir, tag):
 
 
 def profile_round(torch, neural, FedZOConfig, out_dir):
-    """One softmax round (no eval) under the profiler."""
+    """One softmax round (no eval) under the profiler, on each route."""
     task = neural.make_task("softmax", n_features=784, n_classes=10,
                             n_clients=50)
     cfg = FedZOConfig(flat_params=True, weight_by_size=True)
     profile_call(torch, lambda: neural.run(task, cfg, 1, eval_every=0),
                  out_dir, "softmax_round")
+    cfg = FedZOConfig(weight_by_size=True)
+    profile_call(torch, lambda: neural.run(task, cfg, 1, eval_every=0),
+                 out_dir, "softmax_pytree_round", timeline=False)
+
+
+def profile_pytree_step(torch, FedZOConfig, out_dir):
+    """One pytree Qwen2-0.5B train step (the CLI's configuration) under the
+    profiler: kernel time by name and the busy share."""
+    import numpy as np
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+
+    model, toks = lm_setup("qwen2-0.5b", "float32")
+    params = model.init(prng.key(0), device="cuda")
+    step = fedzo.make_train_step(model.loss, FedZOConfig(
+        lr=1e-4, mu=1e-3, b2=QWEN_B2))
+    batch = lm_batch(torch, toks, np.random.default_rng(0), 4, 128, "cuda")
+    profile_call(torch, lambda: step(params, batch, prng.key(2)), out_dir,
+                 "qwen2_pytree_step", timeline=False)
 
 
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one softmax round and one "
-                    "Qwen2-0.5B train step into DIR")
+                    help="also profile a softmax round and a Qwen2-0.5B "
+                    "train step on each route into DIR")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -784,24 +1038,46 @@ def main(argv):
                                            "spill")):
                     print(f"ptxas {src}: {line.strip()}")
 
-    rows = check_kernels(torch, ops, zo_axpy, zo_aircomp)
-    rows.update(check_lm_kernels(torch, ops, rmsnorm, flash_attention))
-    for name, f in check_full_width(torch, ops, zo_axpy).items():
+    def timed(name, fn):
+        """Run one phase, free its cached blocks, print its time."""
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    rows = timed("kernels", lambda: check_kernels(torch, ops, zo_axpy,
+                                                  zo_aircomp))
+    rows.update(timed("lm kernels", lambda: check_lm_kernels(
+        torch, ops, rmsnorm, flash_attention)))
+    for name, f in timed("full width", lambda: check_full_width(
+            torch, ops, zo_axpy)).items():
         rows[name]["full_width"] = f
-    torch.cuda.empty_cache()
-    launches = run_main_path(torch, ops, neural, FedZOConfig)
-    for name, n in run_qwen_train(torch, ops, FedZOConfig,
-                                  profile_dir=args.profile).items():
-        launches[name] += n
-    torch.cuda.empty_cache()
-    check_small_reference(torch, neural, FedZOConfig)
-    check_lm_small_reference(torch, FedZOConfig)
+    rows.update(timed("axpy kernels", lambda: check_axpy_kernels(
+        torch, ops, zo_axpy)))
+    launches = timed("rounds", lambda: run_main_path(torch, ops, neural,
+                                                     FedZOConfig))
+    for name, phase in (
+            ("qwen flat", lambda: run_qwen_train(torch, ops, FedZOConfig,
+                                                 profile_dir=args.profile)),
+            ("tree_axpy2", lambda: run_tree_axpy2(torch, ops, zo_axpy)),
+            ("qwen pytree cli", lambda: run_qwen_pytree_cli(torch, ops))):
+        for k, n in timed(name, phase).items():
+            launches[k] += n
+    timed("references", lambda: (
+        check_small_reference(torch, neural, FedZOConfig),
+        check_pytree_small_reference(torch, neural, FedZOConfig),
+        check_lm_small_reference(torch, FedZOConfig),
+        check_lm_small_reference(torch, FedZOConfig, flat_params=False)))
     if args.profile:
-        profile_round(torch, neural, FedZOConfig, args.profile)
+        timed("profiles", lambda: (
+            profile_round(torch, neural, FedZOConfig, args.profile),
+            profile_pytree_step(torch, FedZOConfig, args.profile)))
+    print(f"total: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name in ("zo_walk", "zo_replay", "zo_dirnorms", "aircomp_reduce",
-                 "rmsnorm", "flash_attention"):
+                 "zo_axpy2", "zo_axpy", "rmsnorm", "flash_attention"):
         check(launches[name] > 0, f"{name} never launched on the main path")
         kernels.append({"name": name, "route": "cuda", **rows[name],
                         "launches": launches[name]})

@@ -1,9 +1,12 @@
 """FedZO on PyTorch and CUDA: the port of ``repro`` to an NVIDIA H100.
 
 The JAX package ``repro`` is the reference. This package mirrors its module
-paths and runs the flat-buffer FedZO round (paper Algorithm 1 with the
-AirComp aggregation of Sec. IV) on the card through four hand-written CUDA
-kernels (``repro_torch.kernels``). It never imports ``jax`` or ``repro``.
+paths and runs FedZO (paper Algorithm 1 with the AirComp aggregation of
+Sec. IV) on the card on both of the reference's routes, the pytree route
+(its default) and the flat-buffer route, for the paper's models and the
+dense LM family, through eight hand-written CUDA kernels
+(``repro_torch.kernels``), with the training CLI ``repro_torch.launch.train``.
+It never imports ``jax`` or ``repro``.
 
 Randomness follows jax's raw Threefry-2x32 key chain
 (``repro_torch.utils.prng``), so a run from a seed draws the same clients,

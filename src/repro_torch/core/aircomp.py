@@ -1,16 +1,25 @@
-"""AirComp-assisted aggregation (paper Section IV), flat-buffer route.
+"""AirComp-assisted aggregation (paper Section IV).
 
-Counterpart of ``repro/core/aircomp.py:46-96, 141-170``. The scheduled
-devices transmit their deltas concurrently; after channel inversion and
-receive scaling the server holds the masked (optionally size-weighted) mean
-plus real Gaussian noise of variance (Eq. 17)
+Counterpart of ``repro/core/aircomp.py``. The scheduled devices transmit
+their deltas concurrently; after channel inversion and receive scaling the
+server holds the masked (optionally size-weighted) mean plus real Gaussian
+noise of variance (Eq. 17)
 
     σ_eff² = σ_w²·Δ_max / (m_div²·d·P·h_min²),  Δ_max = max_i ‖Δ_i‖².
 
-``aircomp_aggregate_flat`` takes the ``[M, n_pad]`` delta matrix: one
-``aircomp_reduce`` kernel gives the mean and the row norms in one read, the
-noise scale is scalar work on the ``[M]`` norms, and one ``zo_walk`` pass
-adds the noise, regenerated in the kernel from the channel key.
+Three forms, as in the reference:
+
+- ``aircomp_aggregate`` takes a stacked delta tree (leaves ``[M, ...]``,
+  the pytree route): per-leaf float32 means and norms, and noise drawn per
+  leaf from ``fold_in(key, i)``.
+- ``aircomp_aggregate_flat`` takes the ``[M, n_pad]`` delta matrix of the
+  flat route: one ``aircomp_reduce`` kernel gives the mean and the row
+  norms in one read, the noise scale is scalar work on the ``[M]`` norms,
+  and one ``zo_walk`` pass adds the noise, regenerated in the kernel from
+  the channel key.
+- ``aircomp_simulate_channel`` simulates the complex channel explicitly
+  (transmit scalars, superposition, AWGN, receive scaling) on ``[M, d]``
+  deltas: the closed form's check and the per-device energy constraint.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.utils import prng
+from repro_torch.utils.flatparams import _leaves
+from repro_torch.utils.tree import tree_size, tree_unflatten
 
 # per-round per-device energy budget is d·P with P normalized to 1;
 # SNR γ = P·h_min²/σ_w² is controlled through snr_db = 10·log10(P/σ_w²).
@@ -63,6 +74,47 @@ def size_weights(sizes):
     return w / (torch.sum(w) / w.shape[0])
 
 
+def _delta_sq_norms(deltas):
+    """``[M]`` squared norms ‖Δ_i‖² of a stacked delta tree (leaves
+    ``[M, ...]``): a float32 sum per leaf and row, summed over the leaves
+    in order."""
+    return sum(torch.sum(torch.square(leaf.to(torch.float32)).reshape(
+        leaf.shape[0], -1), dim=1) for _, leaf in _leaves(deltas))
+
+
+def aircomp_aggregate(deltas, key, *, snr_db, h_min, mask=None,
+                      weights=None):
+    """Noisy mean of a stacked delta tree (leaves ``[M, ...]``) per Eq. 17.
+
+    ``mask`` marks the rows that transmit (channel scheduling): the others
+    are left out of the mean and Δ_max. ``weights`` make the mean the
+    size-weighted one; Δ_max keeps the unweighted row norms. ``key`` is the
+    raw channel key (CPU); leaf i's noise is ``normal(fold_in(key, i))``.
+    Returns (noisy mean tree, stats).
+    """
+    pairs = _leaves(deltas)
+    M = pairs[0][1].shape[0]
+    dev = pairs[0][1].device
+    d = tree_size(deltas) // M
+    sigma_w2 = P_TX / (10.0 ** (snr_db / 10.0))
+    sq = _delta_sq_norms(deltas)
+    maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    delta_max = torch.max(torch.where(maskf > 0, sq, zero))
+    noise_var = sigma_w2 * delta_max / (m_div ** 2 * float(d) * P_TX
+                                        * h_min ** 2)
+    noise_std = torch.sqrt(noise_var)
+    out = []
+    for i, (_, leaf) in enumerate(pairs):
+        mean = torch.einsum("m...,m->...", leaf.to(torch.float32),
+                            maskf) / m_div
+        g = prng.normal(prng.fold_in(key, i), tuple(mean.shape), device=dev)
+        out.append((mean + noise_std * g).to(leaf.dtype))
+    stats = {"aircomp_noise_std": noise_std, "delta_max": delta_max,
+             "m_effective": m_sched}
+    return tree_unflatten([p for p, _ in pairs], out), stats
+
+
 def aircomp_aggregate_flat(deltas, key, *, snr_db, h_min, d=None, mask=None,
                            weights=None, block_rows=None):
     """Eq.-17 aggregation of a flat delta matrix ``[M, n_pad]``.
@@ -89,3 +141,44 @@ def aircomp_aggregate_flat(deltas, key, *, snr_db, h_min, d=None, mask=None,
     stats = {"aircomp_noise_std": noise_std, "delta_max": delta_max,
              "m_effective": m_sched}
     return out, stats
+
+
+def aircomp_simulate_channel(deltas_flat, key, *, snr_db, h_min, h=None):
+    """Explicit complex-channel simulation on ``[M, d]`` deltas.
+
+    Only the scheduled devices (|h_i| ≥ h_min) transmit, with the Eq.-15
+    scalar α_i = (h_min/h_i)·sqrt(d·P/Δ_max); the server receives their
+    superposition plus complex AWGN, scales it back and keeps the real
+    part (Eq. 17). ``key`` is a raw key (CPU); ``h`` an optional channel
+    ``[M]`` complex64 in place of the fresh Rayleigh draw. Returns (y
+    ``[d]``, diagnostics: the channel, the mask, the scheduled count, the
+    per-device transmit energies, Δ_max and the energy budget d·P).
+    """
+    M, d = deltas_flat.shape
+    dev = deltas_flat.device
+    sigma_w2 = P_TX / (10.0 ** (snr_db / 10.0))
+    ks = prng.split(key, 2)
+    k_h, k_n = ks[0], ks[1]
+    if h is None:
+        h, mask = schedule_by_channel(k_h, M, h_min)
+        h, mask = h.to(dev), mask.to(dev)
+    else:
+        mask = torch.abs(h) >= h_min
+    maskf, m_div, m_sched = mask_stats(mask, M, device=dev)
+    sq = torch.sum(torch.square(deltas_flat), dim=1)
+    zero = torch.zeros((), dtype=sq.dtype, device=dev)
+    delta_max = torch.max(torch.where(maskf > 0, sq, zero))
+    alpha = maskf * (h_min / h) \
+        * torch.sqrt(d * P_TX / torch.clamp_min(delta_max, 1e-30))  # Eq. 15
+    tx = alpha[:, None] * deltas_flat.to(torch.complex64)
+    energies = torch.sum(torch.abs(tx) ** 2, dim=1)                  # ≤ d·P
+    kn = prng.split(k_n, 2)
+    noise = torch.complex(prng.normal(kn[0], (d,), device=dev),
+                          prng.normal(kn[1], (d,), device=dev)) \
+        * float(np.sqrt(np.float32(sigma_w2 / 2.0)))
+    s = torch.sum(h[:, None] * tx, dim=0) + noise                   # Eq. 14/16
+    rx_scale = torch.sqrt(delta_max / (d * P_TX * h_min ** 2)) / m_div
+    y = torch.real(rx_scale * s)                                     # Eq. 17
+    return y, {"h": h, "mask": mask, "m_effective": m_sched,
+               "tx_energy": energies, "delta_max": delta_max,
+               "energy_budget": d * P_TX}

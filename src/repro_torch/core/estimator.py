@@ -1,27 +1,46 @@
-"""Stochastic zeroth-order estimator, flat-buffer half (paper Eq. 2).
+"""Stochastic zeroth-order estimators (paper Sec. II-B, Eq. 2).
 
-Counterpart of ``repro/core/estimator.py:191-278``. With b2 directions v_n
-(regenerated from the counter convention, never stored) the coefficients
-are
+Counterpart of ``repro/core/estimator.py``. With b2 directions v_n the
+coefficients are
 
     c_n = scale·(L(x + μ·v_n) − L(x))/μ          (one-sided)
     c_n = scale·(L(x + μ·v_n) − L(x − μ·v_n))/2μ (central)
 
-with scale = d for the sphere estimator and 1 for gaussian/rademacher, and
-the update x + s·Σ_n c_n·v_n/b2 is replayed from the same keys in one pass.
+with scale = d for the sphere and coordinate estimators and 1 for
+gaussian/rademacher, and the update x + s·Σ_n c_n·v_n/b2 replays the same
+directions from the same keys. Directions are never kept between uses.
 
-Everything is batched over the leading client dimension: ``buf`` is
-``[M, n_pad]``, ``keys`` ``[M, 2]`` on the buffer's device, and ``loss_fn``
-maps a dict of ``[M, ...]`` parameters and a batch of ``[M, ...]`` leaves
-to ``[M]`` losses. The operation order is the reference's, so the float32
-roundings agree: ``scale·(lp − base)/μ`` and ``(scale/b2)·coeffs·inv``.
+Two halves, as in the reference:
+
+- **The pytree route** (``coefficients``, ``apply_coefficients``): each
+  direction is a materialized tree, regenerated per use from
+  ``fold_in(rng, n)`` (``conv="tree"``: per-leaf keys ``fold_in(., i)``,
+  ``utils/tree.py``) or from the flat counter convention
+  (``conv="counter"``). Every perturbation and every replayed update is
+  one ``zo_axpy`` launch per leaf (``utils/tree.tree_axpy``).
+- **The flat route** (``flat_*``): directions regenerated inside the
+  walk/replay/norm kernels from the counter convention. Everything is
+  batched over the leading client dimension: ``buf`` is ``[M, n_pad]``,
+  ``keys`` ``[M, 2]`` on the buffer's device, and ``loss_fn`` maps a dict
+  of ``[M, ...]`` parameters and a batch of ``[M, ...]`` leaves to ``[M]``
+  losses.
+
+The operation order is the reference's, so the float32 roundings agree:
+``scale·(lp − base)/μ``, ``scale·c_n/b2`` and ``(scale/b2)·coeffs·inv``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.flatparams import FlatSpec, unflatten
+from repro_torch.kernels.zo_axpy import counter_direction_flat
+from repro_torch.utils import prng
+from repro_torch.utils.flatparams import (FlatSpec, _leaves, flat_spec,
+                                          unflatten)
+from repro_torch.utils.tree import (normal_like_tree, sphere_like_tree,
+                                    tree_add_normal, tree_axpy,
+                                    tree_random_sq_norm, tree_size,
+                                    tree_unflatten)
 
 # estimator kind -> counter-convention generator kind (coordinate directions
 # have no streaming generator; the flat path rejects them)
@@ -39,6 +58,115 @@ def _counter_kind(kind):
     if ck is None:
         raise ValueError(f"flat path does not support kind={kind!r}")
     return ck
+
+
+# ---------------------------------------------------------------------------
+# pytree route
+
+
+def _device(params):
+    return _leaves(params)[0][1].device
+
+
+def sample_direction(rng, params, kind: str, dtype=torch.float32):
+    """One direction tree v shaped like ``params`` (``rng`` a raw key on
+    the CPU; leaves on their parameter's device)."""
+    if kind == "sphere":
+        return sphere_like_tree(rng, params, dtype=dtype)
+    if kind == "gaussian":
+        return normal_like_tree(rng, params, dtype=dtype)
+    pairs = _leaves(params)
+    paths = [p for p, _ in pairs]
+    if kind == "rademacher":
+        return tree_unflatten(paths, [
+            prng.rademacher(prng.fold_in(rng, i), leaf.shape, dtype=dtype,
+                            device=leaf.device)
+            for i, (_, leaf) in enumerate(pairs)])
+    if kind == "coordinate":
+        # one-hot at a uniformly random flat index, built leafwise
+        idx = int(prng.randint(rng, (), 0, tree_size(params)))
+        out, off = [], 0
+        for _, leaf in pairs:
+            n = leaf.numel()
+            flat = torch.arange(n, device=leaf.device) == idx - off
+            out.append(flat.reshape(leaf.shape).to(dtype))
+            off += n
+        return tree_unflatten(paths, out)
+    raise ValueError(f"unknown estimator kind {kind!r}")
+
+
+def counter_direction(rng, n, params, kind, dtype=torch.float32):
+    """Direction tree v_n under the flat counter convention: the elements
+    ``zo_walk``/``zo_replay`` regenerate, cut into the leaves (the sphere
+    norm over the valid length d)."""
+    ck = COUNTER_KINDS.get(kind)
+    if ck is None:
+        raise ValueError(f"counter convention does not support {kind!r}")
+    spec = flat_spec(params)
+    g = counter_direction_flat(rng.to(_device(params)), n, spec.d, kind=ck)
+    if kind == "sphere":
+        g = g * (1.0 / (torch.sqrt(torch.sum(g * g)) + 1e-30))
+    return tree_unflatten(spec.paths, [
+        g[off:off + sz].reshape(shp).to(dtype)
+        for shp, off, sz in zip(spec.shapes, spec.offsets, spec.sizes)])
+
+
+def _direction(rng, n, params, kind, dtype, conv):
+    if conv == "counter":
+        return counter_direction(rng, n, params, kind, dtype)
+    return sample_direction(prng.fold_in(rng, n), params, kind, dtype)
+
+
+def stream_perturb(params, key, mag, kind="sphere", dtype=torch.float32):
+    """params + mag·v(key) without keeping v: leaf by leaf (the sphere norm
+    first, from its own pass over the draws)."""
+    if kind == "coordinate":
+        return tree_axpy(mag, sample_direction(key, params, kind), params)
+    if kind == "sphere":
+        inv = 1.0 / (torch.sqrt(tree_random_sq_norm(key, params, dtype))
+                     + 1e-30)
+        return tree_add_normal(params, key, mag * inv, dtype)
+    return tree_add_normal(params, key, mag, dtype)  # gaussian
+
+
+def coefficients(loss_fn, params, batch, rng, *, mu, b2, kind="sphere",
+                 base_loss=None, direction_dtype=torch.float32,
+                 central=False, conv="tree"):
+    """The b2 coefficients c_n = scale·(L(x+μ v_n) − L(x))/μ (float32
+    ``[b2]``) and the base loss. ``loss_fn(params, batch) -> scalar``;
+    ``rng`` a raw key on the CPU. Each perturbed point is one ``zo_axpy``
+    per leaf, with μ read by the kernel from a tensor on the device."""
+    scale = _scale_factor(tree_size(params), kind)
+    base = loss_fn(params, batch) if base_loss is None else base_loss
+    mu_t = torch.full((), mu, dtype=torch.float32, device=_device(params))
+    coeffs = []
+    for n in range(b2):
+        v = _direction(rng, n, params, kind, direction_dtype, conv)
+        lp = loss_fn(tree_axpy(mu_t, v, params), batch)
+        if central:
+            lm = loss_fn(tree_axpy(-mu_t, v, params), batch)
+            c = scale * (lp - lm).to(torch.float32) / (2 * mu)
+        else:
+            c = scale * (lp - base).to(torch.float32) / mu
+        coeffs.append(c)
+    return torch.stack(coeffs), base
+
+
+def apply_coefficients(params, rng, coeffs, *, scale=1.0, kind="sphere",
+                       direction_dtype=torch.float32, conv="tree"):
+    """params + scale·Σ_n coeffs[n]·v_n/b2, replaying each v_n in
+    ascending n: one ``zo_axpy`` per leaf and direction, its scalar
+    ``scale·coeffs[n]/b2`` a tensor on the device."""
+    b2 = coeffs.shape[0]
+    p = params
+    for n in range(b2):
+        v = _direction(rng, n, params, kind, direction_dtype, conv)
+        p = tree_axpy(scale * coeffs[n] / b2, v, p)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# flat route
 
 
 def flat_inv_norms(keys, spec: FlatSpec, b2, kind, *, block_rows=None):
@@ -65,7 +193,7 @@ def flat_coefficients(loss_fn, buf, spec: FlatSpec, batch, keys, *, mu, b2,
     base = loss_fn(unflatten(buf, spec), batch)
     if inv is None:
         inv = flat_inv_norms(keys, spec, b2, kind, block_rows=block_rows)
-    mu = torch.tensor(mu, dtype=torch.float32, device=buf.device)
+    mu = torch.full((), mu, dtype=torch.float32, device=buf.device)
     xp, coeffs = buf, []
     for n in range(b2):
         prev = max(n - 1, 0)
@@ -95,6 +223,6 @@ def flat_apply_coefficients(buf, spec: FlatSpec, keys, coeffs, *, scale=1.0,
     b2 = coeffs.shape[1]
     if inv is None:
         inv = flat_inv_norms(keys, spec, b2, kind, block_rows=block_rows)
-    s = torch.tensor(scale, dtype=torch.float32, device=buf.device) / b2
+    s = torch.full((), scale, dtype=torch.float32, device=buf.device) / b2
     eff = s * coeffs.to(torch.float32) * inv
     return kops.zo_replay(buf, keys, eff, kind=ck)

@@ -1,0 +1,195 @@
+// Materialized-direction axpy kernels on flat vectors.
+//
+// Replace the TPU kernels of repro/kernels/zo_axpy.py:
+//   axpy_kernel<1, ...>  <- zo_axpy  (_axpy_kernel):  out = x + a*u
+//   axpy_kernel<2, ...>  <- zo_axpy2 (_axpy2_kernel): out = x + a*u + b*v
+// computed in float32 in that order, (x + a*u) + b*v, and stored in x's
+// dtype. x is float32 or bfloat16; u and v each x's dtype or float32. The
+// scalars a and (a, b) are read from device memory, as the Pallas kernels
+// read their SMEM scalars: on the pytree FedZO route a = lr*c_n/b2 is a
+// tensor on the card, and a host float would cost a synchronisation per
+// launch.
+//
+// What bounds them on an H100: memory. One multiply and one add per term
+// against 12 bytes (axpy, float32) or 16 bytes (axpy2) of traffic per
+// element: about 0.15 operations per byte where the card balances at ~20.
+//
+// What the design does about it: each thread moves 16 bytes per load (a
+// float4 of float32, or 8 bfloat16), in a grid-stride loop over the vector
+// body, so every array is read once and the output written once with the
+// widest loads the memory system serves. The Pallas wrapper pads to a 64Ki
+// block; here nothing is padded: a scalar tail finishes a length that is
+// not a multiple of the vector width. A leaf may be a view at any element
+// offset (a counter-convention direction is a slice of one flat buffer),
+// while the output is always freshly allocated; so the vector body runs
+// only when every pointer is 16-byte aligned, and otherwise the whole call
+// runs as the scalar loop. The build never contracts the
+// multiply-add (--fmad=false), so the result is bitwise the plain version's.
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+
+// VEC consecutive elements at a 16-byte aligned address, as float32.
+template <int VEC, typename T>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p,
+                                         float (&out)[VEC]) {
+  constexpr int kChunks = VEC * static_cast<int>(sizeof(T)) / 16;
+  static_assert(kChunks * 16 == VEC * static_cast<int>(sizeof(T)),
+                "a vector is a whole number of 16-byte chunks");
+  uint4 raw[kChunks];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    raw[c] = reinterpret_cast<const uint4*>(p)[c];
+  }
+  const T* e = reinterpret_cast<const T*>(raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = to_f32(e[i]);
+}
+
+template <int VEC, typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ p,
+                                          const float (&in)[VEC]) {
+  constexpr int kChunks = VEC * static_cast<int>(sizeof(T)) / 16;
+  uint4 raw[kChunks];
+  T* e = reinterpret_cast<T*>(raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(in[i]);
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    reinterpret_cast<uint4*>(p)[c] = raw[c];
+  }
+}
+
+// TERMS = 1: out = x + s[0]*u. TERMS = 2: out = (x + s[0]*u) + s[1]*v.
+// The nvec vectors of [0, nvec*VEC) start at 16-byte aligned addresses;
+// the elements [nvec*VEC, n) take the scalar loop.
+template <int TERMS, int VEC, typename TX, typename TU, typename TV>
+__global__ void __launch_bounds__(kThreads)
+    axpy_kernel(const TX* __restrict__ x, const TU* __restrict__ u,
+                const TV* __restrict__ v, TX* __restrict__ out,
+                const float* __restrict__ s, long long n, long long nvec) {
+  const float a = s[0];
+  const float b = TERMS == 2 ? s[1] : 0.0f;
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = nvec * VEC + tid; j < n; j += stride) {
+    float t = to_f32(x[j]) + a * to_f32(u[j]);
+    if constexpr (TERMS == 2) t = t + b * to_f32(v[j]);
+    out[j] = from_f32<TX>(t);
+  }
+  for (long long k = tid; k < nvec; k += stride) {
+    const long long j = k * VEC;
+    float xs[VEC], us[VEC], vs[VEC];
+    load_vec<VEC>(x + j, xs);
+    load_vec<VEC>(u + j, us);
+    if constexpr (TERMS == 2) load_vec<VEC>(v + j, vs);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float t = xs[e] + a * us[e];
+      if constexpr (TERMS == 2) t = t + b * vs[e];
+      xs[e] = t;
+    }
+    store_vec<VEC>(out + j, xs);
+  }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess) {
+      count = 132;
+    }
+  }
+  return count;
+}
+
+template <int TERMS, typename TX, typename TU, typename TV>
+int launch(const void* x, const void* u, const void* v, void* out,
+           const float* s, long long n, cudaStream_t stream) {
+  // 8 elements per vector when any array is bfloat16 (16 bytes of it),
+  // else a float4
+  constexpr bool kAllF32 = sizeof(TX) == 4 && sizeof(TU) == 4 &&
+                           (TERMS == 1 || sizeof(TV) == 4);
+  constexpr int VEC = kAllF32 ? 4 : 8;
+  const uintptr_t addr_bits =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(u) |
+      reinterpret_cast<uintptr_t>(out) |
+      (TERMS == 2 ? reinterpret_cast<uintptr_t>(v) : 0);
+  const long long nvec = addr_bits % 16 == 0 ? n / VEC : 0;
+  const long long work = nvec > n - nvec * VEC ? nvec : n - nvec * VEC;
+  long long blocks = (work + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
+  blocks = blocks < cap ? blocks : cap;
+  if (blocks < 1) return 0;
+  axpy_kernel<TERMS, VEC, TX, TU, TV>
+      <<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TU*>(u),
+          static_cast<const TV*>(v), static_cast<TX*>(out), s, n, nvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+extern "C" {
+
+// dtype codes: 0 float32, 1 bfloat16. x is float32 or bfloat16; u and v
+// each x's dtype or float32; out has x's dtype and n elements.
+int zo_axpy_launch(const void* x, const void* u, const float* a, void* out,
+                   long long n, int x_dtype, int u_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return 0;
+  if (x_dtype == 0 && u_dtype == 0) {
+    return launch<1, float, float, float>(x, u, nullptr, out, a, n, s);
+  }
+  if (x_dtype == 1 && u_dtype == 1) {
+    return launch<1, bf16, bf16, float>(x, u, nullptr, out, a, n, s);
+  }
+  if (x_dtype == 1 && u_dtype == 0) {
+    return launch<1, bf16, float, float>(x, u, nullptr, out, a, n, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int zo_axpy2_launch(const void* x, const void* u, const void* v,
+                    const float* ab, void* out, long long n, int x_dtype,
+                    int u_dtype, int v_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return 0;
+  if (x_dtype == 0 && u_dtype == 0 && v_dtype == 0) {
+    return launch<2, float, float, float>(x, u, v, out, ab, n, s);
+  }
+  if (x_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (u_dtype * 2 + v_dtype) {
+    case 0: return launch<2, bf16, float, float>(x, u, v, out, ab, n, s);
+    case 1: return launch<2, bf16, float, bf16>(x, u, v, out, ab, n, s);
+    case 2: return launch<2, bf16, bf16, float>(x, u, v, out, ab, n, s);
+    case 3: return launch<2, bf16, bf16, bf16>(x, u, v, out, ab, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

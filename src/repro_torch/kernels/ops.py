@@ -1,8 +1,11 @@
 """Kernel wrappers: dispatch by device, launch counters.
 
-The four ZO kernels of the flat FedZO round and the two of the dense
-transformer forward (RMSNorm, flash attention). A tensor on the CPU goes to
-the kernel's plain PyTorch version (``kernels/zo_axpy.py``,
+The four ZO kernels of the flat FedZO round, the two axpys of the pytree
+route (``axpy`` per leaf in ``utils/tree.tree_axpy``; ``axpy2`` and
+``tree_axpy2``, the reference's public entry points for ``zo_axpy2``) and
+the two of the dense transformer forward (RMSNorm, flash attention). A
+tensor on the CPU goes to the kernel's plain PyTorch version
+(``kernels/zo_axpy.py``,
 ``kernels/zo_aircomp.py``, ``kernels/rmsnorm.py``,
 ``kernels/flash_attention.py``). A tensor on a CUDA
 device goes to the hand-written kernel (``kernels/csrc/*.cu``), built on
@@ -25,11 +28,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.kernels.zo_aircomp import aircomp_reduce_plain
-from repro_torch.kernels.zo_axpy import (zo_dirnorms_plain, zo_replay_plain,
+from repro_torch.kernels.zo_axpy import (zo_axpy2_plain, zo_axpy_plain,
+                                         zo_dirnorms_plain, zo_replay_plain,
                                          zo_walk_plain)
 
 LAUNCHES = {"zo_walk": 0, "zo_replay": 0, "zo_dirnorms": 0,
-            "aircomp_reduce": 0, "rmsnorm": 0, "flash_attention": 0}
+            "aircomp_reduce": 0, "zo_axpy": 0, "zo_axpy2": 0, "rmsnorm": 0,
+            "flash_attention": 0}
 _KIND_CODE = {"normal": 0, "sign": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -75,6 +80,78 @@ def _check(rc: int, name: str):
 
 def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _scalars(vals, device):
+    """Float32 ``[len(vals)]`` on ``device`` from scalars or one-element
+    tensors. A lone float32 tensor already on ``device`` is used as it is;
+    otherwise each slot is filled on the device (a fill or a device copy,
+    never a host synchronisation)."""
+    if len(vals) == 1 and isinstance(vals[0], torch.Tensor) \
+            and vals[0].numel() == 1 and vals[0].dtype == torch.float32 \
+            and vals[0].device == device:
+        return vals[0].reshape(1)
+    out = torch.empty(len(vals), dtype=torch.float32, device=device)
+    for i, v in enumerate(vals):
+        out[i] = v.reshape(()) if isinstance(v, torch.Tensor) else float(v)
+    return out
+
+
+def _axpy_operands(x, vecs):
+    """Check x (float32 or bfloat16) and the vectors (each x's dtype or
+    float32, x's shape, contiguous, on x's device); their dtype codes."""
+    codes = [_dtype_code(x, "x")]
+    _need(x, "x", x.dtype, x.shape, x.device)
+    for name, t in vecs:
+        if t.dtype not in (x.dtype, torch.float32):
+            raise ValueError(f"{name}: must be x's dtype ({x.dtype}) or "
+                             f"float32, got {t.dtype}")
+        _need(t, name, t.dtype, x.shape, x.device)
+        codes.append(_DTYPE_CODE[t.dtype])
+    return codes
+
+
+def axpy(x, u, a):
+    """x + a·u in float32, returned in x's dtype (``zo_axpy``). x float32
+    or bfloat16, u of x's shape in x's dtype or float32, ``a`` a scalar or
+    a one-element tensor (on the card, best a float32 tensor there: it is
+    read by the kernel, so the host never waits for it)."""
+    if _on_cpu(x):
+        return zo_axpy_plain(x, u, a)
+    xc, uc = _axpy_operands(x, [("u", u)])
+    s = _scalars([a], x.device)
+    out = torch.empty_like(x)
+    lib = build.load()["axpy"]
+    _check(lib.zo_axpy_launch(x.data_ptr(), u.data_ptr(), s.data_ptr(),
+                              out.data_ptr(), x.numel(), xc, uc, _stream()),
+           "zo_axpy")
+    LAUNCHES["zo_axpy"] += 1
+    return out
+
+
+def axpy2(x, u, v, a, b):
+    """x + a·u + b·v in float32, returned in x's dtype (``zo_axpy2``), for
+    same-shaped x, u, v of any length; u and v each x's dtype or float32.
+    No padding: the kernel masks its own ragged edge."""
+    if _on_cpu(x):
+        return zo_axpy2_plain(x, u, v, (a, b))
+    xc, uc, vc = _axpy_operands(x, [("u", u), ("v", v)])
+    s = _scalars([a, b], x.device)
+    out = torch.empty_like(x)
+    lib = build.load()["axpy"]
+    _check(lib.zo_axpy2_launch(x.data_ptr(), u.data_ptr(), v.data_ptr(),
+                               s.data_ptr(), out.data_ptr(), x.numel(), xc,
+                               uc, vc, _stream()), "zo_axpy2")
+    LAUNCHES["zo_axpy2"] += 1
+    return out
+
+
+def tree_axpy2(x_tree, u_tree, v_tree, a, b):
+    """Leafwise fused x + a·u + b·v over nested dicts of one structure (the
+    MeZO unperturb-and-reperturb pass): one ``axpy2`` per leaf."""
+    return {k: tree_axpy2(x, u_tree[k], v_tree[k], a, b)
+            if isinstance(x, dict) else axpy2(x, u_tree[k], v_tree[k], a, b)
+            for k, x in x_tree.items()}
 
 
 def zo_walk(x, keys, nn, ab, *, kind="normal"):

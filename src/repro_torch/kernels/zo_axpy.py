@@ -1,21 +1,26 @@
-"""Counter-convention directions and the plain versions of the ZO kernels.
+"""The plain versions of the ZO kernels, and counter-convention directions.
 
-Counterpart of ``repro/kernels/zo_axpy.py``. A direction element is a pure
-function of ``(round_key, n, flat_index)`` through Threefry-2x32: the perturb
-end (``zo_walk``), the replay end (``zo_replay``) and the sphere norms
+Counterpart of ``repro/kernels/zo_axpy.py``. Two of its kernels stream
+materialized vectors of any shape: ``zo_axpy`` (x + a·u, the pytree route's
+perturbation and replayed update, one leaf at a time) and ``zo_axpy2``
+(x + a·u + b·v, the MeZO unperturb-and-reperturb pass). The other three
+regenerate their directions: a direction element is a pure function of
+``(round_key, n, flat_index)`` through Threefry-2x32, so the perturb end
+(``zo_walk``), the replay end (``zo_replay``) and the sphere norms
 (``zo_dirnorms``) regenerate the same direction from the same three numbers,
-so no direction is ever stored.
+and no direction is ever stored.
 
-Everything here is batched over a leading row dimension: the M sampled
-clients of a round, each with its own key ``keys[m] = (k0, k1)`` and its own
-coefficients, so one call covers the cohort (the reference vmaps its Pallas
-calls over the clients). Buffers are ``[M, N]`` float32, keys ``[M, 2]``
-int64 holding uint32 words.
+The direction kernels are batched over a leading row dimension: the M
+sampled clients of a round, each with its own key ``keys[m] = (k0, k1)``
+and its own coefficients, so one call covers the cohort (the reference
+vmaps its Pallas calls over the clients). Buffers are ``[M, N]`` float32,
+keys ``[M, 2]`` int64 holding uint32 words.
 
 The plain versions below are what a wrapper in ``kernels/ops.py`` runs for a
 tensor on the CPU, and what ``chip_smoke.py`` holds each CUDA kernel
 against on the card. They keep the reference oracles' arithmetic order
-(``repro/kernels/ref.py``): the walk adds ``a·g_prev`` then ``b·g_next``;
+(``repro/kernels/ref.py``): the axpys add ``a·u`` then ``b·v`` in float32;
+the walk adds ``a·g_prev`` then ``b·g_next``;
 the replay accumulates ``acc += c[n]·g_n`` in ascending n from zero; the
 norms sum per ``block_rows·128`` block, then across blocks in block order.
 """
@@ -32,6 +37,29 @@ BLOCK_ROWS = 512           # pad granularity of the reference: 512·128 = 64Ki
 _TWO_M24 = 2.0 ** -24
 _TWO_M25 = 2.0 ** -25
 _TWO_PI_F32 = float(np.float32(2.0 * 3.14159265358979323846))  # rounded once
+
+
+def _f32_scalar(a):
+    """A 0-d float32 tensor of a scalar or one-element tensor (a CPU scalar
+    combines with a tensor on any device)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32).reshape(())
+    return torch.tensor(a, dtype=torch.float32)
+
+
+def zo_axpy_plain(x, u, a):
+    """x + a[0]·u in float32, cast to x's dtype (``ref.axpy_ref``). ``a``:
+    float32 ``[1]``. The explicit casts matter: torch keeps a float32 0-d
+    tensor times a bfloat16 tensor in bfloat16, where jnp promotes."""
+    a = _f32_scalar(a)
+    return (x.float() + a * u.float()).to(x.dtype)
+
+
+def zo_axpy2_plain(x, u, v, ab):
+    """(x + ab[0]·u) + ab[1]·v in float32, cast to x's dtype
+    (``ref.axpy2_ref``). ``ab``: float32 ``[2]``."""
+    a, b = _f32_scalar(ab[0]), _f32_scalar(ab[1])
+    return (x.float() + a * u.float() + b * v.float()).to(x.dtype)
 
 
 def _bits_to_normal(b0, b1):

@@ -136,8 +136,16 @@ def init_embed(rng, vocab, d_model, dtype, tie, *, device="cpu"):
 
 
 def embed_fwd(p, tokens):
-    """Token embedding lookup: rows of the table."""
-    return p["tok"][tokens.to(torch.int64)]
+    """Token embedding lookup with ``jnp.take(table, tokens, axis=0)``'s
+    semantics: a negative id counts from the end of the table, and an id
+    outside ``[-rows, rows)`` gives a row of NaN. One gather from a clamped
+    index, then a mask: no branch on the ids' values."""
+    table = p["tok"]
+    rows = table.shape[0]
+    ids = tokens.to(torch.int64)
+    valid = (ids >= -rows) & (ids < rows)
+    idx = torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)
+    return torch.where(valid[..., None], table[idx], float("nan"))
 
 
 def unembed_fwd(p, x, tie, vocab=None):

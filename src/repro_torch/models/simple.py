@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.utils import prng
 
 
@@ -28,7 +29,10 @@ def mean_xent(logits, y):
 # softmax regression (Sec V-B)
 
 
-def softmax_init(n_features=784, n_classes=10, *, device="cpu"):
+def softmax_init(n_features=784, n_classes=10, *, device="cuda"):
+    """Zero weights on ``device`` (the card unless the caller asks for the
+    CPU; raises without a card)."""
+    device = resolve_device(device)
     return {"w": torch.zeros((n_features, n_classes), dtype=torch.float32,
                              device=device),
             "b": torch.zeros((n_classes,), dtype=torch.float32,
@@ -60,9 +64,12 @@ def _conv_pool(h, w_hwio):
 
 
 def smallcnn_init(key, image_shape=(28, 28, 1), n_classes=10, width=8, *,
-                  device="cpu"):
+                  device="cuda"):
     """3x3 conv -> 2x2 pool, twice, then a linear head; weights drawn from
-    the jax-compatible key chain (``key``: a raw key, ``prng.key(seed)``)."""
+    the jax-compatible key chain (``key``: a raw key, ``prng.key(seed)``)
+    and placed on ``device`` (the card unless the caller asks for the CPU;
+    raises without a card)."""
+    device = resolve_device(device)
     h, w, cin = image_shape
     fh, fw = (h // 2) // 2, (w // 2) // 2
     ks = prng.split(key, 3)

@@ -1,4 +1,4 @@
-"""Multi-round federation engine (fedzo strategy, flat route).
+"""Multi-round federation engine (fedzo strategy, pytree and flat routes).
 
 Counterpart of ``repro/sim/engine.py:84-180, 297-477``. The reference runs
 a whole experiment as one compiled ``lax.scan``; here a Python loop runs the
@@ -27,6 +27,7 @@ from repro_torch.core import aircomp, fedzo
 from repro_torch.sim.store import (ClientStore, sample_batches,
                                    sample_participants)
 from repro_torch.utils import prng
+from repro_torch.utils.tree import tree_zeros_like
 
 
 def split_round_keys(key):
@@ -53,7 +54,7 @@ def make_round_step(loss_fn, cfg: FedZOConfig) -> Callable:
     metrics)``."""
     if cfg.strategy != "fedzo":
         raise NotImplementedError(f"strategy {cfg.strategy!r} is not ported")
-    fedzo.check_flat_route(cfg)
+    fedzo.check_route(cfg)
 
     def step(params, momentum, key, store: ClientStore):
         key, k_part, k_batch, k_zo, k_chan = split_round_keys(key)
@@ -102,7 +103,7 @@ def run_experiment(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
     if key is None:
         key = experiment_key(cfg)
     if momentum is None and has_momentum(cfg):
-        momentum = {k: torch.zeros_like(v) for k, v in params.items()}
+        momentum = tree_zeros_like(params)
     do_eval = eval_fn is not None and eval_every > 0
     mets: dict = {}
     evs: dict = {}

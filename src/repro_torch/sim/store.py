@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.utils import prng
 
 
@@ -71,9 +72,11 @@ def stack_padded(leaves, cap: int) -> np.ndarray:
     return out
 
 
-def build_store(clients, *, device="cpu") -> ClientStore:
+def build_store(clients, *, device="cuda") -> ClientStore:
     """Stack a list of per-client dataset dicts into one ClientStore on
-    ``device``, zero-padding every client to the largest row count."""
+    ``device`` (the card unless the caller asks for the CPU; raises without
+    a card), zero-padding every client to the largest row count."""
+    device = resolve_device(device)
     sizes = client_sizes(clients)
     cap = max(sizes)
     data = {k: torch.from_numpy(stack_padded([c[k] for c in clients],

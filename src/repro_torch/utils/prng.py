@@ -11,7 +11,7 @@ integers as the reference:
 - ``split(key, num)``       -> ``[..., num, 2]`` (fold-like split)
 - ``fold_in(key, data)``
 - ``random_bits(key, shape)`` (32-bit: ``bits1 ^ bits2``)
-- ``randint``, ``permutation``, ``uniform``, ``normal``
+- ``randint``, ``permutation``, ``uniform``, ``normal``, ``rademacher``
 
 A key is an int64 tensor of shape ``[..., 2]`` holding the two uint32 words
 (torch has no uint32 add or shift on the CPU, so every uint32 operation is
@@ -49,9 +49,12 @@ def _rotl32(x, r: int):
 
 
 def threefry2x32(k0, k1, c0, c1):
-    """Threefry-2x32, 20 rounds, on int64 tensors holding uint32 values.
+    """Threefry-2x32, 20 rounds, on int64 tensors or Python ints holding
+    uint32 values.
 
     Arguments broadcast against each other; returns the two output words.
+    On ints (a single host key's ``split`` or ``fold_in``) it costs no
+    tensor operation.
     """
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = _u32(c0 + ks[0])
@@ -64,6 +67,10 @@ def threefry2x32(k0, k1, c0, c1):
         x0 = _u32(x0 + ks[(i + 1) % 3])
         x1 = _u32(x1 + ks[(i + 2) % 3] + (i + 1))
     return x0, x1
+
+
+def _one_host_key(k: torch.Tensor) -> bool:
+    return k.dim() == 1 and k.device.type == "cpu"
 
 
 def key(seed: int) -> torch.Tensor:
@@ -90,6 +97,10 @@ def _words(k, extra_dims: int):
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(k, num)`` under the partitionable (fold-like)
     split: word pair i is ``threefry(k, hi=0, lo=i)``."""
+    if _one_host_key(k):
+        k0, k1 = k.tolist()
+        return torch.tensor([threefry2x32(k0, k1, 0, i) for i in range(num)],
+                            dtype=torch.int64).reshape(num, 2)
     k0, k1 = _words(k, 1)
     lo = torch.arange(num, dtype=torch.int64)
     x0, x1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
@@ -98,6 +109,10 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(k, data)``: ``threefry(k, [0, data])``."""
+    if _one_host_key(k):
+        k0, k1 = k.tolist()
+        return torch.tensor(threefry2x32(k0, k1, 0, int(data) & MASK32),
+                            dtype=torch.int64)
     x0, x1 = threefry2x32(k[..., 0], k[..., 1], 0, int(data) & MASK32)
     return torch.stack([x0, x1], dim=-1)
 
@@ -111,9 +126,12 @@ def random_bits(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
     if size >= 2 ** 32:
         raise NotImplementedError("random bits of 2**32 elements or more")
     dev = k.device if device is None else torch.device(device)
-    k0, k1 = _words(k.to(dev), len(shape))
+    if _one_host_key(k):
+        k0, k1 = k.tolist()     # words as ints: no copy to the device
+    else:
+        k0, k1 = _words(k.to(dev), len(shape))
     lo = torch.arange(size, dtype=torch.int64, device=dev).reshape(shape)
-    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    x0, x1 = threefry2x32(k0, k1, 0, lo)
     return x0 ^ x1
 
 
@@ -164,9 +182,11 @@ def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0, *,
     bits = random_bits(k, shape, device=device)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # the bounds as float32 scalars (a Python scalar reaches the device as
+    # a kernel argument; a 0-d tensor would be a copy and a host wait)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span, lo = float(hi - lo), float(lo)
+    return torch.clamp_min(floats * span + lo, lo)
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -174,12 +194,12 @@ _SQRT2 = float(np.float32(np.sqrt(2)))
 # Giles' single-precision erfinv coefficients, the polynomial XLA evaluates
 # for float32 (w < 5 and w >= 5 branches). torch.erfinv is another
 # approximation and lands up to ~90 ulp away from jax; this one within 3.
-_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
-               -4.39150654e-06, 0.00021858087, -0.00125372503,
-               -0.00417768164, 0.246640727, 1.50140941)
-_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
-               -0.00367342844, 0.00573950773, -0.0076224613,
-               0.00943887047, 1.00167406, 2.83297682)
+_ERFINV_LT5 = tuple(float(np.float32(c)) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941))
+_ERFINV_GE5 = tuple(float(np.float32(c)) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
@@ -187,12 +207,10 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    p = torch.where(lt, torch.tensor(_ERFINV_LT5[0], **f32),
-                    torch.tensor(_ERFINV_GE5[0], **f32))
+    # float32 coefficients as Python scalars: kernel arguments, no copies
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = torch.where(lt, torch.tensor(a, **f32), torch.tensor(b, **f32)) \
-            + p * w
+        p = torch.where(lt, a, b) + p * w
     return p * x
 
 
@@ -202,3 +220,11 @@ def normal(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
     10^5 draws: log1p and rounding order differ from XLA's)."""
     u = uniform(k, shape, _NORMAL_LO, 1.0, device=device)
     return erfinv(u) * _SQRT2
+
+
+def rademacher(k: torch.Tensor, shape, *, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    """``jax.random.rademacher``: ±1 from ``bernoulli(k, 0.5)``, i.e.
+    ``uniform(k, shape) < 0.5`` mapped to ``2·b − 1``. Bitwise jax's."""
+    b = (uniform(k, shape, device=device) < 0.5).to(dtype)
+    return (2 * b - 1).to(dtype)

@@ -6,8 +6,9 @@ with an H100 and nvcc:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-The sign kind and the AirComp mean are bitwise; the normal kind within 4
-ulp of the summed terms; the norms within a relative 1e-5. RMSNorm and flash
+The sign kind, the AirComp mean and the two axpys (any dtype mix, ragged
+length, view offset) are bitwise; the normal kind within 4 ulp of the
+summed terms; the norms within a relative 1e-5. RMSNorm and flash
 attention: float32 within a relative 1e-5 (another summation order),
 bfloat16 within 1 bf16 ulp of the output. ``chip_smoke.py`` repeats these at
 the main path's full shapes and times them.
@@ -99,10 +100,66 @@ def test_wrappers_count_their_launches(gen):
                 torch.ones(64, device="cuda"))
     q = torch.ones(1, 8, 2, 32, device="cuda")
     ops.attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
+    ops.axpy(x, x, 0.5)
+    ops.axpy2(x, x, x, 0.5, 0.25)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"zo_walk": 1, "zo_replay": 1, "zo_dirnorms": 1,
-                            "aircomp_reduce": 1, "rmsnorm": 1,
-                            "flash_attention": 1}
+                            "aircomp_reduce": 1, "zo_axpy": 1, "zo_axpy2": 1,
+                            "rmsnorm": 1, "flash_attention": 1}
+
+
+_AXPY_DTYPES = [(torch.float32,) * 3, (torch.bfloat16,) * 3,
+                (torch.bfloat16, torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dts", _AXPY_DTYPES,
+                         ids=lambda d: "-".join(str(t)[6:] for t in d))
+@pytest.mark.parametrize("n", [1, 7, 4096, 65537])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 0, 5)])
+def test_axpy_kernels_on_card(gen, dts, n, offsets):
+    """Bitwise against the plain versions: x, u, v views at the given
+    element offsets (all 0: 16-byte vectors, then a scalar tail; any other:
+    the scalar loop throughout, since the output is freshly allocated) and
+    a ragged length."""
+    def view(dt, off):
+        base = torch.randn(n + off, generator=gen, device="cuda").to(dt)
+        return base[off:]
+
+    x, u, v = (view(dt, off) for dt, off in zip(dts, offsets))
+    a, b = torch.randn(2, generator=gen, device="cuda")
+    got = ops.axpy(x, u, a)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got, za.zo_axpy_plain(x, u, a))
+    got = ops.axpy2(x, u, v, a, b)
+    assert got.dtype == x.dtype
+    assert torch.equal(got, za.zo_axpy2_plain(x, u, v, torch.stack([a, b])))
+
+
+def test_axpy_reads_its_scalar_on_the_card_without_a_sync(gen):
+    """A scalar that lives on the card is read by the kernel: no launch of
+    the pytree route's perturbation or update waits for the host."""
+    x = torch.randn(3, 1000, generator=gen, device="cuda")
+    u = torch.randn(3, 1000, generator=gen, device="cuda")
+    a = torch.randn((), generator=gen, device="cuda")
+    ops.axpy(x, u, a)                       # builds on first use
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.axpy(x, u, a)
+        got2 = ops.axpy2(x, u, u, a, -a)
+        tree = ops.tree_axpy2({"w": {"x": x}}, {"w": {"x": u}},
+                              {"w": {"x": u}}, a, -a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, za.zo_axpy_plain(x, u, a))
+    assert torch.equal(got2, za.zo_axpy2_plain(x, u, u, torch.stack([a, -a])))
+    assert torch.equal(tree["w"]["x"], got2)
+    with pytest.raises(ValueError, match="float32"):
+        ops.axpy(x, u.half(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.axpy(x.t(), u.t(), a)
 
 
 def _bf16_ulps(got, want, floor):
@@ -194,5 +251,39 @@ def test_train_step_on_card_matches_the_cpu(gen):
         batch = {"tokens": tok[:, :-1].to(dev), "labels": tok[:, 1:].to(dev)}
         new, mets = step(params, batch, prng.key(3))
         out[dev] = (flatten(new, spec).cpu(), float(mets["loss"]))
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * out["cpu"][1]
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 3e-4
+
+
+def test_pytree_train_step_on_card_matches_the_cpu(gen):
+    """One pytree train step of qwen2-0.5b-smoke (the launcher's route:
+    tree-convention sphere directions, one zo_axpy per leaf per
+    perturbation and update) on the card and on the CPU from the same
+    weights: 2·b2·14 zo_axpy launches, and the weights within the flat
+    step's 3e-4 (the same loss-ulp argument)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.core import fedzo
+    from repro_torch.models import api
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+
+    model = api.build(get_config("qwen2-0.5b-smoke"))
+    step = fedzo.make_train_step(model.loss, FedZOConfig(lr=1e-3, mu=1e-2,
+                                                         b2=4))
+    init = model.init(prng.key(0), device="cpu")
+    spec = flat_spec(init)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 17), dtype=np.int32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: v for k, v in unflatten(
+            flatten(init, spec).to(dev), spec).items()}
+        batch = {"tokens": tok[:, :-1].to(dev), "labels": tok[:, 1:].to(dev)}
+        ops.reset_launches()
+        new, mets = step(params, batch, prng.key(3))
+        out[dev] = (flatten(new, spec).cpu(), float(mets["loss"]),
+                    dict(ops.LAUNCHES))
+    assert out["cuda"][2]["zo_axpy"] == 2 * 4 * len(spec.paths)
+    assert out["cpu"][2]["zo_axpy"] == 0
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * out["cpu"][1]
     assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 3e-4

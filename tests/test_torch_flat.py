@@ -71,7 +71,8 @@ def test_smallcnn_init_and_forward_match_reference():
     ulps; the forward (HWIO/NHWC permuted to torch's layouts) within the
     float32 rounding of the convolutions."""
     want = _cnn_params(3)
-    got = tsimple.smallcnn_init(prng.key(3), (12, 12, 1), 4, 4)
+    got = tsimple.smallcnn_init(prng.key(3), (12, 12, 1), 4, 4,
+                                device="cpu")
     for k in want:
         err = np.abs(got[k].numpy() - want[k]) / np.spacing(
             np.maximum(np.abs(want[k]), np.float32(1e-30)))

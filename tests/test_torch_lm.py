@@ -44,6 +44,18 @@ from repro_torch.utils import flatparams as tflat
 SMOKE = "qwen2-0.5b-smoke"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU path is thousands of small tensor ops. One intra-op
+    thread runs them as fast, and leaves the other test workers' cores
+    alone: eight threads per op wait on each other when the cores are
+    shared."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ulps(got, want):
     """max |got - want| in float32 spacings at |want| (numpy arrays)."""
     want = np.asarray(want, np.float32)
@@ -88,7 +100,8 @@ def test_unported_architectures_and_routes_raise():
     with pytest.raises(NotImplementedError):
         model.prefill({}, {}, 16)
     with pytest.raises(NotImplementedError):
-        fedzo.make_train_step(model.loss, FedZOConfig())({}, {}, prng.key(0))
+        fedzo.make_train_step(model.loss, FedZOConfig(
+            batch_directions=True))({}, {}, prng.key(0))
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             model.init(prng.key(0))

@@ -55,6 +55,18 @@ ATOL = {
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU path is thousands of small tensor ops. One intra-op
+    thread runs them as fast, and leaves the other test workers' cores
+    alone: eight threads per op wait on each other when the cores are
+    shared."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tasks(name):
     spec = CONFIGS[name]
     kw = dict(spec["task"])
@@ -170,11 +182,23 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tneural.make_task("softmax", n_train=40, n_test=8, n_clients=2,
                           n_features=4, n_classes=2)
+    from repro_torch.models import simple as tsimple
+    clients = [{"x": np.zeros((3, 2), np.float32),
+                "y": np.zeros(3, np.int32)}]
+    for call in (lambda: tstore.build_store(clients),
+                 lambda: tsimple.softmax_init(4, 2),
+                 lambda: tsimple.smallcnn_init(prng.key(0), (8, 8, 1), 2,
+                                               2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_unported_routes_raise():
     from repro_torch.configs.base import FedZOConfig
-    for kw in (dict(), dict(flat_params=True, batch_directions=True),
+    for kw in (dict(batch_directions=True), dict(direction_conv="surrogate"),
+               dict(delta_compression="seed"),
+               dict(direction_dtype="bfloat16"),
+               dict(flat_params=True, batch_directions=True),
                dict(flat_params=True, estimator="coordinate")):
         with pytest.raises((NotImplementedError, ValueError)):
             tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(**kw))
