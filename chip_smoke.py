@@ -20,8 +20,8 @@ each of which raises on a failure (the script then exits non-zero):
      step's width (M = 1, n_pad = 494,075,904, d = 494,032,768, b2 = 8).
    - rmsnorm ([512, 896] and the [7168, 64] rows of a qk_norm) and
      flash_attention (q [4, 128, 14, 64], k/v [4, 128, 2, 64], causal; a
-     ragged S = 100, a window of 32, a non-causal call), each in float32
-     and bfloat16. Tolerances: float32 within a relative 1e-5 (another
+     ragged S = 100, a window of 32, a non-causal call, causal S = 512, a
+     ragged S = 1,000 with a window of 256), each in float32 and bfloat16. Tolerances: float32 within a relative 1e-5 (another
      summation order); bfloat16 within 1 bf16 ulp of the output (the two
      float32 results round to neighbouring bf16 values at most).
    - zo_axpy and zo_axpy2, bitwise, for float32 and bfloat16 x with u, v
@@ -63,6 +63,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -393,7 +394,10 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
     errs = []
     cases = [("main", LM_B, LM_S, True, 0), ("ragged S=100", 2, 100, True, 0),
              ("window 32", 2, LM_S, True, 32),
-             ("non-causal S=100", 2, 100, False, 0)]
+             ("non-causal S=100", 2, 100, False, 0),
+             # several K/V tiles through the two staging buffers
+             ("causal S=512", 1, 512, True, 0),
+             ("ragged S=1000 window 256", 1, 1000, True, 256)]
     for name, b, sq, causal, window in cases:
         for dt in (torch.float32, torch.bfloat16):
             q = rnd(b, sq, LM_HQ, LM_HD, dtype=dt)
@@ -437,16 +441,24 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
         replaces="src/repro/kernels/flash_attention.py:90",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, **bound(nbytes, flops, "fp32"))
+    r = rows["flash_attention"]
+    lines.append(
+        f"flash_attention fp32 main: ms {ms:.5f} plain {plain_ms:.5f} library "
+        f"{library_ms:.5f} ({ms / library_ms:.2f}x SDPA) bound "
+        f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['bound_ms'] / ms:.1%} of "
+        f"it)")
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     bb = bound(nbytes // 2, flops, "bf16")
+    ms_b = median_ms(torch, lambda: ops.attention(qb, kb, vb), 50)
+    lib_b = median_ms(torch, lambda: sdpa(qb, kb, vb), 50)
     lines.append(
         "flash_attention bf16 main: ms {:.5f} plain {:.5f} library {:.5f} "
-        "bound {:.5f} ({})".format(
-            median_ms(torch, lambda: ops.attention(qb, kb, vb), 50),
+        "({:.2f}x SDPA) bound {:.5f} ({}, {:.1%} of it)".format(
+            ms_b,
             median_ms(torch, lambda: plain_flash.flash_attention_plain(
                 qb, kb, vb), 20),
-            median_ms(torch, lambda: sdpa(qb, kb, vb), 50),
-            bb["bound_ms"], bb["bound_by"]))
+            lib_b, ms_b / lib_b, bb["bound_ms"], bb["bound_by"],
+            bb["bound_ms"] / ms_b))
     for line in lines:
         print(line)
     return rows
@@ -596,15 +608,16 @@ def check_axpy_kernels(torch, ops, plain):
                 x, u, v, torch.stack([-mu, mu])), 5),
             library_ms=None, **bound(16 * n, 4 * n, "fp32"))}
     xb = x.bfloat16()
+    ms_b = median_ms(torch, lambda: ops.axpy(xb, u, mu), 20)
+    bound_b = bound(8 * n, 2 * n, "fp32")["bound_ms"]
     lines.append("zo_axpy bf16 x, f32 u {}: ms {:.5f} plain {:.5f} library "
-                 "{:.5f} bound {:.5f}".format(
-                     list(QWEN_EMBED),
-                     median_ms(torch, lambda: ops.axpy(xb, u, mu), 20),
+                 "{:.5f} bound {:.5f} ({:.1%} of it)".format(
+                     list(QWEN_EMBED), ms_b,
                      median_ms(torch, lambda: plain.zo_axpy_plain(xb, u, mu),
                                5),
                      median_ms(torch, lambda: torch.add(xb, u, alpha=1e-3),
                                20),
-                     bound(8 * n, 2 * n, "fp32")["bound_ms"]))
+                     bound_b, bound_b / ms_b))
     # a direction that is a view at an odd element offset (the counter
     # convention slices one flat buffer) takes the scalar loop throughout
     uo = view(QWEN_EMBED, f32, 1)
@@ -618,7 +631,8 @@ def check_axpy_kernels(torch, ops, plain):
         r = rows[name]
         lines.append(f"{name} float32 {list(QWEN_EMBED)}: ms {r['ms']:.5f} "
                      f"plain {r['plain_ms']:.5f} library {r['library_ms']} "
-                     f"bound {r['bound_ms']:.5f} ({r['bound_by']}); whole "
+                     f"bound {r['bound_ms']:.5f} ({r['bound_by']}, "
+                     f"{r['bound_ms'] / r['ms']:.1%} of it); whole "
                      f"Qwen2-0.5B tree ({QWEN_D:,} float32) bound "
                      f"{per * QWEN_D / HBM_BYTES_PER_S * 1e3:.3f} ms")
     for line in lines:
@@ -1031,12 +1045,17 @@ def main(argv):
     build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.BUILD_LOG.get('seconds', 0.0):.1f} s)")
+    spills = []
     for src, log in build.BUILD_LOG.items():
         if src != "seconds":
             for line in log.splitlines():
                 if any(w in line for w in ("entry function", "registers",
                                            "spill")):
                     print(f"ptxas {src}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m and int(m.group(1)):
+                    spills.append(f"{src}: {line.strip()}")
+    print(f"ptxas spills: {spills or 'none'}")
 
     def timed(name, fn):
         """Run one phase, free its cached blocks, print its time."""

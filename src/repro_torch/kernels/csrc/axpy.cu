@@ -14,17 +14,25 @@
 // against 12 bytes (axpy, float32) or 16 bytes (axpy2) of traffic per
 // element: about 0.15 operations per byte where the card balances at ~20.
 //
-// What the design does about it: each thread moves 16 bytes per load (a
-// float4 of float32, or 8 bfloat16), in a grid-stride loop over the vector
-// body, so every array is read once and the output written once with the
-// widest loads the memory system serves. The Pallas wrapper pads to a 64Ki
-// block; here nothing is padded: a scalar tail finishes a length that is
-// not a multiple of the vector width. A leaf may be a view at any element
-// offset (a counter-convention direction is a slice of one flat buffer),
-// while the output is always freshly allocated; so the vector body runs
-// only when every pointer is 16-byte aligned, and otherwise the whole call
-// runs as the scalar loop. The build never contracts the
-// multiply-add (--fmad=false), so the result is bitwise the plain version's.
+// What the design does about it: a one-pass grid over the vector body. A
+// block takes kUnroll x kThreads consecutive 16-byte vectors (a float4, or 8
+// bfloat16) per array, the thread every kThreads-th of them, and each thread
+// issues all its loads (kUnroll vectors of x, u and v) before any
+// arithmetic, so 8-12 loads of 16 bytes are in flight per thread. Stores
+// carry the streaming hint (st.global.cs: out is not read again); on the
+// loads the same hint (ld.global.cs) measured slower on the H100 and is not
+// used. The scalars are read once per block into shared memory. One pass
+// measured faster than a persistent grid (132 SMs x 8 blocks) looping over
+// the same unrolled body.
+// The Pallas wrapper pads to a 64Ki block; here nothing is padded: a
+// scalar loop after the body, laid out as the body, finishes a length that
+// is not a multiple of the vector width. A leaf may be a view at any
+// element offset (a counter-convention direction is a slice of one flat
+// buffer), while the output is always freshly allocated; so the vector
+// body runs only when every pointer is 16-byte aligned, and otherwise the
+// whole call runs as the scalar loop. The build never contracts the
+// multiply-add (--fmad=false), so the result is bitwise the plain
+// version's.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,7 +40,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kUnroll = 4;  // vectors per thread and array, loaded together
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -47,22 +55,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
-// VEC consecutive elements at a 16-byte aligned address, as float32.
+// VEC consecutive elements at a 16-byte aligned address, as raw 16-byte
+// chunks
 template <int VEC, typename T>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p,
-                                         float (&out)[VEC]) {
-  constexpr int kChunks = VEC * static_cast<int>(sizeof(T)) / 16;
+struct Vec {
+  static constexpr int kChunks = VEC * static_cast<int>(sizeof(T)) / 16;
   static_assert(kChunks * 16 == VEC * static_cast<int>(sizeof(T)),
                 "a vector is a whole number of 16-byte chunks");
   uint4 raw[kChunks];
+
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    raw[c] = reinterpret_cast<const uint4*>(p)[c];
+    for (int c = 0; c < kChunks; ++c) {
+      raw[c] = reinterpret_cast<const uint4*>(p)[c];
+    }
   }
-  const T* e = reinterpret_cast<const T*>(raw);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) out[i] = to_f32(e[i]);
-}
+  __device__ __forceinline__ float get(int i) const {
+    return to_f32(reinterpret_cast<const T*>(raw)[i]);
+  }
+};
 
 template <int VEC, typename T>
 __device__ __forceinline__ void store_vec(T* __restrict__ p,
@@ -74,55 +85,76 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
   for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(in[i]);
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    reinterpret_cast<uint4*>(p)[c] = raw[c];
+    __stcs(reinterpret_cast<uint4*>(p) + c, raw[c]);
   }
 }
 
 // TERMS = 1: out = x + s[0]*u. TERMS = 2: out = (x + s[0]*u) + s[1]*v.
 // The nvec vectors of [0, nvec*VEC) start at 16-byte aligned addresses;
-// the elements [nvec*VEC, n) take the scalar loop.
+// the elements [nvec*VEC, n) take the scalar loop after them.
 template <int TERMS, int VEC, typename TX, typename TU, typename TV>
 __global__ void __launch_bounds__(kThreads)
     axpy_kernel(const TX* __restrict__ x, const TU* __restrict__ u,
                 const TV* __restrict__ v, TX* __restrict__ out,
                 const float* __restrict__ s, long long n, long long nvec) {
-  const float a = s[0];
-  const float b = TERMS == 2 ? s[1] : 0.0f;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = nvec * VEC + tid; j < n; j += stride) {
-    float t = to_f32(x[j]) + a * to_f32(u[j]);
-    if constexpr (TERMS == 2) t = t + b * to_f32(v[j]);
-    out[j] = from_f32<TX>(t);
-  }
-  for (long long k = tid; k < nvec; k += stride) {
-    const long long j = k * VEC;
-    float xs[VEC], us[VEC], vs[VEC];
-    load_vec<VEC>(x + j, xs);
-    load_vec<VEC>(u + j, us);
-    if constexpr (TERMS == 2) load_vec<VEC>(v + j, vs);
+  __shared__ float ab[TERMS];
+  if (threadIdx.x < TERMS) ab[threadIdx.x] = s[threadIdx.x];
+  __syncthreads();
+  const float a = ab[0];
+  const float b = TERMS == 2 ? ab[TERMS - 1] : 0.0f;
+  constexpr long long kSpan = static_cast<long long>(kUnroll) * kThreads;
+  for (long long k0 = blockIdx.x * kSpan + threadIdx.x; k0 < nvec;
+       k0 += gridDim.x * kSpan) {
+    Vec<VEC, TX> xs[kUnroll];
+    Vec<VEC, TU> us[kUnroll];
+    Vec<VEC, TV> vs[kUnroll];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      float t = xs[e] + a * us[e];
-      if constexpr (TERMS == 2) t = t + b * vs[e];
-      xs[e] = t;
+    for (int i = 0; i < kUnroll; ++i) {
+      const long long k = k0 + i * kThreads;
+      if (k < nvec) {
+        xs[i].load(x + k * VEC);
+        us[i].load(u + k * VEC);
+        if constexpr (TERMS == 2) vs[i].load(v + k * VEC);
+      }
     }
-    store_vec<VEC>(out + j, xs);
-  }
-}
-
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      count = 132;
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const long long k = k0 + i * kThreads;
+      if (k < nvec) {
+        float t[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          t[e] = xs[i].get(e) + a * us[i].get(e);
+          if constexpr (TERMS == 2) t[e] = t[e] + b * vs[i].get(e);
+        }
+        store_vec<VEC>(out + k * VEC, t);
+      }
     }
   }
-  return count;
+  // the scalar loop, laid out as the body: kUnroll elements a thread,
+  // loaded before any arithmetic
+  for (long long j0 = nvec * VEC + blockIdx.x * kSpan + threadIdx.x; j0 < n;
+       j0 += gridDim.x * kSpan) {
+    float xs[kUnroll], us[kUnroll], vs[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const long long j = j0 + i * kThreads;
+      if (j < n) {
+        xs[i] = to_f32(x[j]);
+        us[i] = to_f32(u[j]);
+        if constexpr (TERMS == 2) vs[i] = to_f32(v[j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const long long j = j0 + i * kThreads;
+      if (j < n) {
+        float t = xs[i] + a * us[i];
+        if constexpr (TERMS == 2) t = t + b * vs[i];
+        out[j] = from_f32<TX>(t);
+      }
+    }
+  }
 }
 
 template <int TERMS, typename TX, typename TU, typename TV>
@@ -133,18 +165,21 @@ int launch(const void* x, const void* u, const void* v, void* out,
   constexpr bool kAllF32 = sizeof(TX) == 4 && sizeof(TU) == 4 &&
                            (TERMS == 1 || sizeof(TV) == 4);
   constexpr int VEC = kAllF32 ? 4 : 8;
+  constexpr long long kSpan = static_cast<long long>(kUnroll) * kThreads;
   const uintptr_t addr_bits =
       reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(u) |
       reinterpret_cast<uintptr_t>(out) |
       (TERMS == 2 ? reinterpret_cast<uintptr_t>(v) : 0);
   const long long nvec = addr_bits % 16 == 0 ? n / VEC : 0;
-  const long long work = nvec > n - nvec * VEC ? nvec : n - nvec * VEC;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
-  blocks = blocks < cap ? blocks : cap;
-  if (blocks < 1) return 0;
+  const long long tail = n - nvec * VEC;
+  // one pass over the body (the tail is then under VEC elements); with no
+  // body the scalar loop takes kUnroll elements a thread
+  const long long work = nvec > 0 ? nvec : tail;
+  long long blocks = (work + kSpan - 1) / kSpan;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   axpy_kernel<TERMS, VEC, TX, TU, TV>
-      <<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const TX*>(x), static_cast<const TU*>(u),
           static_cast<const TV*>(v), static_cast<TX*>(out), s, n, nvec);
   return static_cast<int>(cudaGetLastError());

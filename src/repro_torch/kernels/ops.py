@@ -289,6 +289,9 @@ def attention(q, k, v, *, causal=True, window=0, scale=None):
     _need(v, "v", q.dtype, (B, Sk, Hkv, D), q.device)
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    # the kernel copies 16 bytes at a time: an input that starts elsewhere
+    # (a slice at an odd row) is copied to a fresh, aligned tensor first
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     lib = build.load()["flash_attention"]
     if not lib.flash_head_dim_ok(D):
         raise ValueError(f"attention: head dim {D} not built (32, 64, 128)")

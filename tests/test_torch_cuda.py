@@ -10,7 +10,8 @@ The sign kind, the AirComp mean and the two axpys (any dtype mix, ragged
 length, view offset) are bitwise; the normal kind within 4 ulp of the
 summed terms; the norms within a relative 1e-5. RMSNorm and flash
 attention: float32 within a relative 1e-5 (another summation order),
-bfloat16 within 1 bf16 ulp of the output. ``chip_smoke.py`` repeats these at
+bfloat16 within 1 bf16 ulp of the output; float32 flash attention also
+bitwise its summation order's torch twin. ``chip_smoke.py`` repeats these at
 the main path's full shapes and times them.
 """
 import math
@@ -116,13 +117,16 @@ _AXPY_DTYPES = [(torch.float32,) * 3, (torch.bfloat16,) * 3,
 
 @pytest.mark.parametrize("dts", _AXPY_DTYPES,
                          ids=lambda d: "-".join(str(t)[6:] for t in d))
-@pytest.mark.parametrize("n", [1, 7, 4096, 65537])
+@pytest.mark.parametrize("n", [1, 7, 4096, 65537,
+                               # one block's unrolled body (256 threads x 4
+                               # vectors x 4 or 8 elements) and its edges
+                               4095, 4097, 8191, 8192, 8193, 2 * 8192 + 1])
 @pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 0, 5)])
 def test_axpy_kernels_on_card(gen, dts, n, offsets):
     """Bitwise against the plain versions: x, u, v views at the given
     element offsets (all 0: 16-byte vectors, then a scalar tail; any other:
     the scalar loop throughout, since the output is freshly allocated) and
-    a ragged length."""
+    a ragged length, also at the edges of a block's unrolled body."""
     def view(dt, off):
         base = torch.randn(n + off, generator=gen, device="cuda").to(dt)
         return base[off:]
@@ -193,6 +197,11 @@ def test_rmsnorm_on_card(gen, dtype, rows, d):
     (1, 100, 4, 2, 32, False, 0),    # non-causal, ragged
     (1, 70, 2, 1, 128, True, 0),     # head dim 128
     (2, 16, 4, 2, 32, True, 0),      # the smoke model
+    (1, 512, 14, 2, 64, True, 0),    # causal, 8 K/V tiles (double buffer)
+    (1, 1000, 4, 2, 64, True, 256),  # ragged S over 16 tiles, window 256
+    (2, 128, 4, 4, 64, True, 0),     # G = 1 (Hq = Hkv)
+    (1, 33, 4, 1, 32, False, 0),     # Sq not a multiple of a q tile, G = 4
+    (1, 300, 2, 2, 128, True, 0),    # head dim 128 over 5 ragged tiles
 ])
 def test_attention_on_card(gen, dtype, b, s, hq, hkv, hd, causal, window):
     q = torch.randn(b, s, hq, hd, generator=gen, device="cuda").to(dtype)
@@ -207,6 +216,95 @@ def test_attention_on_card(gen, dtype, b, s, hq, hkv, hd, causal, window):
         assert float((got - want).abs().max()) <= 1e-5 * top
     else:
         assert _bf16_ulps(got, want, 1e-5 * top) <= 1
+
+
+def flash_f32_row_order(q, k, v, *, causal=True, window=0, block_k=64):
+    """The float32 kernel's arithmetic (``csrc/flash_attention.cu:
+    flash_fwd_f32``) in torch, on any device: q times the float32 scale;
+    each score summed over ascending d; per 64-key tile the reference's
+    online-softmax update, with the sum of p and every output column taken
+    over ascending keys; every term a float32 multiply and then a float32
+    add, as torch's elementwise ops round them. On the card it is the
+    kernel bit for bit (torch.exp and the kernel's expf are one function
+    there); on the CPU, where exp is another, it agrees to rounding."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32,
+                         device=dev)
+    qs = (q * scale).permute(0, 2, 1, 3)  # [B, Hq, Sq, D]
+    kk, vv = (t.repeat_interleave(Hq // Hkv, 2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    q_pos = torch.arange(Sq, device=dev)[:, None]
+    m = torch.full((B, Hq, Sq), -1e30, device=dev)
+    l = torch.zeros(B, Hq, Sq, device=dev)
+    acc = torch.zeros(B, Hq, Sq, D, device=dev)
+    for k0 in range(0, Sk, block_k):
+        k1 = min(k0 + block_k, Sk)
+        s = torch.zeros(B, Hq, Sq, k1 - k0, device=dev)
+        for d in range(D):
+            s = s + qs[..., d:d + 1] * kk[:, :, None, k0:k1, d]
+        k_pos = torch.arange(k0, k1, device=dev)[None, :]
+        ok = torch.ones(Sq, k1 - k0, dtype=torch.bool, device=dev)
+        if causal:
+            ok &= q_pos >= k_pos
+        if window:
+            ok &= q_pos - k_pos < window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        acc = acc * corr[..., None]
+        psum = torch.zeros_like(l)
+        for j in range(k1 - k0):
+            psum = psum + p[..., j]
+            acc = acc + p[..., j, None] * vv[:, :, None, k0 + j]
+        l = l * corr + psum
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).contiguous()
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", [
+    (4, 128, 14, 2, 64, True, 0),    # the Qwen2-0.5B train step
+    (2, 100, 14, 2, 64, True, 0),    # ragged S
+    (2, 128, 4, 2, 32, True, 32),    # window, head dim 32
+    (1, 100, 4, 2, 32, False, 0),    # non-causal, ragged
+    (1, 300, 2, 2, 128, True, 0),    # head dim 128, causal tiles skipped
+    (1, 1000, 4, 2, 64, True, 256),  # whole tiles outside the window
+])
+def test_flash_f32_sums_in_row_order_on_card(gen, b, s, hq, hkv, hd, causal,
+                                            window):
+    """The float32 kernel spreads a row's work over 16 lanes but keeps the
+    summation order of one thread per row, so it equals that order's
+    torch twin bit for bit (its rounding is what decides which full-width
+    ZO coefficients are nonzero)."""
+    q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
+    k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = flash_f32_row_order(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_on_card_takes_misaligned_views(gen, dtype):
+    """q, k and v as contiguous views one element past a 16-byte boundary:
+    the wrapper copies them to aligned tensors for the kernel's 16-byte
+    loads, and the result is that of the aligned inputs."""
+    shapes = ((2, 100, 14, 64), (2, 100, 2, 64), (2, 100, 2, 64))
+    views = []
+    for shape in shapes:
+        n = math.prod(shape)
+        buf = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        views.append(buf[1:].view(shape))
+    q, k, v = views
+    assert all(t.data_ptr() % 16 for t in views)
+    got = ops.attention(q, k, v)
+    want = ops.attention(q.clone(), k.clone(), v.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_prng_draws_on_card_match_the_cpu(gen):
