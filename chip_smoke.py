@@ -16,14 +16,21 @@ each of which raises on a failure (the script then exits non-zero):
      the sign kind bitwise; the normal kind within 4 ulp of the magnitude of
      the summed terms; the reductions within a relative 1e-5 (another
      summation order).
+     zo_dirnorms also bitwise the torch twin of its summation order
+     (``dirnorm_order_sum``; the sign kind from the plain directions, the
+     normal kind on the kernels' own directions) and over two calls.
    - zo_walk, zo_replay and zo_dirnorms again at the Qwen2-0.5B train
-     step's width (M = 1, n_pad = 494,075,904, d = 494,032,768, b2 = 8).
+     step's width (M = 1, n_pad = 494,075,904, d = 494,032,768, b2 = 8);
+     the norms' finish is also timed on its own.
    - rmsnorm ([512, 896] and the [7168, 64] rows of a qk_norm) and
      flash_attention (q [4, 128, 14, 64], k/v [4, 128, 2, 64], causal; a
      ragged S = 100, a window of 32, a non-causal call, causal S = 512, a
-     ragged S = 1,000 with a window of 256), each in float32 and bfloat16. Tolerances: float32 within a relative 1e-5 (another
-     summation order); bfloat16 within 1 bf16 ulp of the output (the two
-     float32 results round to neighbouring bf16 values at most).
+     ragged S = 1,000 with a window of 256), each in float32 and bfloat16.
+     Tolerances: float32 within a relative 1e-5 (another summation order);
+     bfloat16 within 1 bf16 ulp of the output (the two float32 results
+     round to neighbouring bf16 values at most). rmsnorm is also bitwise
+     the torch twin of its summation order (``rmsnorm_kernel_order``), also
+     at an odd element offset.
    - zo_axpy and zo_axpy2, bitwise, for float32 and bfloat16 x with u, v
      in x's dtype or float32: ragged n (1, 7, 65,537), views at odd element
      offsets, and Qwen2-0.5B's largest leaves (the tied embedding
@@ -37,7 +44,10 @@ each of which raises on a failure (the script then exits non-zero):
      2 rounds;
    - the cross-silo FedZO train step on Qwen2-0.5B at full width in
      float32 (arXiv:2407.10671; 494 M parameters, random weights from seed
-     0), batch 4 x seq 128 of the synthetic LM stream, b2 = 8, 4 steps.
+     0), batch 4 x seq 128 of the synthetic LM stream, b2 = 8, 4 steps;
+     then one more step through ``fedzo.local_iterate`` at mu = 16, each
+     coefficient held to its recomputation without a ZO kernel
+     (``check_estimator``: every loss difference at least 256 ulps).
    - the pytree route (the reference's default): ``ops.tree_axpy2`` once
      over the full-width Qwen2-0.5B tree (14 leaves, held against the plain
      version leaf by leaf); the training CLI ``repro_torch.launch.train``
@@ -101,6 +111,37 @@ LM_B, LM_S, LM_HQ, LM_HKV, LM_HD, LM_DM = 4, 128, 14, 2, 64, 896
 # the Qwen2-0.5B parameter tree: 14 leaves; the largest are the tied
 # embedding and the stacked MLP weights
 QWEN_LEAVES, QWEN_EMBED, QWEN_W_GATE = 14, (151_936, 896), (24, 896, 4_864)
+# The estimator check (check_estimator). At the launcher's mu = 1e-3 a
+# coefficient d.(L(x + mu.v) - L(x))/mu of Qwen2-0.5B is a whole number of
+# float32 ulps of the loss: the ulp of L at about 12.1 is 9.5e-7, so one ulp
+# moves a coefficient by d.ulp/mu = 4.7e5, and the four steps read
+# coefficient norms of 0 to 1.2e6 over 8 directions: |L(x + mu.v) - L(x)|
+# of about 1 ulp, so the directional slopes |dL/dv| are about 1e-3 and the
+# forward's rounding decides each coefficient. The check needs every
+# difference to be at least CHECK_MIN_ULPS = 256 ulps (2.4e-4): mu = 0.25
+# for a slope of 1e-3, and the smallest of 8 slopes can be ten times
+# smaller, so mu = 16 for a margin of about 6. The step mu/sqrt(d) = 7e-4
+# per weight stays well below the weights' 0.02. The check prints the
+# differences; on an H100 the smallest read 902 ulps.
+QWEN_CHECK_MU = 16.0
+CHECK_MIN_ULPS = 256
+# Tolerance of a coefficient against its recomputation: the kernel's point
+# x + mu.v_n (reached by the walk, which adds and removes the steps in
+# float32, with the kernel's Box-Muller and float32 norm) and the
+# recomputed one (float64 norm) differ per weight by about an ulp, which
+# moves L by the forward's float32 rounding noise: a few loss ulps, and
+# CHECK_TOL_ULPS = 8 of them in the coefficient's units d.ulp/mu; plus the
+# norms' relative difference (at most 1e-4, the full-width dirnorms
+# tolerance) of the coefficient itself. 8 ulps are 1/32 of the smallest
+# difference allowed, so a zeroed or sign-flipped coefficient cannot pass.
+CHECK_TOL_ULPS = 8
+CHECK_NORM_REL = 1e-4
+
+
+# names of the port's CUDA kernels in a profiler trace
+PORT_KERNELS = ("zo_walk_kernel", "zo_replay_kernel", "dirnorm_kernel",
+                "aircomp_reduce_kernel", "sum_row_partials", "axpy_kernel",
+                "rmsnorm_kernel", "rmsnorm_long_kernel", "flash_fwd")
 
 
 def die(msg):
@@ -261,9 +302,26 @@ def check_kernels(torch, ops, plain, plain_air):
             errs.append(float((got - want).abs().max()))
             lines.append(f"zo_dirnorms {kind} d={d}: max_abs_err "
                          f"{errs[-1]:.3e} rel {rel:.2e}")
+    # bitwise its summation order's torch twin: the sign kind from the plain
+    # directions; the normal kind from the kernels' own directions (zo_walk
+    # of zeros with ab = (1, 0) returns v_n exactly), whose squares the twin
+    # sums; and the same result from a second call
+    for d in (D, RAGGED):
+        k = keys(M)
+        got = ops.zo_dirnorms(k, d, b2=B2, kind="sign")
+        check(torch.equal(got, plain.zo_dirnorms_kernel_order(
+            k, d, b2=B2, kind="sign")),
+              f"zo_dirnorms sign d={d}: not its twin")
+        got = ops.zo_dirnorms(k, d, b2=B2)
+        check(torch.equal(got, dirnorms_from_walk(torch, ops, plain, k, d,
+                                                  B2)),
+              f"zo_dirnorms normal d={d}: not its twin's sum of its squares")
+        check(torch.equal(got, ops.zo_dirnorms(k, d, b2=B2)),
+              f"zo_dirnorms d={d}: two calls differ")
+    lines.append("zo_dirnorms: bitwise its twin (sign kind; normal kind on "
+                 "the kernels' own directions) and over two calls")
     k = keys(M)
-    # stage 1 runs 256 threads on each zo_norm_chunk()-long chunk of [0, d)
-    norm_chunk = ops.build.load()["zo_axpy"].zo_norm_chunk()
+    per, chunks = plain.dirnorm_geometry(D, M * B2)
     ms = median_ms(torch, lambda: ops.zo_dirnorms(k, D, b2=B2), 50)
     plain_ms = median_ms(torch, lambda: plain.zo_dirnorms_plain(k, D, b2=B2),
                          3)
@@ -272,8 +330,11 @@ def check_kernels(torch, ops, plain, plain_air):
         replaces="src/repro/kernels/zo_axpy.py:302", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(M * 16 + M * B2 * 4,
-                threefry_ops(M * B2 * D, M * B2 * -(-D // norm_chunk) * 256),
-                "int"))
+                threefry_ops(M * B2 * D, M * B2 * chunks * 256), "int"))
+    r = rows["zo_dirnorms"]
+    lines.append(f"zo_dirnorms M={M} b2={B2} d={D} ({per} evaluations a "
+                 f"thread, {chunks} chunks): ms {ms:.5f} bound "
+                 f"{r['bound_ms']:.5f} ({r['bound_ms'] / ms:.1%} of it)")
 
     # aircomp_reduce: (sum_m s[m].x[m], |x[m, :d]|^2)
     errs = []
@@ -303,6 +364,21 @@ def check_kernels(torch, ops, plain, plain_air):
     for line in lines:
         print(line)
     return rows
+
+
+def dirnorms_from_walk(torch, ops, plain, k, d, b2):
+    """[M, b2] squared norms of the CUDA kernels' own normal directions
+    (zo_walk of zeros with ab = (1, 0): v_n exactly, up to the sign of a
+    zero) summed in the norms kernel's order by its torch twin."""
+    m = k.shape[0]
+    zeros = torch.zeros(m, d, device=k.device)
+    ab = torch.tensor([[1.0, 0.0]] * m, device=k.device)
+    per = plain.dirnorm_geometry(d, m * b2)[0]
+    out = []
+    for n in range(b2):
+        g = ops.zo_walk(zeros, k, (n, n), ab)
+        out.append(plain.dirnorm_order_sum(g * g, per))
+    return torch.stack(out, dim=1)
 
 
 def threefry_ops(evals, threads):
@@ -364,6 +440,15 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
                 lines.append(f"rmsnorm bf16 [{r}, {d}]: {u:.0f} bf16 ulp, "
                              f"bitwise {torch.equal(got, want)}")
             errs.append(float((got.float() - want.float()).abs().max()))
+            check(torch.equal(got, plain_rms.rmsnorm_kernel_order(
+                x, sc, eps=1e-6)), f"rmsnorm {dt} [{r}, {d}]: not its twin")
+            # a view one element past a 16-byte boundary: scalar loads
+            xo = torch.empty(r * d + 1, device=dev, dtype=dt)[1:].view(r, d)
+            xo.copy_(x)
+            check(torch.equal(ops.rmsnorm(xo, sc, eps=1e-6), got),
+                  f"rmsnorm {dt} [{r}, {d}] at an odd offset differs")
+    lines.append("rmsnorm: bitwise its twin (rmsnorm_kernel_order) at both "
+                 "shapes and dtypes, and at an odd element offset")
     r, d = LM_B * LM_S, LM_DM
     x, sc = rnd(r, d), 1.0 + 0.1 * rnd(d)
     ms = median_ms(torch, lambda: ops.rmsnorm(x, sc, eps=1e-6), 100)
@@ -378,13 +463,26 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         **bound(2 * r * d * 4 + d * 4, 4 * r * d, "fp32"))
     xb, scb = x.bfloat16(), sc.bfloat16()
-    lines.append("rmsnorm bf16 [512, 896]: ms {:.5f} plain {:.5f} library "
-                 "{:.5f}".format(
-                     median_ms(torch, lambda: ops.rmsnorm(xb, scb), 100),
-                     median_ms(torch,
-                               lambda: plain_rms.rmsnorm_plain(xb, scb), 50),
-                     median_ms(torch, lambda: F.rms_norm(
-                         xb, (d,), weight=scb, eps=1e-6), 100)))
+    rows["rmsnorm"]["bf16"] = dict(
+        ms=median_ms(torch, lambda: ops.rmsnorm(xb, scb), 100),
+        plain_ms=median_ms(torch, lambda: plain_rms.rmsnorm_plain(xb, scb),
+                           50),
+        library_ms=median_ms(torch, lambda: F.rms_norm(
+            xb, (d,), weight=scb, eps=1e-6), 100),
+        **bound(2 * r * d * 2 + d * 2, 4 * r * d, "fp32"))
+    for tag, f in (("fp32", rows["rmsnorm"]),
+                   ("bf16", rows["rmsnorm"]["bf16"])):
+        lines.append(f"rmsnorm {tag} [{r}, {d}]: ms {f['ms']:.5f} plain "
+                     f"{f['plain_ms']:.5f} library {f['library_ms']:.5f} "
+                     f"({f['ms'] / f['library_ms']:.2f}x F.rms_norm) bound "
+                     f"{f['bound_ms']:.5f} ({f['bound_by']}, "
+                     f"{f['bound_ms'] / f['ms']:.1%} of it)")
+    xq = rnd(LM_B * LM_S * LM_HQ, LM_HD)
+    sq = 1.0 + 0.1 * rnd(LM_HD)
+    lines.append("rmsnorm fp32 [{}, {}]: ms {:.5f} library {:.5f}".format(
+        *xq.shape, median_ms(torch, lambda: ops.rmsnorm(xq, sq), 100),
+        median_ms(torch, lambda: F.rms_norm(xq, (LM_HD,), weight=sq,
+                                            eps=1e-6), 100)))
 
     # flash attention, [B, S, H, D] layout. float32: max |err| within 1e-5
     # of max |out| (the dot products and the softmax sums run in another
@@ -507,11 +605,28 @@ def check_full_width(torch, ops, plain):
     want = plain.zo_dirnorms_plain(k, QWEN_D, b2=QWEN_B2)
     rel = float(((got - want).abs() / want.abs()).max())
     check(rel <= 1e-4, f"zo_dirnorms full width: rel {rel}")
-    lines.append(f"zo_dirnorms full width: rel {rel:.2e} "
+    check(torch.equal(got, ops.zo_dirnorms(k, QWEN_D, b2=QWEN_B2)),
+          "zo_dirnorms full width: two calls differ")
+    lines.append(f"zo_dirnorms full width: rel {rel:.2e}, two calls bitwise "
                  f"(norms^2/d {(got / QWEN_D).flatten().tolist()})")
 
     m, n, b2, d = 1, QWEN_N_PAD, QWEN_B2, QWEN_D
-    norm_chunk = ops.build.load()["zo_axpy"].zo_norm_chunk()
+    per, chunks = plain.dirnorm_geometry(d, m * b2)
+    # the finish alone (the last block's sum of an output's chunk partials),
+    # launched as its own kernel on partials of the same shape
+    parts = torch.rand(m * b2, chunks, generator=g, device=dev)
+    fin = torch.empty(m * b2, device=dev)
+    lib = ops.build.load()["zo_axpy"]
+
+    def finish():
+        ops._check(lib.zo_dirnorms_finish_launch(
+            parts.data_ptr(), fin.data_ptr(), m * b2, chunks, ops._stream()),
+            "zo_dirnorms finish")
+
+    finish_ms = median_ms(torch, finish, 20)
+    want_fin = parts.double().sum(1)
+    check(float(((fin.double() - want_fin).abs() / want_fin).max()) <= 1e-5,
+          "zo_dirnorms finish: not the sum of its partials")
     out["zo_walk"] = dict(
         max_abs_err=walk_err,
         ms=median_ms(torch, lambda: ops.zo_walk(x, k, (3, 4), ab), 8),
@@ -530,13 +645,15 @@ def check_full_width(torch, ops, plain):
         ms=median_ms(torch, lambda: ops.zo_dirnorms(k, d, b2=b2), 8),
         plain_ms=median_ms(torch, lambda: plain.zo_dirnorms_plain(
             k, d, b2=b2), 1, trials=1),
+        finish_ms=finish_ms, evals_per_thread=per, chunks=chunks,
         **bound(m * 16 + m * b2 * 4,
-                threefry_ops(m * b2 * d, m * b2 * -(-d // norm_chunk) * 256),
-                "int"))
+                threefry_ops(m * b2 * d, m * b2 * chunks * 256), "int"))
     for name, f in out.items():
         lines.append(f"{name} full width: ms {f['ms']:.4f} plain "
                      f"{f['plain_ms']:.1f} bound {f['bound_ms']:.4f} "
-                     f"({f['bound_by']})")
+                     f"({f['bound_by']}, {f['bound_ms'] / f['ms']:.1%} of it)")
+    lines.append(f"zo_dirnorms full width: finish alone {finish_ms:.5f} ms "
+                 f"({chunks} partials an output, {per} evaluations a thread)")
     for line in lines:
         print(line)
     return out
@@ -779,7 +896,6 @@ def run_qwen_train(torch, ops, FedZOConfig, steps=4, profile_dir=None):
     peak = torch.cuda.max_memory_allocated()
     for name, vals in (("loss", losses), ("coeff_norm", norms)):
         check(all(map(math.isfinite, vals)), f"qwen2-0.5b: {name} {vals}")
-    check(all(c > 0 for c in norms), f"qwen2-0.5b: coeff_norm {norms}")
     check(bool(torch.isfinite(flatten(params, spec)).all()),
           "qwen2-0.5b: parameters not finite")
     steady = sorted(per_step[1:])  # step 1 carries one-time set-up
@@ -788,11 +904,89 @@ def run_qwen_train(torch, ops, FedZOConfig, steps=4, profile_dir=None):
           f"(median after step 1 {steady[len(steady) // 2]:.2f}); peak "
           f"memory {peak / 2**30:.2f} GiB; launches per step {want}")
     print(f"qwen2_0_5b_train: loss {losses} coeff_norm {norms}")
+    # one more full-width step from these weights, at a mu where every loss
+    # difference is hundreds of ulps, against an independent recomputation
+    batch = lm_batch(torch, toks, rng, 4, 128, "cuda")
+    ks = prng.split(key, 2)
+    key, sub = ks[0], ks[1]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = check_estimator(model, params, batch, sub, "cuda", mu=QWEN_CHECK_MU)
+    print(f"qwen2_0_5b estimator check: {time.perf_counter() - t0:.1f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; mu {r['mu']}, loss {r['loss']} (ulp "
+          f"{r['ulp']:.3e}); |L(x+mu.v_n) - L(x)| in ulps "
+          f"{[round(u, 1) for u in r['diff_ulps']]} (least allowed "
+          f"{CHECK_MIN_ULPS}); coefficients {r['coeffs']}; recomputed "
+          f"{r['ref']}; largest relative error {r['max_rel_err']:.3e}, "
+          f"largest error / tolerance {r['max_err_over_tol']:.3f}")
     if profile_dir:
         batch = lm_batch(torch, toks, rng, 4, 128, "cuda")
         profile_call(torch, lambda: step(params, batch, key),
                      profile_dir, "qwen2_train_step")
     return total
+
+
+def check_estimator(model, params, batch, key, device, *, mu, b2=QWEN_B2,
+                    min_ulps=CHECK_MIN_ULPS, tol_ulps=CHECK_TOL_ULPS,
+                    norm_rel=CHECK_NORM_REL):
+    """Hold one flat-route sphere step to the estimator's definition.
+
+    ``fedzo.local_iterate`` (the walk, the norms kernel, the loss
+    forwards) returns the b2 coefficients and the base loss at ``mu``. Each
+    is recomputed without a ZO kernel: v_n from the plain counter-convention
+    generator (``kernels/zo_axpy.counter_direction_flat``) on ``device``,
+    its norm summed in float64, L_n = loss(x + mu.v_n/|v_n|) and
+    c_n = d.(L_n - L_0)/mu by the estimator's formula
+    (``core/estimator.py:flat_coefficients``). Raises, with the readings,
+    unless every |L_n - L_0| is at least ``min_ulps`` float32 ulps of L_0 (so
+    the coefficients are a signal, not rounding) and every c_n is within
+    d.tol_ulps.ulp/mu + norm_rel.|ref_n| of its recomputation, and the base
+    loss within tol_ulps ulps of L_0. Returns the readings."""
+    import torch
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.core import fedzo
+    from repro_torch.kernels.zo_axpy import counter_direction_flat
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+
+    cfg = FedZOConfig(mu=mu, b2=b2, estimator="sphere", flat_params=True)
+    _, coeffs, base = fedzo.local_iterate(model.loss, params, batch, key,
+                                          cfg)
+    spec = flat_spec(params)
+    d = spec.d
+    x = flatten(params, spec)
+    loss0 = model.loss(params, batch).to(torch.float32)
+    ulp = float(torch.nextafter(loss0, torch.full_like(loss0, math.inf))
+                - loss0)
+    kdev = key.to(device)
+    ref, diffs = [], []
+    for n in range(b2):
+        g = counter_direction_flat(kdev, n, d, kind="normal")
+        norm = math.sqrt(float(torch.sum(torch.square(g.double()))))
+        xp = x.clone()
+        xp[:d] += (mu / norm) * g
+        del g
+        ln = model.loss(unflatten(xp, spec), batch).to(torch.float32)
+        del xp
+        diffs.append(float(ln - loss0) / ulp)
+        ref.append(float(float(d) * (ln - loss0).to(torch.float32) / mu))
+    coeffs = [float(c) for c in coeffs.reshape(-1)]
+    unit = d * ulp / mu          # one loss ulp in a coefficient
+    tols = [tol_ulps * unit + norm_rel * abs(r) for r in ref]
+    errs = [abs(c - r) for c, r in zip(coeffs, ref)]
+    out = dict(mu=mu, loss=float(loss0), base=float(base), ulp=ulp,
+               diff_ulps=diffs, coeffs=coeffs, ref=ref,
+               max_rel_err=max(e / abs(r) for e, r in zip(errs, ref)),
+               max_err_over_tol=max(e / t for e, t in zip(errs, tols)))
+    check(all(abs(u) >= min_ulps for u in diffs),
+          f"estimator check: a loss difference below {min_ulps} ulps at mu "
+          f"{mu}, the coefficients would be rounding: {out}")
+    check(abs(float(base) - float(loss0)) <= tol_ulps * ulp,
+          f"estimator check: base loss {float(base)} against {float(loss0)}")
+    check(all(e <= t for e, t in zip(errs, tols)),
+          f"estimator check: a coefficient differs from its recomputation "
+          f"by more than its tolerance: {out}")
+    return out
 
 
 def run_tree_axpy2(torch, ops, plain):
@@ -986,6 +1180,13 @@ def profile_call(torch, fn, out_dir, tag, timeline=True):
     print(f"profile {tag}: wall {wall * 1e3:.3f} ms, kernel time "
           f"{device_us / 1e3:.3f} ms, device busy share "
           f"{device_us / 1e3 / (wall * 1e3):.3f}")
+    # the port's own kernels, which the table may leave below its cut
+    for e in avgs:
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                k in e.key for k in PORT_KERNELS):
+            print(f"profile {tag}: {e.key[:72]}: "
+                  f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} "
+                  f"launches")
     print(table)
 
 

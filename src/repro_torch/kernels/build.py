@@ -42,10 +42,10 @@ _L = ctypes.c_longlong
 # C signatures of the launchers (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "zo_axpy": {
-        "zo_norm_chunk": [],
         "zo_walk_launch": [_P, _P, _P, _P, _U, _U, _I, _I, _I, _P],
         "zo_replay_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "zo_dirnorms_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "zo_dirnorms_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "zo_dirnorms_finish_launch": [_P, _P, _I, _I, _P],
     },
     "zo_aircomp": {
         "aircomp_block_cols": [],

@@ -28,14 +28,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.kernels.zo_aircomp import aircomp_reduce_plain
-from repro_torch.kernels.zo_axpy import (zo_axpy2_plain, zo_axpy_plain,
-                                         zo_dirnorms_plain, zo_replay_plain,
-                                         zo_walk_plain)
+from repro_torch.kernels.zo_axpy import (dirnorm_geometry, zo_axpy2_plain,
+                                         zo_axpy_plain, zo_dirnorms_plain,
+                                         zo_replay_plain, zo_walk_plain)
 
 LAUNCHES = {"zo_walk": 0, "zo_replay": 0, "zo_dirnorms": 0,
             "aircomp_reduce": 0, "zo_axpy": 0, "zo_axpy2": 0, "rmsnorm": 0,
             "flash_attention": 0}
 _KIND_CODE = {"normal": 0, "sign": 1}
+_TICKETS: dict = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -201,9 +202,22 @@ def zo_replay(x, keys, coeffs, *, kind="normal"):
     return out
 
 
+def _tickets(device, count):
+    """The norms kernel's ``count`` ticket counters on ``device``: one
+    int32 buffer per device, zeroed once when it is allocated (or grown);
+    each call leaves its counters at zero again. Calls on one stream are
+    ordered, so they share it safely."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
 def zo_dirnorms(keys, d, *, b2, kind="normal", block_rows=None):
-    """``[M, b2]`` squared direction norms ‖v_m(n)[:d]‖². No direction
-    leaves the chip. ``block_rows`` sets the plain version's block order."""
+    """``[M, b2]`` squared direction norms ‖v_m(n)[:d]‖², in one launch. No
+    direction leaves the chip. ``block_rows`` sets the plain version's
+    block order."""
     code = _kind(kind)
     if d < 1:
         raise ValueError(f"d must be positive, got {d}")
@@ -213,13 +227,14 @@ def zo_dirnorms(keys, d, *, b2, kind="normal", block_rows=None):
     m = keys.shape[0]
     _need(keys, "keys", torch.int64, (m, 2), keys.device)
     lib = build.load()["zo_axpy"]
-    chunks = -(-d // lib.zo_norm_chunk())
-    partial = torch.empty((m, b2, chunks), dtype=torch.float32,
-                          device=keys.device)
+    per, chunks = dirnorm_geometry(d, m * b2)
+    partial = torch.empty((m, b2, chunks if chunks > 1 else 0),
+                          dtype=torch.float32, device=keys.device)
     out = torch.empty((m, b2), dtype=torch.float32, device=keys.device)
     _check(lib.zo_dirnorms_launch(keys.data_ptr(), partial.data_ptr(),
-                                  out.data_ptr(), d, b2, m, code, _stream()),
-           "zo_dirnorms")
+                                  _tickets(keys.device, m * b2).data_ptr(),
+                                  out.data_ptr(), d, b2, m, per, code,
+                                  _stream()), "zo_dirnorms")
     LAUNCHES["zo_dirnorms"] += 1
     return out
 

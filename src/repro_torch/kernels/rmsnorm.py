@@ -7,10 +7,15 @@ square in float32, ``x · rsqrt(ms + eps) · scale`` left to right, then a
 cast to x's dtype. ``kernels/ops.py:rmsnorm`` runs this for a CPU tensor,
 and ``chip_smoke.py`` holds the CUDA kernel (``csrc/rmsnorm.cu``) against it
 on the card.
+
+``rmsnorm_kernel_order`` is the CUDA kernel's own summation order of the
+mean square in torch, used only by the tests and ``chip_smoke.py`` to hold
+the kernel to it bit for bit.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def rmsnorm_plain(x, scale, *, eps=1e-6):
@@ -19,3 +24,33 @@ def rmsnorm_plain(x, scale, *, eps=1e-6):
     ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)
     return out.to(x.dtype)
+
+
+def rmsnorm_kernel_order(x, scale, *, eps=1e-6):
+    """The CUDA kernel's arithmetic in torch, on any device: lane l of a
+    row's LPR lanes sums the squares of the elements of its 16-byte vectors
+    l, l + LPR, ... in ascending order, each term a float32 multiply then
+    add; the LPR lane sums meet in the xor-shuffle tree (offsets LPR/2, ...,
+    1); then ms = sum / D (a true division), r = 1 / sqrt(ms + eps) and
+    (x · r) · scale, each correctly rounded. On the card it is the kernel
+    bit for bit; against the reference it differs by the summation order."""
+    D = x.shape[-1]
+    vec = 16 // x.element_size()             # elements per 16-byte vector
+    nvec = -(-D // vec)                      # vectors per row
+    lpr = 32 if D > 128 else (16 if nvec > 8 else 8)   # lanes per row
+    nv = -(-nvec // lpr)                     # vectors per lane
+    xf = x.reshape(-1, D).to(torch.float32)
+    sq = F.pad(xf * xf, (0, nv * lpr * vec - D))   # exact zeros beyond D
+    sq = sq.reshape(-1, nv, lpr, vec)
+    acc = torch.zeros(sq.shape[0], lpr, dtype=torch.float32, device=x.device)
+    for j in range(nv):
+        for k in range(vec):
+            acc = acc + sq[:, j, :, k]
+    w = lpr
+    while w > 1:
+        w //= 2
+        acc = acc[:, :w] + acc[:, w:2 * w]
+    ms = acc / torch.full_like(acc, D)
+    r = torch.reciprocal(torch.sqrt(ms + eps))
+    out = (xf * r) * scale.to(torch.float32)
+    return out.to(x.dtype).reshape(x.shape)

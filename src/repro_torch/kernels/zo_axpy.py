@@ -23,6 +23,11 @@ against on the card. They keep the reference oracles' arithmetic order
 the walk adds ``a·g_prev`` then ``b·g_next``;
 the replay accumulates ``acc += c[n]·g_n`` in ascending n from zero; the
 norms sum per ``block_rows·128`` block, then across blocks in block order.
+
+``dirnorm_geometry`` sets the CUDA norms kernel's chunks, and
+``dirnorm_order_sum`` / ``zo_dirnorms_kernel_order`` are that kernel's
+summation order in torch, used only by the tests and ``chip_smoke.py`` to
+hold the kernel to it bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +38,10 @@ from repro_torch.utils.prng import threefry2x32
 
 LANES = 128
 BLOCK_ROWS = 512           # pad granularity of the reference: 512·128 = 64Ki
+# csrc/zo_axpy.cu:dirnorm_kernel: threads a block, and the least number of
+# blocks the evaluations a thread are cut down to reach
+DIRNORM_THREADS = 256
+DIRNORM_MIN_BLOCKS = 1024
 
 _TWO_M24 = 2.0 ** -24
 _TWO_M25 = 2.0 ** -25
@@ -141,4 +150,72 @@ def zo_dirnorms_plain(keys, d, *, b2, kind="normal", block_rows=None):
         g = counter_gen(kind, k0, k1, n, idx)
         g = torch.where(valid, g, torch.zeros((), device=g.device))
         out.append(_blocked_sum(g * g, per))
+    return torch.stack(out, dim=1)
+
+
+def dirnorm_geometry(d, outputs):
+    """(per, chunks) of the CUDA norms kernel for ``outputs`` = M·b2 norms
+    over d elements: each thread of a 256-thread block makes ``per``
+    evaluations, so a chunk is 256·per elements and each output has
+    ``chunks`` of them. ``per`` is the largest of 64, 32, 16, 8, 4 that
+    gives at least 1024 blocks (4 if none does): 64 at the Qwen2-0.5B
+    step's width, 4 at the softmax round's. The order of the sum depends
+    on it."""
+    for per in (64, 32, 16, 8, 4):
+        chunks = -(-d // (DIRNORM_THREADS * per))
+        if chunks * outputs >= DIRNORM_MIN_BLOCKS:
+            break
+    return per, chunks
+
+
+def _block_tree(s):
+    """[..., 256] thread values -> [...]: the kernel's ``block_sum``, an
+    xor-shuffle tree in each warp of 32 (offsets 16, ..., 1), then the same
+    tree over the 8 warp sums (offsets 4, 2, 1)."""
+    w = s.reshape(s.shape[:-1] + (DIRNORM_THREADS // 32, 32))
+    for o in (16, 8, 4, 2, 1):
+        w = w[..., :o] + w[..., o:2 * o]
+    w = w[..., 0]
+    for o in (4, 2, 1):
+        w = w[..., :o] + w[..., o:2 * o]
+    return w[..., 0]
+
+
+def dirnorm_order_sum(sq, per):
+    """Σ over the last dim of ``sq`` [..., d] in the CUDA norms kernel's
+    order: per 256·per-element chunk, thread t sums the elements
+    j·256 + t (j = 0, ..., per − 1) in ascending j, then ``_block_tree``;
+    the finish: thread t sums the chunk totals t, t + 256, ... in
+    ascending order, then ``_block_tree``. Zeros pad the last chunk (the
+    kernel skips those elements: the same sums)."""
+    lead, d = sq.shape[:-1], sq.shape[-1]
+    T = DIRNORM_THREADS
+    chunks = -(-d // (T * per))
+    v = torch.nn.functional.pad(sq, (0, chunks * T * per - d))
+    v = v.reshape(lead + (chunks, per, T))
+    s = torch.zeros(lead + (chunks, T), dtype=torch.float32, device=sq.device)
+    for j in range(per):
+        s = s + v[..., j, :]
+    part = _block_tree(s)
+    k = -(-chunks // T)
+    p = torch.nn.functional.pad(part, (0, k * T - chunks))
+    p = p.reshape(lead + (k, T))
+    f = torch.zeros(lead + (T,), dtype=torch.float32, device=sq.device)
+    for i in range(k):
+        f = f + p[..., i, :]
+    return _block_tree(f)
+
+
+def zo_dirnorms_kernel_order(keys, d, *, b2, kind="normal", per=None):
+    """``[M, b2]`` ‖v_n[:d]‖² from this module's directions, summed in the
+    CUDA kernel's order (``dirnorm_order_sum``; ``per`` as the wrapper
+    picks it). Bitwise the kernel for the sign kind; for the normal kind
+    the directions differ from the kernel's by torch's log/cos."""
+    per = per or dirnorm_geometry(d, keys.shape[0] * b2)[0]
+    idx = torch.arange(d, dtype=torch.int64, device=keys.device)
+    k0, k1 = _key_cols(keys)
+    out = []
+    for n in range(b2):
+        g = counter_gen(kind, k0, k1, n, idx)
+        out.append(dirnorm_order_sum(g * g, per))
     return torch.stack(out, dim=1)

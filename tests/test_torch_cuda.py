@@ -8,13 +8,17 @@ with an H100 and nvcc:
 
 The sign kind, the AirComp mean and the two axpys (any dtype mix, ragged
 length, view offset) are bitwise; the normal kind within 4 ulp of the
-summed terms; the norms within a relative 1e-5. RMSNorm and flash
+summed terms; the norms within a relative 1e-5, and bitwise the torch twin
+of their summation order (``dirnorm_order_sum``). RMSNorm and flash
 attention: float32 within a relative 1e-5 (another summation order),
-bfloat16 within 1 bf16 ulp of the output; float32 flash attention also
-bitwise its summation order's torch twin. ``chip_smoke.py`` repeats these at
-the main path's full shapes and times them.
+bfloat16 within 1 bf16 ulp of the output; RMSNorm (both dtypes) and float32
+flash attention also bitwise their summation order's torch twin.
+``chip_smoke.py`` repeats these at the main path's full shapes and times
+them.
 """
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +30,10 @@ from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import zo_aircomp as zac
 from repro_torch.kernels import zo_axpy as za
 from repro_torch.utils import prng
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +84,45 @@ def test_zo_dirnorms_on_card(gen, kind, d):
     got = ops.zo_dirnorms(keys, d, b2=7, kind=kind)
     want = za.zo_dirnorms_plain(keys, d, b2=7, kind=kind)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+# 10 chunks of 1,024 (4 evaluations a thread) and a ragged 5; 4,097 chunks
+# of 16,384 (64 a thread), more partials than the finish has threads
+@pytest.mark.parametrize("d,rtol", [(10 * 1024 + 5, 1e-5),
+                                    # a float32 sum of thousands of partials
+                                    # on each side, as at full width
+                                    (2 ** 26 + 3, 1e-4)])
+def test_zo_dirnorms_in_its_kernel_order_on_card(gen, d, rtol):
+    """One launch per call: within the plain version's tolerance, bitwise
+    the twin of its summation order (sign kind: the plain directions;
+    normal kind: the kernels' own directions), bitwise over two calls, and
+    no host synchronisation inside the call."""
+    keys = _keys(gen, 2)
+    b2 = 3
+    per, chunks = za.dirnorm_geometry(d, 2 * b2)
+    assert chunks == (11 if d < 2 ** 26 else 4097)
+    ops.zo_dirnorms(keys, d, b2=b2)          # builds on first use
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {kind: ops.zo_dirnorms(keys, d, b2=b2, kind=kind)
+               for kind in ("normal", "sign")}
+        again = ops.zo_dirnorms(keys, d, b2=b2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.LAUNCHES["zo_dirnorms"] == 3
+    assert torch.equal(got["normal"], again)
+    for kind in ("normal", "sign"):
+        torch.testing.assert_close(
+            got[kind], za.zo_dirnorms_plain(keys, d, b2=b2, kind=kind),
+            rtol=rtol, atol=0)
+    assert torch.equal(got["sign"], za.zo_dirnorms_kernel_order(
+        keys, d, b2=b2, kind="sign"))
+    # the kernels' own normal directions (zo_walk of zeros), their squares
+    # summed by the twin
+    assert torch.equal(got["normal"], chip_smoke.dirnorms_from_walk(
+        torch, ops, za, keys, d, b2))
 
 
 @pytest.mark.parametrize("n", [65536, 1000])
@@ -175,7 +222,7 @@ def _bf16_ulps(got, want, floor):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d", [(512, 896), (7, 64), (1, 100),
-                                    (513, 32)])
+                                    (513, 32), (7168, 64)])
 def test_rmsnorm_on_card(gen, dtype, rows, d):
     x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
     sc = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
@@ -187,6 +234,26 @@ def test_rmsnorm_on_card(gen, dtype, rows, d):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     else:
         assert _bf16_ulps(got, want, 1e-30) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,offset", [
+    (512, 896, 0), (7, 64, 0), (1, 100, 0), (513, 32, 0), (7168, 64, 0),
+    # rows not 16-byte vectors: a view at an odd element offset, a row
+    # length whose bytes are not a multiple of 16, one too long for the
+    # registers (the streaming kernel)
+    (512, 896, 1), (7168, 64, 3), (5, 100, 1), (3, 2100, 0), (3, 2100, 1),
+    (4, 4104, 0)])
+def test_rmsnorm_in_its_kernel_order_on_card(gen, dtype, rows, d, offset):
+    """Bitwise ``rmsnorm_kernel_order`` (the kernel's summation order in
+    torch), whichever loads the row takes."""
+    base = torch.randn(rows * d + offset, generator=gen, device="cuda")
+    x = base.to(dtype)[offset:].view(rows, d)
+    sc = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    got = ops.rmsnorm(x, sc)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, rn.rmsnorm_kernel_order(x, sc))
+    assert torch.equal(ops.rmsnorm(x.contiguous().clone(), sc), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

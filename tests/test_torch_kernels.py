@@ -130,6 +130,51 @@ def test_zo_dirnorms_matches_reference(kind, d):
         np.testing.assert_allclose(got[m], want, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["normal", "sign"])
+@pytest.mark.parametrize("d", [100, 1300, 7850])
+def test_zo_dirnorms_kernel_order_matches_reference(kind, d):
+    """The CUDA norms kernel's summation order (``zo_dirnorms_kernel_order``,
+    which the card tests hold the kernel to bit for bit) against the Pallas
+    kernel: the reductions' relative 1e-5."""
+    _, keys, _, _ = _inputs(3, 8)
+    got = tza.zo_dirnorms_kernel_order(prng.as_key(keys), d, b2=6,
+                                       kind=kind).numpy()
+    for m in range(M):
+        want = np.asarray(jops.zo_dirnorms(jnp.asarray(keys[m]), d, b2=6,
+                                           kind=kind, block_rows=BR))
+        np.testing.assert_allclose(got[m], want, rtol=1e-5, atol=0)
+
+
+# 10 chunks of 1,024 and a ragged 5; 301 chunks, so some of the finish's 256
+# threads sum two partials
+@pytest.mark.parametrize("kind", ["normal", "sign"])
+@pytest.mark.parametrize("d", [10 * 1024 + 5, 300 * 1024 + 7])
+def test_zo_dirnorms_kernel_order_matches_a_float64_sum(kind, d):
+    """Over several chunks and a ragged edge the kernel's order sums the
+    same squares as float64 does, to float32 rounding (reading: 1.1e-7;
+    the sign kind exactly, below 2^24)."""
+    _, keys, _, _ = _inputs(5, 8)
+    k = prng.as_key(keys)
+    per, chunks = tza.dirnorm_geometry(d, M * 2)
+    assert (per, chunks) == (4, -(-d // 1024))
+    got = tza.zo_dirnorms_kernel_order(k, d, b2=2, kind=kind)
+    idx = torch.arange(d)
+    want = torch.stack([torch.square(tza.counter_gen(
+        kind, k[:, :1], k[:, 1:], n, idx).double()).sum(1) for n in range(2)],
+        dim=1)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(),
+                               rtol=1e-6 if kind == "normal" else 0, atol=0)
+
+
+def test_dirnorm_geometry_at_the_main_path_shapes():
+    """64 evaluations a thread at the Qwen2-0.5B step's width (M 1, b2 8),
+    4 at the softmax round's (M 10, b2 20) and the cnn's."""
+    assert tza.dirnorm_geometry(494_032_768, 8) == (64, 30_154)
+    assert tza.dirnorm_geometry(7_850, 200) == (4, 8)
+    assert tza.dirnorm_geometry(9_074, 200) == (4, 9)
+    assert tza.dirnorm_geometry(2_000_000, 8) == (32, 245)
+
+
 @pytest.mark.parametrize("n,d", [(2 * BR * 128, 700), (700, 650)])
 def test_aircomp_reduce_matches_reference(n, d):
     rs = np.random.default_rng(4)

@@ -61,6 +61,36 @@ def test_rmsnorm_plain_bf16_within_one_ulp_of_reference():
                       torch.from_numpy(np.asarray(want, np.float32))) <= 1
 
 
+@pytest.mark.parametrize("shape", [(512, 896), (7, 5, 64), (3, 100), (1, 32)])
+def test_rmsnorm_kernel_order_matches_pallas_and_norm_fwd(shape):
+    """The CUDA kernel's summation order (``rmsnorm_kernel_order``, which the
+    card tests hold the kernel to bit for bit) computes the reference's
+    RMSNorm: within the plain version's tolerance of the Pallas kernel and
+    of ``norm_fwd`` (readings: 3.5e-7, 2.8e-7, 2.1e-7, 1.3e-7)."""
+    x = _normal(0, *shape) * 3
+    sc = 1 + 0.1 * _normal(1, shape[-1])
+    got = trn.rmsnorm_kernel_order(torch.from_numpy(x), torch.from_numpy(sc),
+                                   eps=1e-6).numpy()
+    pallas = np.asarray(jops.rmsnorm(x, sc, eps=1e-6, interpret=True))
+    jnp_twin = np.asarray(norm_fwd({"scale": jnp.asarray(sc)}, x))
+    np.testing.assert_allclose(got, pallas, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got, jnp_twin, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [896, 64, 100])
+def test_rmsnorm_kernel_order_bf16_within_one_ulp_of_reference(d):
+    """In bfloat16 (8 elements a 16-byte vector, so other lane groups than
+    float32's) both round a float32 result: at most one bf16 ulp apart."""
+    x, sc = _normal(2, 64, d), 1 + 0.1 * _normal(3, d)
+    got = trn.rmsnorm_kernel_order(torch.from_numpy(x).bfloat16(),
+                                   torch.from_numpy(sc).bfloat16())
+    want = norm_fwd({"scale": jnp.asarray(sc, jnp.bfloat16)},
+                    jnp.asarray(x, jnp.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got.float(),
+                      torch.from_numpy(np.asarray(want, np.float32))) <= 1
+
+
 ATTN_CASES = [
     # b, s, hq, hkv, d, causal, window
     (2, 16, 4, 2, 32, True, 0),       # the smoke model, G = 2
