@@ -19,9 +19,13 @@ each of which raises on a failure (the script then exits non-zero):
      zo_dirnorms also bitwise the torch twin of its summation order
      (``dirnorm_order_sum``; the sign kind from the plain directions, the
      normal kind on the kernels' own directions) and over two calls.
+     aircomp_reduce's mean bitwise, its norms bitwise their twin
+     (``aircomp_sq_order_sum``), also ragged and at an odd offset; timed
+     beside its previous two-launch design.
    - zo_walk, zo_replay and zo_dirnorms again at the Qwen2-0.5B train
      step's width (M = 1, n_pad = 494,075,904, d = 494,032,768, b2 = 8);
-     the norms' finish is also timed on its own.
+     the norms' finish is also timed on its own. aircomp_reduce at the flat
+     Qwen2-0.5B round's [4, 494,075,904], beside its previous design.
    - rmsnorm ([512, 896] and the [7168, 64] rows of a qk_norm) and
      flash_attention (q [4, 128, 14, 64], k/v [4, 128, 2, 64], causal; a
      ragged S = 100, a window of 32, a non-causal call, causal S = 512, a
@@ -30,7 +34,10 @@ each of which raises on a failure (the script then exits non-zero):
      bfloat16 within 1 bf16 ulp of the output (the two float32 results
      round to neighbouring bf16 values at most). rmsnorm is also bitwise
      the torch twin of its summation order (``rmsnorm_kernel_order``), also
-     at an odd element offset.
+     at an odd element offset and with a ``[G, D]`` scale (G = 1 and 4, the
+     client-batched forward), timed with G = 4 beside G = 1. Attention
+     again at head dims 16 and 256 (causal, window, GQA, ragged), timed
+     against SDPA at [4, 128, 14 or 8, D].
    - zo_axpy and zo_axpy2, bitwise, for float32 and bfloat16 x with u, v
      in x's dtype or float32: ragged n (1, 7, 65,537), views at odd element
      offsets, and Qwen2-0.5B's largest leaves (the tied embedding
@@ -48,6 +55,12 @@ each of which raises on a failure (the script then exits non-zero):
      then one more step through ``fedzo.local_iterate`` at mu = 16, each
      coefficient held to its recomputation without a ZO kernel
      (``check_estimator``: every loss difference at least 256 ulps).
+   - the flat FedZO round on the same model (``fedzo.round_simulated``, M =
+     4 clients, H = 2, b2 = 8), once with the plain mean and once with
+     AirComp: the cohort's forwards go through the model's client-batched
+     loss, so the launch counts are those of one client; the batched loss
+     against each client's own loss; kernel time by kind of a profiled
+     AirComp round; ms per round and peak memory.
    - the pytree route (the reference's default): ``ops.tree_axpy2`` once
      over the full-width Qwen2-0.5B tree (14 leaves, held against the plain
      version leaf by leaf); the training CLI ``repro_torch.launch.train``
@@ -56,10 +69,10 @@ each of which raises on a failure (the script then exits non-zero):
      round.
    The launch counters are set to 0 before each run (each train step) and
    must equal exactly what it implies.
-4. Small-input references: a short softmax run on each route and 3 train
-   steps of qwen2-0.5b-smoke on each route, each on the card against the
-   same run on the CPU (plain versions), within the float32 tolerance of a
-   ZO trajectory.
+4. Small-input references: a short softmax run on each route, 3 train
+   steps of qwen2-0.5b-smoke on each route and one flat round of it over 3
+   clients, each on the card against the same run on the CPU (plain
+   versions), within the float32 tolerance of a ZO trajectory.
 
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
@@ -107,6 +120,8 @@ RAGGED = N_PAD + 77
 # batch 4 x seq 128 = 512 token rows of d_model 896; 14 q heads over 2 kv
 # heads of dim 64
 QWEN_D, QWEN_N_PAD, QWEN_B2 = 494_032_768, 494_075_904, 8
+# the flat Qwen2-0.5B round: M = 4 clients, H = 2 iterates each
+QWEN_M, QWEN_H = 4, 2
 LM_B, LM_S, LM_HQ, LM_HKV, LM_HD, LM_DM = 4, 128, 14, 2, 64, 896
 # the Qwen2-0.5B parameter tree: 14 leaves; the largest are the tied
 # embedding and the stacked MLP weights
@@ -140,8 +155,8 @@ CHECK_NORM_REL = 1e-4
 
 # names of the port's CUDA kernels in a profiler trace
 PORT_KERNELS = ("zo_walk_kernel", "zo_replay_kernel", "dirnorm_kernel",
-                "aircomp_reduce_kernel", "sum_row_partials", "axpy_kernel",
-                "rmsnorm_kernel", "rmsnorm_long_kernel", "flash_fwd")
+                "aircomp_reduce_kernel", "axpy_kernel", "rmsnorm_kernel",
+                "rmsnorm_long_kernel", "flash_fwd")
 
 
 def die(msg):
@@ -336,34 +351,87 @@ def check_kernels(torch, ops, plain, plain_air):
                  f"thread, {chunks} chunks): ms {ms:.5f} bound "
                  f"{r['bound_ms']:.5f} ({r['bound_ms'] / ms:.1%} of it)")
 
-    # aircomp_reduce: (sum_m s[m].x[m], |x[m, :d]|^2)
+    # aircomp_reduce: (sum_m s[m].x[m], |x[m, :d]|^2). The mean bitwise the
+    # plain version; the norms within 1e-5 relative of it (another order)
+    # and bitwise the twin of the kernel's own order; a view at an odd
+    # offset takes the scalar loads
     errs = []
-    for n in (N_PAD, RAGGED):
-        x, s = rnd(M, n) * 1e-3, torch.rand(M, generator=g, device=dev)
+    for n, off in ((N_PAD, 0), (RAGGED, 0), (N_PAD, 1)):
+        x = (rnd(M * n + off) * 1e-3)[off:].view(M, n)
+        s = torch.rand(M, generator=g, device=dev)
         mean, sq = ops.aircomp_reduce(x, s, D)
         pmean, psq = plain_air.aircomp_reduce_plain(x, s, D)
         check(torch.equal(mean, pmean), f"aircomp_reduce mean n={n} differs")
         rel = float(((sq - psq).abs() / psq.abs()).max())
         check(rel <= 1e-5, f"aircomp_reduce sq n={n}: rel {rel}")
+        per, grid = ops.aircomp_geometry(n, x.device)
+        check(torch.equal(sq, plain_air.aircomp_sq_order_sum(
+            x, D, per=per, grid=grid)), f"aircomp_reduce sq n={n}: not its "
+              f"twin")
         errs.append(max(float((mean - pmean).abs().max()),
                         float((sq - psq).abs().max())))
-        lines.append(f"aircomp_reduce n={n}: mean bitwise, sq rel {rel:.2e}")
+        lines.append(f"aircomp_reduce n={n} offset {off}: mean bitwise, sq "
+                     f"rel {rel:.2e}, sq bitwise its twin (per {per}, grid "
+                     f"{grid})")
     x, s = rnd(M, N_PAD) * 1e-3, torch.rand(M, generator=g, device=dev)
-    ms = median_ms(torch, lambda: ops.aircomp_reduce(x, s, D), 50)
-    plain_ms = median_ms(torch,
-                         lambda: plain_air.aircomp_reduce_plain(x, s, D), 5)
-    # yardstick only, never called by the port: one matvec + one row norm
-    library_ms = median_ms(
-        torch, lambda: (s @ x, x[:, :D].square().sum(1)), 50)
-    rows["aircomp_reduce"] = dict(
-        source="src/repro_torch/kernels/csrc/zo_aircomp.cu",
-        replaces="src/repro/kernels/zo_aircomp.py:75", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        **bound(M * N_PAD * 4 + N_PAD * 4 + M * 8,
-                2 * M * N_PAD + 2 * M * D, "fp32"))
+    row = aircomp_times(torch, ops, plain_air, x, s, D, 50)
+    row.update(source="src/repro_torch/kernels/csrc/zo_aircomp.cu",
+               replaces="src/repro/kernels/zo_aircomp.py:75",
+               max_abs_err=max(errs))
+    rows["aircomp_reduce"] = row
+    lines.append(aircomp_line(f"[{M}, {N_PAD}]", row))
     for line in lines:
         print(line)
     return rows
+
+
+def aircomp_twopass(torch, ops, x, s, d):
+    """The previous two-launch AirComp reduction (its second kernel one
+    thread per row summing every block partial in series), kept in
+    ``csrc/zo_aircomp.cu`` only to be timed here beside the one-launch
+    design. Not on any path."""
+    lib = ops.build.load()["zo_aircomp"]
+    m, n = x.shape
+    partial = torch.empty((m, -(-n // lib.aircomp_twopass_block_cols())),
+                          device=x.device)
+    mean = torch.empty(n, device=x.device)
+    sq = torch.empty(m, device=x.device)
+    ops._check(lib.aircomp_reduce_twopass_launch(
+        x.data_ptr(), s.data_ptr(), mean.data_ptr(), partial.data_ptr(),
+        sq.data_ptr(), m, n, d, ops._stream()), "aircomp_reduce twopass")
+    return mean, sq
+
+
+def aircomp_times(torch, ops, plain_air, x, s, d, reps):
+    """Times of the AirComp reduction over x ``[M, N]``: the kernel, the
+    previous two-launch design, the plain version and one library call,
+    beside the byte bound (each element read once, the mean written once).
+    The previous design's mean must be the kernel's, bit for bit."""
+    m, n = x.shape
+    check(torch.equal(aircomp_twopass(torch, ops, x, s, d)[0],
+                      ops.aircomp_reduce(x, s, d)[0]),
+          "aircomp_reduce: the previous design's mean differs")
+    ms = median_ms(torch, lambda: ops.aircomp_reduce(x, s, d), reps)
+    prev = median_ms(torch, lambda: aircomp_twopass(torch, ops, x, s, d),
+                     reps)
+    plain_ms = median_ms(
+        torch, lambda: plain_air.aircomp_reduce_plain(x, s, d),
+        max(1, reps // 10), trials=3 if reps >= 10 else 1)
+    # yardstick only, never called by the port: one matvec + one row norm
+    library_ms = median_ms(
+        torch, lambda: (s @ x, x[:, :d].square().sum(1)), reps)
+    return dict(ms=ms, previous_ms=prev, plain_ms=plain_ms,
+                library_ms=library_ms,
+                **bound(m * n * 4 + n * 4 + m * 8, 2 * m * n + 2 * m * d,
+                        "fp32"))
+
+
+def aircomp_line(shape, r):
+    return (f"aircomp_reduce {shape}: ms {r['ms']:.5f} (previous two-launch "
+            f"design {r['previous_ms']:.5f}, {r['previous_ms'] / r['ms']:.2f}x)"
+            f" plain {r['plain_ms']:.4f} library {r['library_ms']:.5f} bound "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of it)")
 
 
 def dirnorms_from_walk(torch, ops, plain, k, d, b2):
@@ -483,6 +551,39 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
         *xq.shape, median_ms(torch, lambda: ops.rmsnorm(xq, sq), 100),
         median_ms(torch, lambda: F.rms_norm(xq, (LM_HD,), weight=sq,
                                             eps=1e-6), 100)))
+    # a [G, D] scale (the client-batched forward: G clients' rows, each
+    # group under its own scale row, read as a strided layer slice): bitwise
+    # the twin at the batched Qwen2 forward's shapes, G = 1 and 4
+    for lead, dd in (((LM_B * LM_S,), LM_DM),
+                     ((QWEN_M, LM_B * LM_S), LM_DM),
+                     ((QWEN_M, LM_B * LM_S * LM_HQ), LM_HD)):
+        for dt in (torch.float32, torch.bfloat16):
+            G = lead[0] if len(lead) > 1 else 1
+            xg = rnd(*lead, dd, dtype=dt)
+            scv = (1.0 + 0.1 * rnd(G, 3, dd)).to(dt)[:, 1]
+            scv = scv if G > 1 else scv[0]
+            check(torch.equal(ops.rmsnorm(xg, scv),
+                              plain_rms.rmsnorm_kernel_order(xg, scv)),
+                  f"rmsnorm {dt} G={G} {list(lead)}: not its twin")
+    lines.append("rmsnorm: bitwise its twin with a [G, D] scale view, G = 1 "
+                 "and 4, at the batched forward's shapes, both dtypes")
+    # the same [512, 896] float32 rows as one group and as four, in turns
+    scg = 1.0 + 0.1 * rnd(4, d)
+    g1 = [median_ms(torch, lambda: ops.rmsnorm(x, sc, eps=1e-6), 100)]
+    g4 = [median_ms(torch, lambda: ops.rmsnorm(x, scg, eps=1e-6), 100)]
+    g1.append(median_ms(torch, lambda: ops.rmsnorm(x, sc, eps=1e-6), 100))
+    g4.append(median_ms(torch, lambda: ops.rmsnorm(x, scg, eps=1e-6), 100))
+    g1, g4 = min(g1), min(g4)
+    rows["rmsnorm"]["groups4_ms"] = g4
+    lines.append(f"rmsnorm fp32 [{r}, {d}]: G = 1 {g1:.5f} ms, G = 4 "
+                 f"{g4:.5f} ms ({g4 / g1:.3f}x G = 1, {g4 / library_ms:.2f}x "
+                 f"F.rms_norm)")
+    xb4 = rnd(QWEN_M * r, d)
+    sc4 = 1.0 + 0.1 * rnd(QWEN_M, d)
+    lines.append("rmsnorm fp32 [{}, {}] G = {} (the batched flat round's "
+                 "norms): ms {:.5f}".format(
+                     QWEN_M * r, d, QWEN_M,
+                     median_ms(torch, lambda: ops.rmsnorm(xb4, sc4), 100)))
 
     # flash attention, [B, S, H, D] layout. float32: max |err| within 1e-5
     # of max |out| (the dot products and the softmax sums run in another
@@ -557,12 +658,114 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
                 qb, kb, vb), 20),
             lib_b, ms_b / lib_b, bb["bound_ms"], bb["bound_by"],
             bb["bound_ms"] / ms_b))
+    lines += check_attention_head_dims(torch, ops, plain_flash, rnd, rows)
     for line in lines:
         print(line)
     return rows
 
 
-def check_full_width(torch, ops, plain):
+# head dims beyond the main shape's: 16 (the neural transformer track's
+# d_model 32 over 2 heads; here with Qwen2-0.5B's 14 q over 2 kv heads) and
+# 256 (Gemma-2B: 8 q heads over 1 kv head)
+EXTRA_HEAD_DIMS = {16: (14, 2), 256: (8, 1)}
+
+
+def attention_f64(torch, q, k, v, causal, window):
+    """softmax(q kᵀ / √D + mask) v in float64 (GQA by head repetition), on
+    q's device."""
+    Sq, Hq, D = q.shape[1:]
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kk, vv = (t.double().repeat_interleave(Hq // Hkv, 2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() / math.sqrt(D), kk)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= q_pos - k_pos < window
+    s = s.masked_fill(~mask, -math.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vv)
+
+
+def bf16_attention_errs(torch, q, k, v, got, want, causal, window):
+    """(kernel vs plain, plain vs float64, kernel vs float64) in bf16 ulps,
+    the ulp taken no finer than at 1e-5 · max |out|. The rule of the bf16
+    design's CPU test (``tests/test_torch_lm_kernels.py``): the kernel is
+    held within 1 ulp of the plain version, or 1 + r where the plain
+    version's own float32 rounding puts it r > 1 ulp from the float64
+    values (triangle inequality). At head dim 256 a score sums 256
+    products, and on an H100 the plain version read up to 1.67 ulp from
+    float64 while the kernel stayed within 1."""
+    truth = attention_f64(torch, q, k, v, causal, window).float()
+    floor = 1e-5 * float(truth.abs().max())
+    return (bf16_ulp_err(torch, got, want, floor),
+            bf16_ulp_err(torch, want, truth, floor),
+            bf16_ulp_err(torch, got, truth, floor))
+
+
+def check_attention_head_dims(torch, ops, plain_flash, rnd, rows):
+    """Phase 2: flash attention at head dims 16 and 256, both dtypes, under
+    the main shape's tolerances (causal, sliding window, GQA, ragged S), and
+    timed against SDPA at [4, 128, Hq, D]. Returns the printed lines; the
+    times go to the attention row's ``head_dims`` entry."""
+    import torch.nn.functional as F
+    lines, out = [], {}
+    for hd, (hq, hkv) in EXTRA_HEAD_DIMS.items():
+        cases = [("causal", LM_B, LM_S, True, 0),
+                 ("window 32, ragged S=100", 2, 100, True, 32),
+                 ("non-causal S=130", 1, 130, False, 0),
+                 ("causal S=300", 1, 300, True, 0)]
+        for name, b, sq, causal, window in cases:
+            for dt in (torch.float32, torch.bfloat16):
+                q = rnd(b, sq, hq, hd, dtype=dt)
+                k = rnd(b, sq, hkv, hd, dtype=dt)
+                v = rnd(b, sq, hkv, hd, dtype=dt)
+                got = ops.attention(q, k, v, causal=causal, window=window)
+                want = plain_flash.flash_attention_plain(
+                    q, k, v, causal=causal, window=window)
+                top = float(want.float().abs().max())
+                tag = f"attention D={hd} {name} {str(dt)[6:]}"
+                if dt == torch.float32:
+                    rel = float((got - want).abs().max()) / top
+                    check(rel <= 1e-5, f"{tag}: rel {rel}")
+                    lines.append(f"{tag}: max err / max |out| {rel:.2e}")
+                else:
+                    u, r, t = bf16_attention_errs(torch, q, k, v, got, want,
+                                                  causal, window)
+                    check(u <= (1 if r <= 1 else 1 + r),
+                          f"{tag}: {u} bf16 ulp from the plain version, "
+                          f"which is {r} from float64")
+                    lines.append(f"{tag}: {u:.2f} bf16 ulp from the plain "
+                                 f"version ({r:.2f} from float64; the kernel "
+                                 f"{t:.2f})")
+        q = rnd(LM_B, LM_S, hq, hd)
+        k, v = rnd(LM_B, LM_S, hkv, hd), rnd(LM_B, LM_S, hkv, hd)
+        pairs = LM_S * (LM_S + 1) // 2
+        flops = 4 * hd * pairs * LM_B * hq
+        nbytes = 4 * LM_B * LM_S * hd * (2 * hq + 2 * hkv)
+        for dt, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            ms = median_ms(torch, lambda: ops.attention(qd, kd, vd), 50)
+            lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 50)
+            plain_ms = median_ms(torch, lambda: plain_flash
+                                 .flash_attention_plain(qd, kd, vd), 10)
+            bd = bound(nbytes // (1 if dt == torch.float32 else 2), flops,
+                       kind)
+            out[f"{hd} {kind}"] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib, **bd)
+            lines.append(
+                f"flash_attention D={hd} {kind} [{LM_B}, {LM_S}, {hq}/{hkv}, "
+                f"{hd}] causal: ms {ms:.5f} plain {plain_ms:.4f} library "
+                f"{lib:.5f} ({ms / lib:.2f}x SDPA) bound {bd['bound_ms']:.5f}"
+                f" ({bd['bound_by']}, {bd['bound_ms'] / ms:.1%} of it)")
+    rows["flash_attention"]["head_dims"] = out
+    return lines
+
+
+def check_full_width(torch, ops, plain, plain_air):
     """Phase 2, the flat kernels at the Qwen2-0.5B train step's width: one
     client row of n_pad = 494,075,904, b2 = 8. Returns {kernel: fields for
     the row's ``full_width`` entry}. Same tolerances as at the round's
@@ -654,6 +857,34 @@ def check_full_width(torch, ops, plain):
                      f"({f['bound_by']}, {f['bound_ms'] / f['ms']:.1%} of it)")
     lines.append(f"zo_dirnorms full width: finish alone {finish_ms:.5f} ms "
                  f"({chunks} partials an output, {per} evaluations a thread)")
+    del x, got, want, parts
+    torch.cuda.empty_cache()
+
+    # aircomp_reduce at the flat Qwen2-0.5B AirComp round: M = 4 client
+    # deltas of n_pad. The norms within 1e-4 relative of the plain version
+    # (the full-width dirnorms argument: a float32 sum of ~7,500 block sums
+    # against one of ~460 tile totals a block, each off by about
+    # sqrt(n)·ulp of the total) and bitwise the twin
+    ma = QWEN_M
+    x = torch.randn(ma, QWEN_N_PAD, generator=g, device=dev) * 1e-5
+    s = torch.rand(ma, generator=g, device=dev)
+    mean, sq = ops.aircomp_reduce(x, s, QWEN_D)
+    pmean, psq = plain_air.aircomp_reduce_plain(x, s, QWEN_D)
+    check(torch.equal(mean, pmean), "aircomp_reduce full width: mean differs")
+    rel = float(((sq - psq).abs() / psq).max())
+    check(rel <= 1e-4, f"aircomp_reduce full width: sq rel {rel}")
+    err = max(float((mean - pmean).abs().max()), float((sq - psq).abs().max()))
+    del pmean, psq
+    per_a, grid_a = ops.aircomp_geometry(QWEN_N_PAD, x.device)
+    check(torch.equal(sq, plain_air.aircomp_sq_order_sum(
+        x, QWEN_D, per=per_a, grid=grid_a)),
+          "aircomp_reduce full width: sq not its twin")
+    f = aircomp_times(torch, ops, plain_air, x, s, QWEN_D, 8)
+    f["max_abs_err"] = err
+    out["aircomp_reduce"] = f
+    lines = [f"aircomp_reduce full width: mean bitwise, sq rel {rel:.2e}, sq "
+             f"bitwise its twin (per {per_a}, grid {grid_a})",
+             aircomp_line(f"[{ma}, {QWEN_N_PAD}]", f)]
     for line in lines:
         print(line)
     return out
@@ -927,6 +1158,153 @@ def run_qwen_train(torch, ops, FedZOConfig, steps=4, profile_dir=None):
     return total
 
 
+# kernel kinds of a profiled flat round, by a piece of the kernel's name
+KERNEL_KINDS = (("flash_attention", ("flash_fwd",)),
+                ("rmsnorm", ("rmsnorm",)),
+                ("zo_walk", ("zo_walk",)), ("zo_replay", ("zo_replay",)),
+                ("zo_dirnorms", ("dirnorm",)),
+                ("aircomp_reduce", ("aircomp_reduce",)),
+                ("float32 GEMM", ("gemm", "xmma", "cutlass", "Kernel2")))
+
+
+def kernel_time_by_kind(torch, fn):
+    """``fn()`` once under torch.profiler: wall ms, device busy share and
+    kernel ms by kind (``KERNEL_KINDS``, the rest as "other")."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kinds = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(w in e.key for w in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(kinds.values())
+    return wall, busy / wall, dict(sorted(kinds.items(),
+                                          key=lambda kv: -kv[1]))
+
+
+def flat_round_launches(ops, cfg, L):
+    """Launches of one flat round of the dense LM: per iterate one
+    zo_dirnorms, b2 zo_walks, one zo_replay and b2 + 1 batched forwards
+    (2L + 1 RMSNorms and L attentions each); AirComp adds its reduction and
+    the noise walk. None depends on the number of clients."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    H, b2, air = cfg.local_iters, cfg.b2, int(cfg.aircomp)
+    want.update(zo_walk=H * b2 + air, zo_replay=H, zo_dirnorms=H,
+                aircomp_reduce=air, rmsnorm=H * (b2 + 1) * (2 * L + 1),
+                flash_attention=H * (b2 + 1) * L)
+    return want
+
+
+def run_qwen_flat_round(torch, ops, FedZOConfig):
+    """Phase 3, the flat FedZO round on Qwen2-0.5B at full width and depth
+    in float32 (random weights from seed 0) through
+    ``fedzo.round_simulated``: M = 4 clients, H = 2 iterates each on batch
+    4 x seq 128 of the synthetic LM stream, b2 = 8 sphere directions,
+    mu = 1e-3, lr = 1e-4; one round with the plain mean, one with AirComp
+    (channel scheduling, 5 dB). The cohort's forwards run through the
+    model's client-batched loss, so the launch counts are those of one
+    client. Then the batched loss against each client's own ``model.loss``
+    and a profiled AirComp round (kernel time by kind). Returns the
+    launches of the two counted rounds."""
+    import numpy as np
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+    from repro_torch.utils.tree import tree_leaves
+
+    model, toks = lm_setup("qwen2-0.5b", "float32")
+    L, m, h = model.cfg.n_layers, QWEN_M, QWEN_H
+    params = model.init(prng.key(0), device="cuda")
+    spec = flat_spec(params)
+    rng = np.random.default_rng(1)
+    per = [lm_batch(torch, toks, rng, LM_B, LM_S, "cuda")
+           for _ in range(m * h)]
+    batches = {k: torch.stack([b[k] for b in per]).reshape(
+        (m, h, LM_B, LM_S)) for k in ("tokens", "labels")}
+    keys = prng.split(prng.key(1), m)
+    base = dict(n_participating=m, local_iters=h, lr=1e-4, mu=1e-3,
+                b2=QWEN_B2, estimator="sphere", flat_params=True)
+    cfgs = {"mean": FedZOConfig(**base),
+            "aircomp": FedZOConfig(**base, aircomp=True,
+                                   channel_schedule=True, snr_db=5.0)}
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    mem = 4 * spec.n_pad
+    print(f"qwen flat round: d {spec.d}, n_pad {spec.n_pad}; expected peak "
+          f"about {(2 + 3 * m) * mem / 2**30:.1f} GiB of buffers (weights "
+          f"and buf0, {m * mem / 2**30:.2f} GiB for each [M, n_pad] of the "
+          f"cohort, the walked copy and the deltas) plus the forward's "
+          f"[{m * LM_B * LM_S}, {model.cfg.vocab}] float32 logits "
+          f"({m * LM_B * LM_S * model.cfg.vocab * 4 / 2**30:.2f} GiB)")
+    for name, cfg in cfgs.items():
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = fedzo.round_simulated(model.loss, params, batches, keys,
+                                         cfg, channel_rng=prng.key(2))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(ops.LAUNCHES)
+        want = flat_round_launches(ops, cfg, L)
+        check(counts == want, f"qwen flat round {name}: launches {counts} "
+              f"!= {want}")
+        for k in total:
+            total[k] += counts[k]
+        mets = {k: float(v) for k, v in met.items()}
+        check(all(map(math.isfinite, mets.values())),
+              f"qwen flat round {name}: metrics {mets}")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+              f"qwen flat round {name}: parameters not finite")
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(new), tree_leaves(params)))
+        check(moved > 0, f"qwen flat round {name}: no weight moved")
+        del new
+        print(f"qwen flat round {name}: M {m}, H {h}, b2 {cfg.b2}: ms/round "
+              f"{ms:.1f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"metrics {json.dumps(mets)}; largest weight move {moved:.3e};"
+              f" launches {counts} (M-independent)")
+        torch.cuda.empty_cache()
+
+    # the batched loss on m clients' own weights (the server weights plus a
+    # per-client offset, as views of one [m, n_pad] buffer) against each
+    # client's own loss: the RMSNorm and attention launches are the same
+    # rows either way, the batched GEMMs may take other cuBLAS algorithms,
+    # so 1e-5 relative, as the card-vs-CPU loss checks allow
+    g = torch.Generator(device="cuda").manual_seed(5)
+    buf = flatten(params, spec)[None].repeat(m, 1)
+    buf += 1e-3 * torch.randn(buf.shape, generator=g, device="cuda")
+    b0 = {k: v[:, 0] for k, v in batches.items()}
+    got = model.loss_batched(unflatten(buf, spec), b0)
+    each = torch.stack([model.loss(unflatten(buf[i], spec),
+                                   {k: v[i] for k, v in b0.items()})
+                        for i in range(m)])
+    rel = float(((got - each).abs() / each.abs()).max())
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    check(rel <= 1e-5, f"qwen batched loss vs each client: rel {rel}")
+    print(f"qwen batched loss: {got.tolist()} against each client's own "
+          f"{each.tolist()}: rel {rel:.2e} "
+          f"({float(((got - each).abs() / ulp).max()):.1f} ulps)")
+    del buf
+    torch.cuda.empty_cache()
+    wall, busy, kinds = kernel_time_by_kind(
+        torch, lambda: fedzo.round_simulated(
+            model.loss, params, batches, keys, cfgs["aircomp"],
+            channel_rng=prng.key(2)))
+    print(f"qwen flat round aircomp, profiled: wall {wall:.1f} ms, kernel "
+          f"time {sum(kinds.values()):.1f} ms, busy share {busy:.3f}; by "
+          f"kind (ms) {json.dumps({k: round(v, 3) for k, v in kinds.items()})}")
+    return total
+
+
 def check_estimator(model, params, batch, key, device, *, mu, b2=QWEN_B2,
                     min_ulps=CHECK_MIN_ULPS, tol_ulps=CHECK_TOL_ULPS,
                     norm_rel=CHECK_NORM_REL):
@@ -1150,6 +1528,46 @@ def check_lm_small_reference(torch, FedZOConfig, flat_params=True):
           f"{runs['cuda'][1]} cpu {runs['cpu'][1]}")
 
 
+def check_lm_round_small_reference(torch, FedZOConfig):
+    """Phase 4: one flat round of qwen2-0.5b-smoke (M = 3 clients, H = 2,
+    b2 = 4, mu = 1e-2, lr = 1e-3) on the card (the client-batched forward
+    with the kernels) and on the CPU (plain versions), from the same
+    weights, batches and keys."""
+    import numpy as np
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+
+    model, toks = lm_setup("qwen2-0.5b-smoke", "float32")
+    m, h = 3, 2
+    cfg = FedZOConfig(n_participating=m, local_iters=h, lr=1e-3, mu=1e-2,
+                      b2=4, flat_params=True)
+    init = model.init(prng.key(0), device="cpu")
+    spec = flat_spec(init)
+    rng = np.random.default_rng(0)
+    per = [lm_batch(torch, toks, rng, 2, 16, "cpu") for _ in range(m * h)]
+    batches = {k: torch.stack([b[k] for b in per]).reshape((m, h, 2, 16))
+               for k in ("tokens", "labels")}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = unflatten(flatten(init, spec).to(dev), spec)
+        new, met = fedzo.round_simulated(
+            model.loss, params, {k: v.to(dev) for k, v in batches.items()},
+            prng.split(prng.key(1), m), cfg)
+        runs[dev] = (flatten(new, spec).cpu(),
+                     float(met["mean_local_loss"]))
+    # check_lm_small_reference's argument: a loss ulp moves a coefficient
+    # by d.ulp/mu ~ 17 and a weight by ~1e-4 per iterate, so a client's
+    # H = 2 iterates at a few ulps each stay within 1e-3; the mean over the
+    # clients does not add to it (port vs JAX on the CPU reads 1.1e-4)
+    worst = float((runs["cuda"][0] - runs["cpu"][0]).abs().max())
+    check(worst <= 1e-3, f"qwen2-0.5b-smoke flat round card vs CPU: max "
+          f"|diff| {worst}")
+    print(f"small reference (qwen2-0.5b-smoke, flat round, M {m}, H {h}): "
+          f"card vs CPU max |param diff| {worst:.3e}; mean local loss card "
+          f"{runs['cuda'][1]} cpu {runs['cpu'][1]}")
+
+
 def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
@@ -1271,7 +1689,7 @@ def main(argv):
     rows.update(timed("lm kernels", lambda: check_lm_kernels(
         torch, ops, rmsnorm, flash_attention)))
     for name, f in timed("full width", lambda: check_full_width(
-            torch, ops, zo_axpy)).items():
+            torch, ops, zo_axpy, zo_aircomp)).items():
         rows[name]["full_width"] = f
     rows.update(timed("axpy kernels", lambda: check_axpy_kernels(
         torch, ops, zo_axpy)))
@@ -1280,6 +1698,8 @@ def main(argv):
     for name, phase in (
             ("qwen flat", lambda: run_qwen_train(torch, ops, FedZOConfig,
                                                  profile_dir=args.profile)),
+            ("qwen flat round", lambda: run_qwen_flat_round(
+                torch, ops, FedZOConfig)),
             ("tree_axpy2", lambda: run_tree_axpy2(torch, ops, zo_axpy)),
             ("qwen pytree cli", lambda: run_qwen_pytree_cli(torch, ops))):
         for k, n in timed(name, phase).items():
@@ -1288,7 +1708,8 @@ def main(argv):
         check_small_reference(torch, neural, FedZOConfig),
         check_pytree_small_reference(torch, neural, FedZOConfig),
         check_lm_small_reference(torch, FedZOConfig),
-        check_lm_small_reference(torch, FedZOConfig, flat_params=False)))
+        check_lm_small_reference(torch, FedZOConfig, flat_params=False),
+        check_lm_round_small_reference(torch, FedZOConfig)))
     if args.profile:
         timed("profiles", lambda: (
             profile_round(torch, neural, FedZOConfig, args.profile),

@@ -17,7 +17,10 @@ Two routes compute one local iterate x ← x − η·∇̃F(x), chosen by
   their H iterates side by side on one ``[M, n_pad]`` buffer (the client
   axis is an explicit batch dimension, so one kernel launch covers the
   cohort): one ``zo_dirnorms``, b2 × (one ``zo_walk`` + one batched loss
-  forward), one ``zo_replay``. The ``[M, n_pad]`` delta matrix is
+  forward), one ``zo_replay``. The batched loss is the loss's own
+  client-batched form where it has one (the dense LM: one RMSNorm and one
+  attention launch per forward for all M clients), else
+  ``torch.func.vmap``. The ``[M, n_pad]`` delta matrix is
   aggregated by a masked/weighted mean or by AirComp, then unflattened
   once.
 
@@ -80,8 +83,15 @@ def check_route(cfg: FedZOConfig):
 
 def batched_loss(loss_fn):
     """Map a one-client ``loss(params, batch)`` over a leading client axis
-    of both the parameter dict and the batch: returns ``[M]`` losses."""
-    return torch.func.vmap(loss_fn)
+    of both the parameter dict and the batch: returns ``[M]`` losses.
+
+    A loss that carries its client-batched form as ``loss_fn.batched`` (the
+    dense LM's, ``models/api.py``) runs through it: one kernel launch per
+    RMSNorm and attention for the whole cohort. Any other loss goes
+    through ``torch.func.vmap``, which cannot trace a kernel launch (a
+    vmapped tensor has no storage to hand the kernel) and serves the losses
+    that launch none (softmax, CNN)."""
+    return getattr(loss_fn, "batched", None) or torch.func.vmap(loss_fn)
 
 
 def flat_local_iterate(loss_fn, buf, spec, batch, keys, cfg: FedZOConfig,

@@ -39,6 +39,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the launchers (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "zo_axpy": {
@@ -48,16 +49,20 @@ SIGNATURES = {
         "zo_dirnorms_finish_launch": [_P, _P, _I, _I, _P],
     },
     "zo_aircomp": {
-        "aircomp_block_cols": [],
-        "aircomp_max_rows": [],
-        "aircomp_reduce_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "aircomp_geometry": [_I, _IP, _IP],
+        "aircomp_reduce_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _P],
+        "aircomp_twopass_block_cols": [],
+        "aircomp_twopass_max_rows": [],
+        "aircomp_reduce_twopass_launch": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                          _P],
     },
     "axpy": {
         "zo_axpy_launch": [_P, _P, _P, _P, _L, _I, _I, _P],
         "zo_axpy2_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     },
     "rmsnorm": {
-        "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+        "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _L, _P],
     },
     "flash_attention": {
         "flash_head_dim_ok": [_I],

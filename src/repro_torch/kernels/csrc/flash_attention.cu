@@ -17,15 +17,20 @@
 // by how many warps are in flight to hide it.
 //
 // What the design does about it:
+// - Head dims 16, 32, 64, 128 and 256, each its own instantiation.
 // - K/V tiles of 64 keys of the kv head (the plain version's BLOCK_K) are
 //   staged with 16-byte cp.async, the whole tile issued at once by all
-//   threads, into two buffers: tile t+1 loads while tile t computes. Keys
+//   threads, into two buffers: tile t+1 loads while tile t computes. Where
+//   two stages do not fit in the 227 KB of shared memory a block may have
+//   (D = 256 in float32: 266 KB of K/V alone; bfloat16 D = 256 with three q
+//   pieces), one buffer is staged after the previous tile is consumed. Keys
 //   beyond Sk are zero-filled by the copy (src-size 0) and masked by
 //   position. Rows are padded by 16 bytes so that the row-wise 16-byte
 //   shared-memory reads (float4 loads, ldmatrix) hit distinct banks.
 // - float32 (flash_fwd_f32): a block of 256 threads takes 32 q rows; a
 //   thread owns 2 rows and, for the scores, 4 keys of the tile (tx + 16c),
-//   for the output D/16 columns of those rows. The q tile (pre-scaled, as
+//   for the output D/16 columns of those rows (one at D = 16, sixteen at
+//   D = 256). The q tile (pre-scaled, as
 //   the reference scales q) sits in shared memory; each thread computes a
 //   2 x 4 register tile of scores from float4 reads of q and K, so one
 //   shared-memory read feeds 8 multiply-adds. A row's max is taken over the
@@ -64,8 +69,11 @@
 //   into a zeroed accumulator that is then added to the running sums with
 //   float32 adds, so the tensor cores' own accumulation spans 16 products:
 //   chained over whole tiles it moved a non-causal output by 2 bf16 ulp.
-//   At D = 128 two blocks share a q tile, each with 64 of the output
-//   columns (the float32 accumulators of all 128 spilled registers).
+//   At D >= 128 D/64 blocks share a q tile, each with 64 of the output
+//   columns (the float32 accumulators of all 128 spilled registers), each
+//   computing the whole Q.K^T and softmax. At D = 16, Q.K^T is one k-step
+//   and P.V two n-tiles; a 32-byte row padded to 48 bytes keeps the eight
+//   rows of an ldmatrix on distinct banks.
 // - Running max, denominator and accumulator are float32 and follow the
 //   reference's order per tile: m_new = max(m, max_j s_j), corr = exp(m -
 //   m_new), l = l * corr + sum_j p_j, acc = acc * corr + sum_j p_j v_j, with
@@ -91,6 +99,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kKeys = 64;  // keys per K/V tile (the plain version's BLOCK_K)
 constexpr float kNegInf = -1e30f;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use
 
 constexpr int kF32Rows = 32;      // q rows per float32 block
 constexpr int kF32Threads = 256;  // 16 row pairs x 16 lanes
@@ -230,20 +239,24 @@ __device__ __forceinline__ int causal_tiles(int Sk, int causal, int q_end) {
 // ---------------------------------------------------------------- float32
 
 template <int D>
-constexpr size_t f32_smem_bytes() {
-  // q tile, two stages of K and V, the p strips
+constexpr size_t f32_smem_bytes(int stages) {
+  // q tile, the stages of K and V, the p strips
   return (static_cast<size_t>(kF32Rows) * (D + 4) +
-          4 * static_cast<size_t>(kKeys) * (D + 4) +
+          2 * stages * static_cast<size_t>(kKeys) * (D + 4) +
           static_cast<size_t>(kF32Rows) * (kKeys + 4)) *
          sizeof(float);
 }
+template <int D>
+constexpr int kF32Stages = f32_smem_bytes<D>(2) <= kMaxSmem ? 2 : 1;
 
-// the output columns of lane tx: D / 16 of them, as float4 (D >= 64) or a
-// float2 (D = 32), each group contiguous so the half-warp reads a V row in
-// one sweep
+// the output columns of lane tx: D / 16 of them, as float4 (D >= 64), a
+// float2 (D = 32) or one float (D = 16), each group contiguous so the
+// half-warp reads a V row in one sweep
 template <int D>
 __device__ __forceinline__ int out_col(int tx, int i) {
-  if constexpr (D == 32) {
+  if constexpr (D == 16) {
+    return tx;
+  } else if constexpr (D == 32) {
     return 2 * tx + i;
   } else {
     return 64 * (i / 4) + 4 * tx + (i % 4);
@@ -253,7 +266,9 @@ __device__ __forceinline__ int out_col(int tx, int i) {
 template <int D>
 __device__ __forceinline__ void read_cols(const float* row, int tx,
                                           float (&o)[D / 16]) {
-  if constexpr (D == 32) {
+  if constexpr (D == 16) {
+    o[0] = row[tx];
+  } else if constexpr (D == 32) {
     const float2 t = *reinterpret_cast<const float2*>(row + 2 * tx);
     o[0] = t.x;
     o[1] = t.y;
@@ -278,10 +293,11 @@ __global__ void __launch_bounds__(kF32Threads)
   constexpr int kS = D + 4;       // padded row of q, K, V
   constexpr int kPS = kKeys + 4;  // padded p strip
   constexpr int CW = D / 16;      // output columns per thread
+  constexpr int kStages = kF32Stages<D>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kF32Rows][kS]
-  float* kv0 = qs + kF32Rows * kS;              // 2 x (K, V) x [kKeys][kS]
-  float* ps = kv0 + 4 * kKeys * kS;             // [kF32Rows][kPS]
+  float* kv0 = qs + kF32Rows * kS;  // kStages x (K, V) x [kKeys][kS]
+  float* ps = kv0 + kStages * 2 * kKeys * kS;  // [kF32Rows][kPS]
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int r0 = 2 * (tid >> 4);  // this thread's rows r0, r0 + 1
@@ -320,17 +336,22 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
+    if (kStages == 2 && t + 1 < n_tiles) {
       float* nk = kv0 + ((t + 1) & 1) * 2 * kKeys * kS;
       stage_tile<float, D, kF32Threads>(nk, nk + kKeys * kS, k, v, b, hk, Sk,
                                         Hkv, (t + 1) * kKeys, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
+      if (kStages == 1 && t > 0) {  // the one buffer is free again
+        stage_tile<float, D, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, b, hk,
+                                          Sk, Hkv, t * kKeys, tid);
+        cp_async_commit();
+      }
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t (and, at t = 0, the q tile) is in place
-    const float* ks = kv0 + (t & 1) * 2 * kKeys * kS;
+    const float* ks = kv0 + (kStages == 2 ? (t & 1) : 0) * 2 * kKeys * kS;
     const float* vs = ks + kKeys * kS;
     const int k0 = t * kKeys;
 
@@ -430,11 +451,13 @@ __global__ void __launch_bounds__(kF32Threads)
 // ---------------------------------------------------------------- bfloat16
 
 template <int D, int NQ>
-constexpr size_t bf16_smem_bytes() {
-  // NQ bf16 pieces of the q tile, two stages of K and V
-  return (static_cast<size_t>(NQ) * kBfRows + 4 * kKeys) * (D + 8) *
-         sizeof(bf16);
+constexpr size_t bf16_smem_bytes(int stages) {
+  // NQ bf16 pieces of the q tile, the stages of K and V
+  return (static_cast<size_t>(NQ) * kBfRows + 2 * stages * kKeys) *
+         (D + 8) * sizeof(bf16);
 }
+template <int D, int NQ>
+constexpr int kBfStages = bf16_smem_bytes<D, NQ>(2) <= kMaxSmem ? 2 : 1;
 
 // NQ = 1: the scale is a power of two and bf16(q * scale) is exact. NQ = 3:
 // float32 q * scale is held as the sum of three bf16 pieces (24 bits).
@@ -448,9 +471,10 @@ __global__ void __launch_bounds__(kBfThreads)
   constexpr int KD = D / 16;  // k-steps of Q.K^T over D
   constexpr int DV = kBfOutCols<D>;  // output columns of this block
   constexpr int ND = DV / 8;          // their n-tiles
+  constexpr int kStages = kBfStages<D, NQ>;
   extern __shared__ float4 smem4[];
   bf16* qs = reinterpret_cast<bf16*>(smem4);  // NQ x [kBfRows][kS]
-  bf16* kv0 = qs + NQ * kBfRows * kS;         // 2 x (K, V) x [kKeys][kS]
+  bf16* kv0 = qs + NQ * kBfRows * kS;  // kStages x (K, V) x [kKeys][kS]
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -511,17 +535,22 @@ __global__ void __launch_bounds__(kBfThreads)
   float l[2] = {0.0f, 0.0f};
 
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
+    if (kStages == 2 && t + 1 < n_tiles) {
       bf16* nk = kv0 + ((t + 1) & 1) * 2 * kKeys * kS;
       stage_tile<bf16, D, kBfThreads>(nk, nk + kKeys * kS, k, v, b, hk, Sk,
                                       Hkv, (t + 1) * kKeys, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
+      if (kStages == 1 && t > 0) {  // the one buffer is free again
+        stage_tile<bf16, D, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, b, hk,
+                                        Sk, Hkv, t * kKeys, tid);
+        cp_async_commit();
+      }
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* ks = kv0 + (t & 1) * 2 * kKeys * kS;
+    const bf16* ks = kv0 + (kStages == 2 ? (t & 1) : 0) * 2 * kKeys * kS;
     const bf16* vs = ks + kKeys * kS;
     const int k0 = t * kKeys;
 
@@ -671,7 +700,8 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int Hq, int Hkv, int causal, int window,
                float scale, cudaStream_t s) {
-  constexpr size_t smem = f32_smem_bytes<D>();
+  constexpr size_t smem = f32_smem_bytes<D>(kF32Stages<D>);
+  static_assert(smem <= kMaxSmem, "float32 tile fits in shared memory");
   static bool done[kMaxDevices] = {};
   const int attr = set_smem_once(flash_fwd_f32<D>, smem, done);
   if (attr != 0) return attr;
@@ -687,7 +717,8 @@ template <int D, int NQ>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
                 int Sq, int Sk, int Hq, int Hkv, int causal, int window,
                 float scale, cudaStream_t s) {
-  constexpr size_t smem = bf16_smem_bytes<D, NQ>();
+  constexpr size_t smem = bf16_smem_bytes<D, NQ>(kBfStages<D, NQ>);
+  static_assert(smem <= kMaxSmem, "bfloat16 tile fits in shared memory");
   static bool done[kMaxDevices] = {};
   const int attr = set_smem_once(flash_fwd_bf16<D, NQ>, smem, done);
   if (attr != 0) return attr;
@@ -724,7 +755,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // The head dims a launch takes (the kernel is instantiated per head dim).
-int flash_head_dim_ok(int D) { return D == 32 || D == 64 || D == 128; }
+int flash_head_dim_ok(int D) {
+  return D == 16 || D == 32 || D == 64 || D == 128 || D == 256;
+}
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], out [B, Sq, Hq, D], all contiguous,
 // 16-byte aligned and of one dtype (code 0 float32, 1 bfloat16). window 0
@@ -741,6 +774,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   if (addr_bits % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   switch (D) {
+    case 16:
+      return launch<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
+                        scale, dtype, s);
     case 32:
       return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
                         scale, dtype, s);
@@ -749,6 +785,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                         scale, dtype, s);
     case 128:
       return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
+                         scale, dtype, s);
+    case 256:
+      return launch<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
                          scale, dtype, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -7,6 +7,12 @@
 // final hidden state (R = batch * seq rows of D = d_model), and the q/k heads
 // under qk_norm (D = head_dim).
 //
+// scale is [G, D] (row g at scale + g * scale_stride): the R rows fall into G
+// equal contiguous groups and group g takes scale row g. G = 1 is one scale
+// for every row; G = M is the client-batched forward of the flat FedZO round,
+// where each of the M clients has its own weights (the reference's norm_fwd
+// under vmap).
+//
 // What bounds it on an H100: memory. Each element is read once, written once
 // and costs four floating-point operations (a square-add, two multiplies),
 // about 0.5 operations per byte against the card's ~20 fp32 operations per
@@ -29,7 +35,12 @@
 // - 4 warps per block, so the 512 rows of the train step make 128 blocks
 //   over the 132 SMs (eight warps per block gave 64). A warp walks its rows
 //   with a grid stride and keeps scale, converted to float32, in registers
-//   across all of them.
+//   across all of them. With G > 1 a lane loads its row's scale row (a
+//   row's group is row / (R / G), by a multiply-high, not a division) only
+//   when it differs from the one it holds, before the row's own loads, so
+//   the two round trips overlap. (Loaded after them, the scale's bf16
+//   conversions waited on it inside the branch: 1.29x the time of G = 1 at
+//   [512, 896] bf16 on an H100, against 1.01x.)
 // - Rows whose start is not 16-byte aligned (a view at an odd element
 //   offset) or whose length D*size is not a multiple of 16 take the same
 //   layout with scalar loads and stores: lane l still owns the elements of
@@ -119,39 +130,74 @@ __device__ __forceinline__ float group_sum(float acc) {
   return acc;
 }
 
-// Rows in registers: LPR lanes a row, at most MAXV vectors a lane. vec: x's
-// and out's rows are 16-byte vectors; svec: so is scale (of x's element
-// size).
+
+// row / rpg for 0 <= row < 2^31: m = min(floor(2^32 / rpg), 2^32 - 1) makes
+// __umulhi(row, m) the quotient or one less (its error is below row / 2^32
+// < 1/2), so one compare corrects it
+__device__ __forceinline__ int group_of(int row, int rpg, unsigned m) {
+  int g = static_cast<int>(__umulhi(static_cast<unsigned>(row), m));
+  if (static_cast<long long>(g + 1) * rpg <= row) ++g;
+  return g;
+}
+// A lane's share of one scale row, converted to float32: the elements of its
+// vectors sub, sub + LPR, ..., as the lane holds the row of x.
 template <typename TX, typename TS, int LPR, int MAXV>
+__device__ __forceinline__ void load_scale(const TS* __restrict__ srow,
+                                           int sub, int nvec, int D,
+                                           bool svec,
+                                           float (&sc)[MAXV][16 / sizeof(TX)]) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(TX));
+#pragma unroll
+  for (int j = 0; j < MAXV; ++j) {
+    const int vi = j * LPR + sub;
+    const bool live = vi < nvec;
+    if constexpr (sizeof(TS) == sizeof(TX)) {
+      load_elems<VEC>(srow, vi * VEC, D, svec, live, sc[j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const int i = vi * VEC + k;
+        sc[j][k] = (live && i < D) ? to_f32(srow[i]) : 0.0f;
+      }
+    }
+  }
+}
+
+// Rows in registers: LPR lanes a row, at most MAXV vectors a lane. vec: x's
+// and out's rows are 16-byte vectors; svec: so is every scale row (of x's
+// element size). GROUPED (G > 1): rpg rows per scale group (magic: its
+// group_of multiplier), sstride elements between two scale rows; without
+// it (G = 1) the one scale row is loaded before the first row.
+template <typename TX, typename TS, int LPR, int MAXV, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
                    TX* __restrict__ out, int rows, int D, float eps, bool vec,
-                   bool svec) {
+                   bool svec, int rpg, long long sstride, unsigned magic) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(TX));
   constexpr int kRowsPerWarp = 32 / LPR;
   const int lane = threadIdx.x & 31;
   const int sub = lane % LPR;
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int nvec = (D + VEC - 1) / VEC;
+  [[maybe_unused]] int group = -1;  // the scale row in sc (G > 1)
   float sc[MAXV][VEC];
-#pragma unroll
-  for (int j = 0; j < MAXV; ++j) {
-    const int vi = j * LPR + sub;
-    const bool live = vi < nvec;
-    if constexpr (sizeof(TS) == sizeof(TX)) {
-      load_elems<VEC>(scale, vi * VEC, D, svec, live, sc[j]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const int i = vi * VEC + k;
-        sc[j][k] = (live && i < D) ? to_f32(scale[i]) : 0.0f;
-      }
-    }
+  if constexpr (!GROUPED) {
+    load_scale<TX, TS, LPR, MAXV>(scale, sub, nvec, D, svec, sc);
   }
   for (int r0 = warp * kRowsPerWarp; r0 < rows;
        r0 += gridDim.x * kWarps * kRowsPerWarp) {
     const int row = r0 + lane / LPR;
     const bool live_row = row < rows;
+    if constexpr (GROUPED) {
+      if (live_row) {
+        const int g = group_of(row, rpg, magic);
+        if (g != group) {
+          group = g;
+          load_scale<TX, TS, LPR, MAXV>(scale + group * sstride, sub, nvec, D,
+                                        svec, sc);
+        }
+      }
+    }
     const TX* xr = x + static_cast<size_t>(row) * D;
     float v[MAXV][VEC];
 #pragma unroll
@@ -159,6 +205,7 @@ __global__ void __launch_bounds__(kThreads)
       const int vi = j * LPR + sub;
       load_elems<VEC>(xr, vi * VEC, D, vec, live_row && vi < nvec, v[j]);
     }
+
     // the zeros beyond the row add exact zeros
     float acc = 0.0f;
 #pragma unroll
@@ -190,7 +237,8 @@ template <typename TX, typename TS>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_long_kernel(const TX* __restrict__ x,
                         const TS* __restrict__ scale, TX* __restrict__ out,
-                        int rows, int D, float eps, bool vec) {
+                        int rows, int D, float eps, bool vec, int rpg,
+                        long long sstride) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(TX));
   const int lane = threadIdx.x & 31;
   const int nvec = (D + VEC - 1) / VEC;
@@ -214,10 +262,29 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
         const int i = vi * VEC + k;
-        o[k] = (v[k] * r) * (i < D ? to_f32(scale[i]) : 0.0f);
+        // the scale row's offset taken here: a pointer to it kept live
+        // across the divisions above cost register spills
+        const long long si = (row / rpg) * sstride + i;
+        o[k] = (v[k] * r) * (i < D ? to_f32(scale[si]) : 0.0f);
       }
       store_elems<VEC>(orow, vi * VEC, D, vec, o);
     }
+  }
+}
+
+template <typename TX, typename TS, int LPR, int MAXV>
+void launch_rows(int grid, cudaStream_t s, const TX* x, const TS* scale,
+                 TX* out, int rows, int D, float eps, bool vec, bool svec,
+                 int rpg, long long sstride) {
+  if (rpg < rows) {
+    const unsigned long long m = (1ull << 32) / rpg;
+    const unsigned magic =
+        m > 0xffffffffull ? 0xffffffffu : static_cast<unsigned>(m);
+    rmsnorm_kernel<TX, TS, LPR, MAXV, true><<<grid, kThreads, 0, s>>>(
+        x, scale, out, rows, D, eps, vec, svec, rpg, sstride, magic);
+  } else {
+    rmsnorm_kernel<TX, TS, LPR, MAXV, false><<<grid, kThreads, 0, s>>>(
+        x, scale, out, rows, D, eps, vec, svec, rpg, sstride, 0u);
   }
 }
 
@@ -229,36 +296,39 @@ inline int grid_for(long long warps_needed) {
 
 template <typename TX, typename TS>
 int launch(const void* xv, const void* sv, void* ov, int rows, int D,
-           float eps, cudaStream_t s) {
+           float eps, int n_groups, long long sstride, cudaStream_t s) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(TX));
   const TX* x = static_cast<const TX*>(xv);
   const TS* scale = static_cast<const TS*>(sv);
   TX* out = static_cast<TX*>(ov);
+  const int rpg = rows / n_groups;
   const bool vec = (reinterpret_cast<uintptr_t>(x) |
                     reinterpret_cast<uintptr_t>(out)) % 16 == 0 &&
                    (static_cast<long long>(D) * sizeof(TX)) % 16 == 0;
   const bool svec = vec && sizeof(TS) == sizeof(TX) &&
-                    reinterpret_cast<uintptr_t>(scale) % 16 == 0;
+                    reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+                    (n_groups == 1 || (sstride * sizeof(TS)) % 16 == 0);
   const int nvec = (D + VEC - 1) / VEC;
   // lanes per row, and vectors per lane
   const int lpr = D > 128 ? 32 : (nvec > 8 ? 16 : 8);
   const int nv = (nvec + lpr - 1) / lpr;
   const long long groups = (static_cast<long long>(rows) * lpr + 31) / 32;
+  const int grid = grid_for(groups);
   if (lpr == 8) {
-    rmsnorm_kernel<TX, TS, 8, 2><<<grid_for(groups), kThreads, 0, s>>>(
-        x, scale, out, rows, D, eps, vec, svec);
+    launch_rows<TX, TS, 8, 2>(grid, s, x, scale, out, rows, D, eps, vec,
+                              svec, rpg, sstride);
   } else if (lpr == 16) {
-    rmsnorm_kernel<TX, TS, 16, 2><<<grid_for(groups), kThreads, 0, s>>>(
-        x, scale, out, rows, D, eps, vec, svec);
+    launch_rows<TX, TS, 16, 2>(grid, s, x, scale, out, rows, D, eps, vec,
+                               svec, rpg, sstride);
   } else if (nv <= 4) {
-    rmsnorm_kernel<TX, TS, 32, 4><<<grid_for(groups), kThreads, 0, s>>>(
-        x, scale, out, rows, D, eps, vec, svec);
+    launch_rows<TX, TS, 32, 4>(grid, s, x, scale, out, rows, D, eps, vec,
+                               svec, rpg, sstride);
   } else if (nv <= 8) {
-    rmsnorm_kernel<TX, TS, 32, 8><<<grid_for(groups), kThreads, 0, s>>>(
-        x, scale, out, rows, D, eps, vec, svec);
+    launch_rows<TX, TS, 32, 8>(grid, s, x, scale, out, rows, D, eps, vec,
+                               svec, rpg, sstride);
   } else {
     rmsnorm_long_kernel<TX, TS><<<grid_for(rows), kThreads, 0, s>>>(
-        x, scale, out, rows, D, eps, vec);
+        x, scale, out, rows, D, eps, vec, rpg, sstride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -267,24 +337,31 @@ int launch(const void* xv, const void* sv, void* ov, int rows, int D,
 
 extern "C" {
 
-// dtype codes: 0 float32, 1 bfloat16. out has x's dtype and shape.
+// dtype codes: 0 float32, 1 bfloat16. out has x's dtype and shape. groups
+// divides rows; scale row g starts scale_stride elements after row g - 1.
 int rmsnorm_launch(const void* x, const void* scale, void* out, int rows,
-                   int D, float eps, int x_dtype, int scale_dtype,
-                   void* stream) {
+                   int D, float eps, int x_dtype, int scale_dtype, int groups,
+                   long long scale_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || D <= 0) return 0;
+  if (groups < 1 || rows % groups != 0 || scale_stride < D) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (x_dtype == 0 && scale_dtype == 0) {
-    return launch<float, float>(x, scale, out, rows, D, eps, s);
+    return launch<float, float>(x, scale, out, rows, D, eps, groups,
+                                scale_stride, s);
   }
   if (x_dtype == 0 && scale_dtype == 1) {
-    return launch<float, __nv_bfloat16>(x, scale, out, rows, D, eps, s);
+    return launch<float, __nv_bfloat16>(x, scale, out, rows, D, eps, groups,
+                                        scale_stride, s);
   }
   if (x_dtype == 1 && scale_dtype == 0) {
-    return launch<__nv_bfloat16, float>(x, scale, out, rows, D, eps, s);
+    return launch<__nv_bfloat16, float>(x, scale, out, rows, D, eps, groups,
+                                        scale_stride, s);
   }
   if (x_dtype == 1 && scale_dtype == 1) {
     return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, D, eps,
-                                                 s);
+                                                 groups, scale_stride, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

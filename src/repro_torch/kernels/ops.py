@@ -37,6 +37,7 @@ LAUNCHES = {"zo_walk": 0, "zo_replay": 0, "zo_dirnorms": 0,
             "flash_attention": 0}
 _KIND_CODE = {"normal": 0, "sign": 1}
 _TICKETS: dict = {}
+_AIR_GEOMETRY: dict = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -203,10 +204,10 @@ def zo_replay(x, keys, coeffs, *, kind="normal"):
 
 
 def _tickets(device, count):
-    """The norms kernel's ``count`` ticket counters on ``device``: one
-    int32 buffer per device, zeroed once when it is allocated (or grown);
-    each call leaves its counters at zero again. Calls on one stream are
-    ordered, so they share it safely."""
+    """The ``count`` ticket counters of the norms and AirComp kernels on
+    ``device``: one int32 buffer per device, zeroed once when it is
+    allocated (or grown); each call leaves its counters at zero again.
+    Calls on one stream are ordered, so they share it safely."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < count:
         t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
@@ -239,27 +240,44 @@ def zo_dirnorms(keys, d, *, b2, kind="normal", block_rows=None):
     return out
 
 
+def aircomp_geometry(n, device):
+    """(per, grid) of the CUDA AirComp reduction over N columns on
+    ``device``: the 16-byte vectors a thread takes of a row in a tile (1 or
+    4) and the blocks of the launch, from the card's SM count and the
+    kernel's occupancy. The summation order of the norms depends on both
+    (``kernels/zo_aircomp.aircomp_sq_order_sum``)."""
+    key = (torch.device(device), int(n))
+    if key not in _AIR_GEOMETRY:
+        lib = build.load()["zo_aircomp"]
+        per, grid = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(key[0]):
+            _check(lib.aircomp_geometry(key[1], ctypes.byref(per),
+                                        ctypes.byref(grid)),
+                   "aircomp_geometry")
+        _AIR_GEOMETRY[key] = (per.value, grid.value)
+    return _AIR_GEOMETRY[key]
+
+
 def aircomp_reduce(deltas, scale, d, *, block_rows=None):
     """(mean ``[N]``, sq ``[M]``): ``Σ_m scale[m]·deltas[m]`` and the per-row
-    ‖deltas[m, :d]‖², in one read of the ``[M, N]`` matrix."""
+    ‖deltas[m, :d]‖², in one read of the ``[M, N]`` matrix and one launch.
+    ``block_rows`` sets the plain version's block order."""
     if _on_cpu(deltas):
         return aircomp_reduce_plain(deltas, scale, d, block_rows=block_rows)
     m, n = deltas.shape
     _need(deltas, "deltas", torch.float32, (m, n), deltas.device)
     _need(scale, "scale", torch.float32, (m,), deltas.device)
     lib = build.load()["zo_aircomp"]
-    if m > lib.aircomp_max_rows():
-        raise ValueError(f"aircomp_reduce takes at most "
-                         f"{lib.aircomp_max_rows()} rows, got {m}")
-    blocks = -(-n // lib.aircomp_block_cols())
-    partial = torch.empty((m, blocks), dtype=torch.float32,
+    per, grid = aircomp_geometry(n, deltas.device)
+    partial = torch.empty((m, grid), dtype=torch.float32,
                           device=deltas.device)
     mean = torch.empty(n, dtype=torch.float32, device=deltas.device)
     sq = torch.empty(m, dtype=torch.float32, device=deltas.device)
-    _check(lib.aircomp_reduce_launch(deltas.data_ptr(), scale.data_ptr(),
-                                     mean.data_ptr(), partial.data_ptr(),
-                                     sq.data_ptr(), m, n, int(d), _stream()),
-           "aircomp_reduce")
+    _check(lib.aircomp_reduce_launch(
+        deltas.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+        partial.data_ptr(), _tickets(deltas.device, 1).data_ptr(),
+        sq.data_ptr(), m, n, max(0, min(int(d), n)), per, grid, _stream()),
+        "aircomp_reduce")
     LAUNCHES["aircomp_reduce"] += 1
     return mean, sq
 
@@ -267,7 +285,8 @@ def aircomp_reduce(deltas, scale, d, *, block_rows=None):
 def rmsnorm(x, scale, *, eps=1e-6):
     """RMSNorm over the last dim of x ``[..., D]``: ``x · rsqrt(mean(x²) +
     eps) · scale`` in float32, returned in x's dtype. x and scale float32 or
-    bfloat16."""
+    bfloat16. ``scale`` is ``[D]``, or ``[G, D]`` (any row stride) for G
+    equal contiguous groups of x's rows, group g scaled by ``scale[g]``."""
     if _on_cpu(x):
         return rmsnorm_plain(x, scale, eps=eps)
     D = x.shape[-1]
@@ -275,12 +294,23 @@ def rmsnorm(x, scale, *, eps=1e-6):
     xc = _dtype_code(x, "x")
     sc = _dtype_code(scale, "scale")
     _need(x, "x", x.dtype, x.shape, x.device)
-    _need(scale, "scale", scale.dtype, (D,), x.device)
+    groups = scale.shape[0] if scale.dim() == 2 else 1
+    if scale.dim() not in (1, 2) or scale.shape[-1] != D \
+            or scale.stride(-1) != 1 or scale.device != x.device \
+            or (groups > 1 and scale.stride(0) < D):
+        raise ValueError(f"rmsnorm: scale must be [{D}] or [G, {D}] with "
+                         f"unit-stride rows on {x.device}, got "
+                         f"{tuple(scale.shape)} strides {scale.stride()} on "
+                         f"{scale.device}")
+    if groups < 1 or rows % groups:
+        raise ValueError(f"rmsnorm: {rows} rows do not fall into {groups} "
+                         f"equal groups")
     out = torch.empty_like(x)
     lib = build.load()["rmsnorm"]
     _check(lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                              rows, D, float(eps), xc, sc, _stream()),
-           "rmsnorm")
+                              rows, D, float(eps), xc, sc, groups,
+                              scale.stride(0) if groups > 1 else D,
+                              _stream()), "rmsnorm")
     LAUNCHES["rmsnorm"] += 1
     return out
 
@@ -309,7 +339,8 @@ def attention(q, k, v, *, causal=True, window=0, scale=None):
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     lib = build.load()["flash_attention"]
     if not lib.flash_head_dim_ok(D):
-        raise ValueError(f"attention: head dim {D} not built (32, 64, 128)")
+        raise ValueError(f"attention: head dim {D} not built (16, 32, 64, "
+                         f"128, 256)")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     _check(lib.flash_attention_launch(

@@ -11,6 +11,11 @@ on the card.
 ``rmsnorm_kernel_order`` is the CUDA kernel's own summation order of the
 mean square in torch, used only by the tests and ``chip_smoke.py`` to hold
 the kernel to it bit for bit.
+
+``scale`` is ``[D]``, or ``[G, D]`` for a client-batched forward: the rows
+of x fall into G equal contiguous groups and group g takes ``scale[g]``
+(the reference's ``norm_fwd`` under ``vmap``, each client with its own
+scale).
 """
 from __future__ import annotations
 
@@ -18,11 +23,22 @@ import torch
 import torch.nn.functional as F
 
 
+def _times_scale(y, scale):
+    """y ``[..., D]`` float32 times scale ``[D]``, or ``[G, D]`` over G equal
+    contiguous groups of y's rows."""
+    if scale.dim() == 1:
+        return y * scale.to(torch.float32)
+    G, D = scale.shape
+    return (y.reshape(G, -1, D) * scale.to(torch.float32)[:, None]) \
+        .reshape(y.shape)
+
+
 def rmsnorm_plain(x, scale, *, eps=1e-6):
-    """x ``[..., D]`` (float32 or bfloat16), scale ``[D]`` -> x's dtype."""
+    """x ``[..., D]`` (float32 or bfloat16), scale ``[D]`` or ``[G, D]`` ->
+    x's dtype."""
     xf = x.to(torch.float32)
     ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)
+    out = _times_scale(xf * torch.rsqrt(ms + eps), scale)
     return out.to(x.dtype)
 
 
@@ -52,5 +68,5 @@ def rmsnorm_kernel_order(x, scale, *, eps=1e-6):
         acc = acc[:, :w] + acc[:, w:2 * w]
     ms = acc / torch.full_like(acc, D)
     r = torch.reciprocal(torch.sqrt(ms + eps))
-    out = (xf * r) * scale.to(torch.float32)
+    out = _times_scale(xf * r, scale)
     return out.to(x.dtype).reshape(x.shape)

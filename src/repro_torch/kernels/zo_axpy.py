@@ -168,17 +168,21 @@ def dirnorm_geometry(d, outputs):
     return per, chunks
 
 
+def _xor_tree(w):
+    """[..., 2^k] lane values -> [...]: an xor-shuffle tree (offsets
+    2^(k-1), ..., 1), as lane 0 ends it."""
+    while w.shape[-1] > 1:
+        h = w.shape[-1] // 2
+        w = w[..., :h] + w[..., h:]
+    return w[..., 0]
+
+
 def _block_tree(s):
     """[..., 256] thread values -> [...]: the kernel's ``block_sum``, an
     xor-shuffle tree in each warp of 32 (offsets 16, ..., 1), then the same
     tree over the 8 warp sums (offsets 4, 2, 1)."""
-    w = s.reshape(s.shape[:-1] + (DIRNORM_THREADS // 32, 32))
-    for o in (16, 8, 4, 2, 1):
-        w = w[..., :o] + w[..., o:2 * o]
-    w = w[..., 0]
-    for o in (4, 2, 1):
-        w = w[..., :o] + w[..., o:2 * o]
-    return w[..., 0]
+    return _xor_tree(_xor_tree(
+        s.reshape(s.shape[:-1] + (DIRNORM_THREADS // 32, 32))))
 
 
 def dirnorm_order_sum(sq, per):

@@ -7,6 +7,13 @@ Counterpart of ``repro/models/attention.py:31-76``: ``init_attention``,
 CUDA flash kernel on the card, its plain blocked version on the CPU (the
 reference uses ``chunked_attention``, the jnp twin of its Pallas kernel).
 
+``attention_fwd_batched`` is the same forward per client of a cohort
+(weights ``[M, ...]``, x ``[M, B, S, d]``): q, k and v come from batched
+GEMMs, and the attention is ONE kernel call over the ``[M·B, S, H, D]``
+rows. The kernel treats each batch row on its own, so its output is bit
+for bit that of M separate calls, and the launch count does not depend on
+M.
+
 Decode caches, MLA and cross-attention are not ported.
 """
 from __future__ import annotations
@@ -15,7 +22,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init, init_norm,
-                                       norm_fwd, rope_angles)
+                                       norm_fwd, norm_fwd_batched,
+                                       rope_angles)
 from repro_torch.utils import prng
 
 
@@ -63,3 +71,39 @@ def attention_fwd(p, cfg, x):
     k = apply_rope(k, cos, sin)
     out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
     return out.reshape(B, S, -1) @ p["wo"]
+
+
+def _qkv_batched(p, cfg, x):
+    """q ``[M·B, S, Hq, D]``, k/v ``[M·B, S, Hkv, D]`` from x ``[M, B, S,
+    d]`` and ``[M, ...]`` weights."""
+    M, B, S, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xt = x.reshape(M, B * S, d)
+    q = xt @ p["wq"]
+    k = xt @ p["wk"]
+    v = xt @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"][:, None]
+        k = k + p["bk"][:, None]
+        v = v + p["bv"][:, None]
+    q = q.reshape(M, B, S, hq, hd)
+    k = k.reshape(M, B, S, hkv, hd)
+    v = v.reshape(M, B, S, hkv, hd)
+    if cfg.qk_norm:
+        q = norm_fwd_batched(p["q_norm"], q)
+        k = norm_fwd_batched(p["k_norm"], k)
+    return (q.reshape(M * B, S, hq, hd), k.reshape(M * B, S, hkv, hd),
+            v.reshape(M * B, S, hkv, hd))
+
+
+def attention_fwd_batched(p, cfg, x):
+    """``attention_fwd`` per client: x ``[M, B, S, d]``, weights ``[M,
+    ...]`` -> ``[M, B, S, d]``, with one attention launch."""
+    M, B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv_batched(p, cfg, x)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return (out.reshape(M, B * S, -1) @ p["wo"]).reshape(M, B, S, -1)

@@ -6,6 +6,12 @@ Counterpart of ``repro/models/layers.py:22-175``. Everything is functional:
 plain nested dicts in the reference's layouts (``[d_in, d_out]`` dense
 weights), so the flat index of every scalar is the reference's.
 
+The ``*_batched`` forms take a leading client axis ``[M, ...]`` on the
+weights and the activations (the reference's per-client functions under
+``jax.vmap``, as the flat FedZO round maps the loss over its M clients):
+the dense products are batched ``torch.matmul`` calls, and the RMSNorm is
+one kernel launch whatever M is, each client's rows under its own scale.
+
 Weights are drawn from the jax-compatible key chain (``utils/prng.py``) on
 the device given, so an init from a seed is the reference's within a few
 float32 ulp (the normals' erfinv). RMSNorm goes through ``kernels/ops.py``
@@ -48,6 +54,17 @@ def norm_fwd(p, x, kind="rmsnorm", eps=1e-6):
         out = out * p["scale"].to(torch.float32) \
             + p["bias"].to(torch.float32)
         return out.to(x.dtype)
+    return ops.rmsnorm(x, p["scale"], eps=eps)
+
+
+def norm_fwd_batched(p, x, kind="rmsnorm", eps=1e-6):
+    """``norm_fwd`` per client: x ``[M, ..., d]``, ``p`` leaves ``[M, d]``.
+    RMSNorm is one launch over all M·… rows, client m's rows scaled by its
+    own row of ``p["scale"]``."""
+    if kind == "layernorm":
+        bcast = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        return norm_fwd({k: v.reshape(bcast) for k, v in p.items()}, x, kind,
+                        eps)
     return ops.rmsnorm(x, p["scale"], eps=eps)
 
 
@@ -111,6 +128,14 @@ def mlp_fwd(p, x, act):
     return h @ p["w_down"]
 
 
+def mlp_fwd_batched(p, x, act):
+    """``mlp_fwd`` per client: x ``[M, ..., d]``, weights ``[M, d_in,
+    d_out]``; each product one batched GEMM over ``[M, T, d]`` rows."""
+    M, d = x.shape[0], x.shape[-1]
+    out = mlp_fwd(p, x.reshape(M, -1, d), act)
+    return out.reshape(x.shape[:-1] + out.shape[-1:])
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 
@@ -141,17 +166,35 @@ def embed_fwd(p, tokens):
     outside ``[-rows, rows)`` gives a row of NaN. One gather from a clamped
     index, then a mask: no branch on the ids' values."""
     table = p["tok"]
-    rows = table.shape[0]
+    valid, idx = _take_index(tokens, table.shape[0])
+    return torch.where(valid[..., None], table[idx], float("nan"))
+
+
+def _take_index(tokens, rows):
+    """(valid, row index) of ``jnp.take`` on a table of ``rows`` rows."""
     ids = tokens.to(torch.int64)
     valid = (ids >= -rows) & (ids < rows)
     idx = torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)
-    return torch.where(valid[..., None], table[idx], float("nan"))
+    return valid, idx
+
+
+def embed_fwd_batched(p, tokens):
+    """``embed_fwd`` per client: table ``[M, V, d]`` (a view is read in
+    place), tokens ``[M, ...]``; client m's ids index its own table."""
+    table = p["tok"]
+    M, rows = table.shape[:2]
+    valid, idx = _take_index(tokens, rows)
+    m = torch.arange(M, device=table.device).reshape(
+        (M,) + (1,) * (tokens.dim() - 1))
+    return torch.where(valid[..., None], table[m, idx], float("nan"))
 
 
 def unembed_fwd(p, x, tie, vocab=None):
     """Logits in param dtype; padded vocab columns masked to a large
-    negative so the softmax ignores them."""
-    w = p["tok"].T if tie else p["unembed"]
+    negative so the softmax ignores them. Client-batched as it stands: x
+    ``[M, T, d]`` against ``[M, ...]`` weights is one batched product (the
+    tied unembedding with each client's ``embed[m]ᵀ``)."""
+    w = p["tok"].transpose(-1, -2) if tie else p["unembed"]
     logits = x @ w
     vp = logits.shape[-1]
     if vocab is not None and vocab != vp:
@@ -162,14 +205,32 @@ def unembed_fwd(p, x, tie, vocab=None):
     return logits
 
 
+def unembed_fwd_batched(p, x, tie, vocab=None):
+    """``unembed_fwd`` per client: x ``[M, ..., d]`` -> ``[M, ..., V]``."""
+    M, d = x.shape[0], x.shape[-1]
+    logits = unembed_fwd(p, x.reshape(M, -1, d), tie, vocab)
+    return logits.reshape(x.shape[:-1] + logits.shape[-1:])
+
+
 def softmax_xent(logits, labels):
     """Mean token cross-entropy; logits [.., V] (any float), labels int [..].
 
     The label logit is gathered: bitwise the reference's masked sum
     (``where(iota == label, lf, 0)`` summed), whose only nonzero term it is.
     """
+    return torch.mean(_token_xent(logits, labels))
+
+
+def softmax_xent_batched(logits, labels):
+    """``softmax_xent`` per client: logits ``[M, .., V]``, labels ``[M, ..]``
+    -> ``[M]`` means."""
+    return torch.mean(_token_xent(logits, labels).reshape(
+        labels.shape[0], -1), dim=1)
+
+
+def _token_xent(logits, labels):
     lf = logits.to(torch.float32)
     m = torch.amax(lf, dim=-1)
     lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
     ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
-    return torch.mean(lse - ll)
+    return lse - ll

@@ -8,6 +8,15 @@ and its init are the reference's. The reference scans the stack with
 (views, no copies), because every layer launches the RMSNorm and attention
 kernels through ctypes.
 
+``loss_fn_batched`` is ``loss_fn`` per client of a cohort, the reference's
+loss under ``jax.vmap`` as the flat round maps it: every leaf carries a
+leading ``[M]`` client axis (what ``unflatten`` of the ``[M, n_pad]``
+buffer gives, views into it), the batch leaves ``[M, B, S]``, and it
+returns ``[M]`` losses. A layer is the slice ``leaf[:, i]`` (a view), the
+dense products are batched GEMMs, and each RMSNorm and attention is one
+kernel launch over the whole cohort: 2L + 1 RMSNorms and L attentions per
+forward, whatever M is.
+
 FedZO never calls a gradient: the forward is all the train step needs.
 MoE, MLA, MTP, ssm and hybrid stacks are not ported and raise.
 """
@@ -16,9 +25,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (embed_fwd, init_embed, init_mlp,
-                                       init_norm, mlp_fwd, norm_fwd,
-                                       softmax_xent, unembed_fwd)
+from repro_torch.models.layers import (embed_fwd, embed_fwd_batched,
+                                       init_embed, init_mlp, init_norm,
+                                       mlp_fwd, mlp_fwd_batched, norm_fwd,
+                                       norm_fwd_batched, softmax_xent,
+                                       softmax_xent_batched, unembed_fwd,
+                                       unembed_fwd_batched)
 from repro_torch.utils import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,13 +118,52 @@ def backbone(params, cfg, h):
     return norm_fwd(params["final_norm"], h, cfg.norm)
 
 
-def loss_fn(params, batch, cfg):
-    """Mean next-token cross entropy: FedZO's F(x, ξ)."""
-    tokens, labels = batch["tokens"], batch["labels"]
-    h = embed_fwd(params["embed"], tokens)
+def _embed_scale(h, cfg):
     if cfg.d_model >= 1024:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
                              device=h.device)  # gemma-style scale
+    return h
+
+
+def loss_fn(params, batch, cfg):
+    """Mean next-token cross entropy: FedZO's F(x, ξ)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
     hf = backbone(params, cfg, h)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
     return softmax_xent(logits, labels)
+
+
+# ---------------------------------------------------------------------------
+# client-batched forward (the flat round's cohort)
+
+
+def block_fwd_batched(p, cfg, h):
+    """``block_fwd`` per client: h ``[M, B, S, d]``, leaves ``[M, ...]``."""
+    hn = norm_fwd_batched(p["norm1"], h, cfg.norm)
+    h = h + attn.attention_fwd_batched(p["attn"], cfg, hn)
+    hn = norm_fwd_batched(p["norm2"], h, cfg.norm)
+    return h + mlp_fwd_batched(p["mlp"], hn, cfg.act)
+
+
+def _layer_batched(stacked, i):
+    if isinstance(stacked, dict):
+        return {k: _layer_batched(v, i) for k, v in stacked.items()}
+    return stacked[:, i]
+
+
+def backbone_batched(params, cfg, h):
+    for i in range(cfg.n_layers):
+        h = block_fwd_batched(_layer_batched(params["blocks"], i), cfg, h)
+    return norm_fwd_batched(params["final_norm"], h, cfg.norm)
+
+
+def loss_fn_batched(params, batch, cfg):
+    """``loss_fn`` per client: ``[M, ...]`` leaves and batch leaves ``[M,
+    B, S]`` -> ``[M]`` losses."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h = _embed_scale(embed_fwd_batched(params["embed"], tokens), cfg)
+    hf = backbone_batched(params, cfg, h)
+    logits = unembed_fwd_batched(params["embed"], hf, cfg.tie_embeddings,
+                                 cfg.vocab)
+    return softmax_xent_batched(logits, labels)

@@ -9,12 +9,14 @@ with an H100 and nvcc:
 The sign kind, the AirComp mean and the two axpys (any dtype mix, ragged
 length, view offset) are bitwise; the normal kind within 4 ulp of the
 summed terms; the norms within a relative 1e-5, and bitwise the torch twin
-of their summation order (``dirnorm_order_sum``). RMSNorm and flash
-attention: float32 within a relative 1e-5 (another summation order),
-bfloat16 within 1 bf16 ulp of the output; RMSNorm (both dtypes) and float32
-flash attention also bitwise their summation order's torch twin.
-``chip_smoke.py`` repeats these at the main path's full shapes and times
-them.
+of their summation order (``dirnorm_order_sum``, ``aircomp_sq_order_sum``).
+RMSNorm and flash attention: float32 within a relative 1e-5 (another
+summation order), bfloat16 within 1 bf16 ulp of the output; RMSNorm (both
+dtypes, one scale or a ``[G, D]`` scale) and float32 flash attention also
+bitwise their summation order's torch twin; attention at every head dim
+it builds (16 to 256). The client-batched LM loss against each client's
+own loss. ``chip_smoke.py`` repeats these at the main path's full shapes
+and times them.
 """
 import math
 import os
@@ -125,14 +127,35 @@ def test_zo_dirnorms_in_its_kernel_order_on_card(gen, d, rtol):
         torch, ops, za, keys, d, b2))
 
 
-@pytest.mark.parametrize("n", [65536, 1000])
-def test_aircomp_reduce_on_card(gen, n):
-    x = torch.randn(10, n, generator=gen, device="cuda") * 1e-3
-    s = torch.rand(10, generator=gen, device="cuda")
-    mean, sq = ops.aircomp_reduce(x, s, min(n, 7850))
-    pmean, psq = zac.aircomp_reduce_plain(x, s, min(n, 7850))
+@pytest.mark.parametrize("m,n,offset", [
+    (10, 65536, 0), (10, 1000, 0),
+    (10, 65536 + 77, 0),      # ragged N: scalar loads, masked tail
+    (4, 65536, 1),            # a view one element past 16 bytes
+    (3, 5 * 4096 + 12, 0),    # aligned rows over a ragged last tile
+    (1600, 2048, 0),          # above the previous design's 1,536 rows
+    (4, 1 << 22, 0),          # many tiles a block (the wide tiles)
+])
+def test_aircomp_reduce_on_card(gen, m, n, offset):
+    """One launch: the mean bitwise the plain version (rows added in
+    ascending order from zero), the norms within 1e-5 relative of the plain
+    version's blocked order and bitwise the torch twin of the kernel's own
+    order, for the launch geometry the wrapper picks; the same result from
+    a second call (the ticket was reset)."""
+    base = torch.randn(m * n + offset, generator=gen, device="cuda") * 1e-3
+    x = base[offset:].view(m, n)
+    s = torch.rand(m, generator=gen, device="cuda")
+    d = min(n, 7850) if n < 1 << 20 else n - 5
+    ops.reset_launches()
+    mean, sq = ops.aircomp_reduce(x, s, d)
+    assert ops.LAUNCHES["aircomp_reduce"] == 1
+    pmean, psq = zac.aircomp_reduce_plain(x, s, d)
     assert torch.equal(mean, pmean)
     torch.testing.assert_close(sq, psq, rtol=1e-5, atol=0)
+    per, grid = ops.aircomp_geometry(n, x.device)
+    assert torch.equal(sq, zac.aircomp_sq_order_sum(x, d, per=per,
+                                                    grid=grid))
+    mean2, sq2 = ops.aircomp_reduce(x, s, d)
+    assert torch.equal(mean2, mean) and torch.equal(sq2, sq)
 
 
 def test_wrappers_count_their_launches(gen):
@@ -237,6 +260,29 @@ def test_rmsnorm_on_card(gen, dtype, rows, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,lead,d", [
+    (1, (512,), 896), (4, (4, 512), 896),  # the batched Qwen2 forward
+    (3, (3, 2, 16, 4), 32),                # a batched qk_norm, 8 lanes a row
+    (3, (3, 7), 100),                      # rows that are not 16-byte vectors
+    (2, (2, 3), 2100),                     # the streaming kernel
+    (5, (5, 1), 64),                       # one row a group
+])
+def test_rmsnorm_group_scale_on_card(gen, dtype, groups, lead, d):
+    """A ``[G, D]`` scale, taken as a strided view (a layer's slice of
+    stacked ``[G, L, D]`` scales): bitwise the kernel-order twin and, group
+    by group, the one-scale kernel on the group's rows."""
+    x = torch.randn(*lead, d, generator=gen, device="cuda").to(dtype)
+    stacked = (1 + 0.1 * torch.randn(groups, 3, d, generator=gen,
+                                     device="cuda")).to(dtype)
+    sc = stacked[:, 1] if groups > 1 else stacked[0, 1]
+    got = ops.rmsnorm(x, sc)
+    assert torch.equal(got, rn.rmsnorm_kernel_order(x, sc))
+    if groups > 1:
+        for g in range(groups):
+            assert torch.equal(got[g], ops.rmsnorm(x[g], sc[g].clone()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d,offset", [
     (512, 896, 0), (7, 64, 0), (1, 100, 0), (513, 32, 0), (7168, 64, 0),
     # rows not 16-byte vectors: a view at an odd element offset, a row
@@ -283,6 +329,37 @@ def test_attention_on_card(gen, dtype, b, s, hq, hkv, hd, causal, window):
         assert float((got - want).abs().max()) <= 1e-5 * top
     else:
         assert _bf16_ulps(got, want, 1e-5 * top) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b,s,hq,hkv,causal,window", [
+    (4, 128, 14, 2, True, 0),     # the main shape's heads
+    (2, 100, 4, 1, True, 24),     # ragged, window, G = 4
+    (1, 130, 2, 2, False, 0),     # non-causal over 3 ragged tiles, G = 1
+    (1, 300, 4, 2, True, 0),      # 5 tiles: both staging schemes cycle
+])
+def test_attention_head_dims_on_card(gen, dtype, hd, b, s, hq, hkv, causal,
+                                     window):
+    """Every head dim the kernel builds, both bodies, against the plain
+    version: float32 within 1e-5 of max |out|; bfloat16 within 1 bf16 ulp,
+    or 1 + r where the plain version's own float32 rounding puts it r > 1
+    ulp from the float64 values (``chip_smoke.bf16_attention_errs``, the
+    rule of the bf16 design's CPU test)."""
+    q = torch.randn(b, s, hq, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    top = float(want.float().abs().max())
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * top
+    else:
+        u, r, _ = chip_smoke.bf16_attention_errs(torch, q, k, v, got, want,
+                                                 causal, window)
+        assert u <= (1 if r <= 1 else 1 + r)
 
 
 def flash_f32_row_order(q, k, v, *, causal=True, window=0, block_k=64):
@@ -339,6 +416,8 @@ def flash_f32_row_order(q, k, v, *, causal=True, window=0, block_k=64):
     (1, 100, 4, 2, 32, False, 0),    # non-causal, ragged
     (1, 300, 2, 2, 128, True, 0),    # head dim 128, causal tiles skipped
     (1, 1000, 4, 2, 64, True, 256),  # whole tiles outside the window
+    (2, 100, 4, 2, 16, True, 0),     # head dim 16
+    (1, 200, 2, 1, 256, True, 48),   # head dim 256, one staging buffer
 ])
 def test_flash_f32_sums_in_row_order_on_card(gen, b, s, hq, hkv, hd, causal,
                                             window):
@@ -452,3 +531,37 @@ def test_pytree_train_step_on_card_matches_the_cpu(gen):
     assert out["cpu"][2]["zo_axpy"] == 0
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * out["cpu"][1]
     assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 3e-4
+
+
+def test_batched_lm_loss_on_card_matches_each_client(gen):
+    """The client-batched forward of qwen2-0.5b-smoke (M = 3 clients' own
+    weights, as views of one ``[M, n_pad]`` buffer) on the card: 2L + 1
+    RMSNorm and L attention launches whatever M is, and each client's loss
+    within 4 float32 ulps of its own ``Model.loss`` (the batched GEMMs may
+    take other cuBLAS algorithms than the single ones; the RMSNorm and
+    attention launches are bitwise per client)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+
+    cfg = get_config("qwen2-0.5b-smoke")
+    model = api.build(cfg)
+    init = model.init(prng.key(0), device="cuda")
+    spec = flat_spec(init)
+    m = 3
+    buf = flatten(init, spec)[None].repeat(m, 1)
+    buf = buf + 1e-2 * torch.randn(buf.shape, generator=gen, device="cuda")
+    tok = torch.randint(0, cfg.vocab, (m, 2, 17), generator=gen,
+                        device="cuda")
+    batch = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+    ops.reset_launches()
+    got = model.loss_batched(unflatten(buf, spec), batch)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert ops.LAUNCHES["rmsnorm"] == 2 * L + 1
+    assert ops.LAUNCHES["flash_attention"] == L
+    each = torch.stack([model.loss(unflatten(buf[i], spec),
+                                   {k: t[i] for k, t in batch.items()})
+                        for i in range(m)])
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    assert float(((got - each).abs() / ulp).max()) <= 4
