@@ -37,10 +37,12 @@ each of which raises on a failure (the script then exits non-zero):
      at an odd element offset and with a ``[G, D]`` scale (G = 1 and 4, the
      client-batched forward), timed with G = 4 beside G = 1. Attention
      again at head dims 16 and 256 (causal, window, GQA, ragged), timed
-     against SDPA at [4, 128, 14 or 8, D].
-   - zo_axpy and zo_axpy2, bitwise, for float32 and bfloat16 x with u, v
-     in x's dtype or float32: ragged n (1, 7, 65,537), views at odd element
-     offsets, and Qwen2-0.5B's largest leaves (the tied embedding
+     against SDPA at [4, 128, 14 or 8, D]; and at the transformer track's
+     shapes (q [250 or 5,000, 8, 2, 16 or 8], float32), timed against
+     SDPA, with RMSNorm over 10 and 200 groups of 200 rows of D = 32.
+   - zo_axpy and zo_axpy2, bitwise, for x, u and v each float32 or
+     bfloat16 (all eight mixes): ragged n (1, 7, 65,537), views at odd
+     element offsets, and Qwen2-0.5B's largest leaves (the tied embedding
      [151,936, 896], the stacked w_gate [24, 896, 4,864]); timed at the
      embedding beside torch.add.
 3. The main paths, through the entry points a user calls:
@@ -67,12 +69,24 @@ each of which raises on a failure (the script then exits non-zero):
      on Qwen2-0.5B in float32, 3 steps (2·b2 zo_axpy launches per leaf and
      step); softmax 784x10 with flat_params off, 2 rounds, and one AirComp
      round.
+   - phase "transformer and wide rounds": the neural transformer track
+     (784 features in 8 patch tokens, d_model 32, 2 heads, 1 layer) at the
+     same N, M, H, b1, b2 and its own lr (``neural.default_config``):
+     flat 3 rounds, flat AirComp 2, pytree 1 round cut to H = 1, and the
+     same pytree round with bfloat16 directions (sphere and gaussian); the
+     wide route (batch_directions, block directions) on softmax and on the
+     track, 3 rounds each, and on softmax one round of each of the tree,
+     channel and surrogate conventions and of block with AirComp; one
+     profiled round of three of them.
    The launch counters are set to 0 before each run (each train step) and
    must equal exactly what it implies.
 4. Small-input references: a short softmax run on each route, 3 train
    steps of qwen2-0.5b-smoke on each route and one flat round of it over 3
-   clients, each on the card against the same run on the CPU (plain
-   versions), within the float32 tolerance of a ZO trajectory.
+   clients, 2 rounds of the transformer track at its test size (head dim
+   8) on the flat, pytree and wide routes and on the pytree route with
+   bfloat16 directions (sphere and gaussian), each on the card against the
+   same run on the CPU (plain versions), within the float32 tolerance of a
+   ZO trajectory; bfloat16 normals drawn on the card bitwise the CPU's.
 
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
@@ -83,6 +97,7 @@ timeline) of one pytree softmax round and one pytree Qwen2-0.5B step.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -659,6 +674,8 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
             lib_b, ms_b / lib_b, bb["bound_ms"], bb["bound_by"],
             bb["bound_ms"] / ms_b))
     lines += check_attention_head_dims(torch, ops, plain_flash, rnd, rows)
+    lines += check_classifier_kernels(torch, ops, plain_rms, plain_flash,
+                                      rnd, rows)
     for line in lines:
         print(line)
     return rows
@@ -762,6 +779,60 @@ def check_attention_head_dims(torch, ops, plain_flash, rnd, rows):
                 f"{lib:.5f} ({ms / lib:.2f}x SDPA) bound {bd['bound_ms']:.5f}"
                 f" ({bd['bound_by']}, {bd['bound_ms'] / ms:.1%} of it)")
     rows["flash_attention"]["head_dims"] = out
+    return lines
+
+
+# the neural transformer track (workloads/neural.py): S = 8 patch tokens,
+# 2 heads; head dim 16 at its default d_model 32, 8 at the reference's test
+# and figure sizes (d_model 16). Batch rows: M.b1 = 250 on the flat round,
+# M.b2.b1 = 5,000 on the wide route's perturbed cohort (M 10, b1 25, b2 20)
+CLS_S, CLS_H, CLS_M, CLS_B1, CLS_B2 = 8, 2, 10, 25, 20
+
+
+def check_classifier_kernels(torch, ops, plain_rms, plain_flash, rnd, rows):
+    """Phase 2: flash attention at the transformer track's shapes (float32,
+    causal, [250 or 5,000, 8, 2, 16 or 8]) against its plain version
+    within 1e-5 of max |out| and timed beside SDPA; RMSNorm over the wide
+    cohort's 200 groups of 200 rows of D = 32 and the flat round's 10 of
+    200, bitwise its twin. Times go to the attention row's ``classifier``
+    entry. Returns the printed lines."""
+    import torch.nn.functional as F
+    lines, out = [], {}
+    pairs = CLS_S * (CLS_S + 1) // 2   # causal (q, k) pairs per head
+    for hd in (16, 8):
+        for b in (CLS_M * CLS_B1, CLS_M * CLS_B2 * CLS_B1):
+            q, k, v = (rnd(b, CLS_S, CLS_H, hd) for _ in range(3))
+            got = ops.attention(q, k, v)
+            want = plain_flash.flash_attention_plain(q, k, v)
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            tag = f"attention [{b}, {CLS_S}, {CLS_H}, {hd}] fp32"
+            check(rel <= 1e-5, f"{tag}: rel {rel}")
+            ms = median_ms(torch, lambda: ops.attention(q, k, v), 50)
+            lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True), 50)
+            plain_ms = median_ms(torch, lambda: plain_flash
+                                 .flash_attention_plain(q, k, v), 10)
+            # q, k, v read and out written; q.k and p.v multiply-adds
+            bd = bound(4 * 4 * b * CLS_S * CLS_H * hd,
+                       4 * hd * pairs * b * CLS_H, "fp32")
+            out[f"{b}x{hd}"] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib, max_rel_err=rel, **bd)
+            lines.append(
+                f"{tag}: max err / max |out| {rel:.2e}; ms {ms:.5f} plain "
+                f"{plain_ms:.4f} library {lib:.5f} ({ms / lib:.2f}x SDPA) "
+                f"bound {bd['bound_ms']:.5f} ({bd['bound_by']}, "
+                f"{bd['bound_ms'] / ms:.1%} of it)")
+    rows["flash_attention"]["classifier"] = out
+    for g in (CLS_M, CLS_M * CLS_B2):
+        x = rnd(g, CLS_B1 * CLS_S, 32)
+        sc = (1.0 + 0.1 * rnd(g, 3, 32))[:, 1]
+        check(torch.equal(ops.rmsnorm(x, sc),
+                          plain_rms.rmsnorm_kernel_order(x, sc)),
+              f"rmsnorm [{g}, {CLS_B1 * CLS_S}, 32]: not its twin")
+        ms = median_ms(torch, lambda: ops.rmsnorm(x, sc), 100)
+        lines.append(f"rmsnorm fp32 [{g * CLS_B1 * CLS_S}, 32] in {g} "
+                     f"groups: bitwise its twin; ms {ms:.5f}")
     return lines
 
 
@@ -909,8 +980,7 @@ def check_axpy_kernels(torch, ops, plain):
     cases = [((1,), (0, 0, 0)), ((7,), (0, 0, 0)), ((65_537,), (0, 0, 0)),
              ((65_537,), (1, 1, 1)), ((65_537,), (3, 0, 5)),
              (QWEN_EMBED, (0, 0, 0)), (QWEN_W_GATE, (0, 0, 0))]
-    for dts in ((f32, f32, f32), (bf16, bf16, bf16), (bf16, f32, f32),
-                (bf16, bf16, f32)):
+    for dts in itertools.product((f32, bf16), repeat=3):
         for shape, offs in cases:
             x, u, v = (view(shape, dt, off) for dt, off in zip(dts, offs))
             tag = (f"{'/'.join(str(t)[6:] for t in dts)} {list(shape)} "
@@ -929,7 +999,7 @@ def check_axpy_kernels(torch, ops, plain):
                                           .abs().max()))
             del x, u, v, got, want
     lines.append(f"zo_axpy, zo_axpy2: bitwise in all {len(errs['zo_axpy'])} "
-                 f"cases (dtypes, ragged, offsets, Qwen2 leaves)")
+                 f"cases (8 dtype mixes, ragged, offsets, Qwen2 leaves)")
     # times at the embedding leaf in float32: each array read once, the
     # output written once; two flops per term
     x, u, v = (view(QWEN_EMBED, f32, 0) for _ in range(3))
@@ -955,17 +1025,20 @@ def check_axpy_kernels(torch, ops, plain):
             plain_ms=median_ms(torch, lambda: plain.zo_axpy2_plain(
                 x, u, v, torch.stack([-mu, mu])), 5),
             library_ms=None, **bound(16 * n, 4 * n, "fp32"))}
-    xb = x.bfloat16()
-    ms_b = median_ms(torch, lambda: ops.axpy(xb, u, mu), 20)
-    bound_b = bound(8 * n, 2 * n, "fp32")["bound_ms"]
-    lines.append("zo_axpy bf16 x, f32 u {}: ms {:.5f} plain {:.5f} library "
-                 "{:.5f} bound {:.5f} ({:.1%} of it)".format(
-                     list(QWEN_EMBED), ms_b,
-                     median_ms(torch, lambda: plain.zo_axpy_plain(xb, u, mu),
-                               5),
-                     median_ms(torch, lambda: torch.add(xb, u, alpha=1e-3),
-                               20),
-                     bound_b, bound_b / ms_b))
+    # bf16 weights moved by a float32 direction, and float32 weights by a
+    # bf16 tree-convention direction
+    for tag, xx, uu, per in (("bf16 x, f32 u", x.bfloat16(), u, 8),
+                             ("f32 x, bf16 u", x, u.bfloat16(), 10)):
+        ms_b = median_ms(torch, lambda: ops.axpy(xx, uu, mu), 20)
+        bound_b = bound(per * n, 2 * n, "fp32")["bound_ms"]
+        lines.append("zo_axpy {} {}: ms {:.5f} plain {:.5f} library {:.5f} "
+                     "bound {:.5f} ({:.1%} of it)".format(
+                         tag, list(QWEN_EMBED), ms_b,
+                         median_ms(torch, lambda: plain.zo_axpy_plain(
+                             xx, uu, mu), 5),
+                         median_ms(torch, lambda: torch.add(
+                             xx, uu, alpha=1e-3), 20),
+                         bound_b, bound_b / ms_b))
     # a direction that is a view at an odd element offset (the counter
     # convention slices one flat buffer) takes the scalar loop throughout
     uo = view(QWEN_EMBED, f32, 1)
@@ -988,22 +1061,6 @@ def check_axpy_kernels(torch, ops, plain):
     return rows
 
 
-def route_launches(ops, cfg, rounds, n_leaves):
-    """Launches of ``rounds`` simulated rounds: the flat route's walks,
-    replays and norms per iterate (one launch covers the cohort), or the
-    pytree route's zo_axpy per client, iterate, direction end and leaf."""
-    want = dict.fromkeys(ops.LAUNCHES, 0)
-    iters = rounds * cfg.local_iters
-    if cfg.flat_params:
-        want.update(zo_walk=iters * cfg.b2 + (rounds if cfg.aircomp else 0),
-                    zo_replay=iters, zo_dirnorms=iters,
-                    aircomp_reduce=rounds if cfg.aircomp else 0)
-    else:
-        want["zo_axpy"] = (iters * cfg.n_participating * 2 * cfg.b2
-                           * n_leaves)
-    return want
-
-
 def run_main_path(torch, ops, neural, FedZOConfig):
     """Phase 3. Returns {kernel: launches summed over the runs}."""
     softmax = neural.make_task("softmax", n_features=784, n_classes=10,
@@ -1019,11 +1076,40 @@ def run_main_path(torch, ops, neural, FedZOConfig):
             ("softmax_pytree", softmax, FedZOConfig(weight_by_size=True), 2),
             ("softmax_aircomp_pytree", softmax,
              FedZOConfig(weight_by_size=True, **air), 1)]
+    return drive_runs(torch, ops, neural, [
+        (name, task, cfg, rounds,
+         round_launches(ops, cfg, rounds, 2 if task is softmax else 4),
+         "local")
+        for name, task, cfg, rounds in runs])
+
+
+# the least fall of the test loss, as a share of the starting weights' test
+# loss, that the "test" descent rule accepts
+TEST_DESCENT = 0.02
+
+
+def drive_runs(torch, ops, neural, runs):
+    """Drive each ``(name, task, cfg, rounds, want, descend)`` run
+    through ``neural.run``, one round per call with the carry passed back
+    in, so each round is timed on its own. The launch counters are set to
+    0 before the run and must equal ``want`` after it; the test set is
+    evaluated once, after the counts. Checks that metrics, evals and
+    weights are finite and that the loss went down by the run's rule:
+    ``"local"``, the last round's mean local loss below the first
+    iterate's loss of round 1; ``"test"``, the test loss at least
+    ``TEST_DESCENT`` of the start below that of the starting weights (the
+    transformer track's per-round losses on fresh batches move by more
+    than a round's progress); None, no check (a run of one round of one
+    iterate). Prints ms per round, the peak memory and the counts. Returns
+    {kernel: launches summed over the runs}."""
+    from repro_torch.utils.tree import tree_leaves
     total = {k: 0 for k in ops.LAUNCHES}
-    for name, task, cfg, rounds in runs:
-        # one round per call, the carry passed back in, so each round is
-        # timed on its own; the test set is evaluated once, after the run
+    for name, task, cfg, rounds, want, descend in runs:
+        if descend == "test":
+            before = float(neural.task_eval(task)(neural.params_init(
+                task, cfg.seed))["test_loss"])
         ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         params = key = momentum = None
         per_round, mets = [], {}
         for _ in range(rounds):
@@ -1037,25 +1123,131 @@ def run_main_path(torch, ops, neural, FedZOConfig):
             for k, v in res.metrics.items():
                 mets.setdefault(k, []).extend(v.cpu().tolist())
         counts = dict(ops.LAUNCHES)
-        want = route_launches(ops, cfg, rounds, len(params))
+        peak = torch.cuda.max_memory_allocated() / 2**30
         check(counts == want, f"{name}: launches {counts} != {want}")
         evals = {k: float(v)
                  for k, v in neural.task_eval(task)(params).items()}
         for k, v in list(mets.items()) + [(k, [v]) for k, v in evals.items()]:
             check(all(map(math.isfinite, v)), f"{name}: {k} not finite: {v}")
-        for k, p in params.items():
-            check(bool(torch.isfinite(p).all()), f"{name}: param {k}")
-        check(mets["mean_local_loss"][-1] < mets["first_loss"][0],
-              f"{name}: loss did not descend: {mets}")
+        for p in tree_leaves(params):
+            check(bool(torch.isfinite(p).all()), f"{name}: param not finite")
+        if descend == "local":
+            check(mets["mean_local_loss"][-1] < mets["first_loss"][0],
+                  f"{name}: loss did not descend: {mets}")
+        elif descend == "test":
+            check(evals["test_loss"] <= (1 - TEST_DESCENT) * before,
+                  f"{name}: test loss {evals['test_loss']} not "
+                  f"{TEST_DESCENT:.0%} below {before} at the start")
         # round 1 carries one-time set-up (a one-round run has only it)
         steady = sorted(per_round[1:]) or per_round
         print(f"{name}: ms/round {[round(t, 3) for t in per_round]} "
-              f"(median after round 1 {steady[len(steady) // 2]:.3f}); "
-              f"launches {counts}")
+              f"(median after round 1 {steady[len(steady) // 2]:.3f}); peak "
+              f"memory {peak:.3f} GiB; launches {counts}")
         print(f"{name}: metrics {json.dumps(mets)}")
         print(f"{name}: evals {json.dumps(evals)}")
         for k in total:
             total[k] += counts[k]
+    return total
+
+
+# the transformer track's stack: 1 layer, 12 parameter leaves
+CLS_LAYERS, CLS_LEAVES = 1, 12
+
+
+def round_launches(ops, cfg, rounds, n_leaves=0, L=0):
+    """Launches of ``rounds`` simulated rounds of a model with ``n_leaves``
+    parameter leaves whose forward runs 2L + 1 RMSNorms and L attentions.
+    Per iterate: on the flat route b2 walks, one replay, one norms launch
+    and b2 + 1 batched forwards (one launch covers the cohort, whatever M
+    is); on the pytree route 2·b2 zo_axpy per client and leaf and M·(b2 +
+    1) forwards; on the wide route no walk, replay or norms (its directions
+    come from the torch Threefry chain) and two batched forwards, the base
+    and the M·b2 perturbed copies (three with a central difference).
+    AirComp adds its reduction and the noise walk on the flat and wide
+    routes."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    iters = rounds * cfg.local_iters
+    air = rounds if cfg.aircomp else 0
+    if cfg.batch_directions:
+        want.update(zo_walk=air, aircomp_reduce=air)
+        forwards = iters * (3 if cfg.central else 2)
+    elif cfg.flat_params:
+        want.update(zo_walk=iters * cfg.b2 + air, zo_replay=iters,
+                    zo_dirnorms=iters, aircomp_reduce=air)
+        forwards = iters * (cfg.b2 + 1)
+    else:
+        want["zo_axpy"] = (iters * cfg.n_participating * 2 * cfg.b2
+                           * n_leaves)
+        forwards = iters * cfg.n_participating * (cfg.b2 + 1)
+    if L:
+        want.update(rmsnorm=forwards * (2 * L + 1),
+                    flash_attention=forwards * L)
+    return want
+
+
+def run_track_rounds(torch, ops, neural, FedZOConfig):
+    """Phase 3, the transformer track and the wide route, at the other
+    rounds' settings (N = 50, M = 10, H = 5, b1 = 25, b2 = 20, size-
+    weighted): the track at its defaults (784 features in 8 patch tokens,
+    d_model 32 over 2 heads, d_ff 64, 1 layer; d = 12,000) and at its own
+    lr (``neural.default_config``: 5e-3 where the softmax runs take
+    FedZOConfig's 1e-3) on the flat route 3 rounds, flat with AirComp 2
+    rounds, and one pytree round cut to H = 1 (a whole one is 24,000
+    zo_axpy launches), also with bfloat16 tree-convention directions
+    (sphere and gaussian: float32 weights, bfloat16 directions into
+    zo_axpy); the wide route (``batch_directions``) on softmax and on the
+    track with ``block`` directions, 3 rounds each, and on softmax one
+    round each of ``tree``, ``channel``, ``surrogate`` and ``block`` with
+    AirComp. Returns {kernel: launches}."""
+    softmax = neural.make_task("softmax", n_features=784, n_classes=10,
+                               n_clients=50)
+    track = neural.make_task("transformer", n_clients=50)
+    base = dict(weight_by_size=True)
+    flat = dict(flat_params=True)
+    wide = dict(batch_directions=True, direction_conv="block")
+    air = dict(aircomp=True, channel_schedule=True, snr_db=5.0)
+    bf16 = dict(local_iters=1, direction_dtype="bfloat16")
+
+    def on_track(**kw):
+        return neural.default_config(track, n_participating=10, **kw)
+
+    def conv(c):
+        return FedZOConfig(**base, **dict(wide, direction_conv=c))
+
+    runs = [("transformer_flat", track, on_track(**flat), 3),
+            ("transformer_aircomp", track, on_track(**flat, **air), 2),
+            ("transformer_pytree", track, on_track(local_iters=1), 1),
+            ("transformer_pytree_bf16_sphere", track, on_track(**bf16), 1),
+            ("transformer_pytree_bf16_gaussian", track,
+             on_track(**bf16, estimator="gaussian"), 1),
+            ("softmax_wide", softmax, FedZOConfig(**base, **wide), 3),
+            ("transformer_wide", track, on_track(**wide), 3),
+            ("softmax_wide_tree", softmax, conv("tree"), 1),
+            ("softmax_wide_channel", softmax, conv("channel"), 1),
+            ("softmax_wide_surrogate", softmax, conv("surrogate"), 1),
+            ("softmax_wide_aircomp", softmax,
+             FedZOConfig(**base, **wide, **air), 1)]
+    print(f"transformer_pytree: cut to H = 1 (a round of H = 5 is "
+          f"{5 * 10 * 2 * 20 * CLS_LEAVES:,} zo_axpy launches)")
+    total = drive_runs(torch, ops, neural, [
+        (name, task, cfg, rounds,
+         round_launches(ops, cfg, rounds,
+                        CLS_LEAVES if task is track else 2,
+                        CLS_LAYERS if task is track else 0),
+         None if cfg.local_iters == 1
+         else "test" if task is track else "local")
+        for name, task, cfg, rounds in runs])
+    # where a round's time goes: one more round of three runs under the
+    # profiler (not counted in the launches)
+    for name, task, cfg, _ in runs:
+        if name not in ("transformer_flat", "softmax_wide",
+                        "transformer_wide"):
+            continue
+        wall, busy, kinds = kernel_time_by_kind(
+            torch, lambda: neural.run(task, cfg, 1, eval_every=0))
+        print(f"{name}, profiled round: wall {wall:.1f} ms, kernel time "
+              f"{sum(kinds.values()):.2f} ms, busy share {busy:.3f}; by kind "
+              f"(ms) {json.dumps({k: round(v, 3) for k, v in kinds.items()})}")
     return total
 
 
@@ -1190,19 +1382,6 @@ def kernel_time_by_kind(torch, fn):
                                           key=lambda kv: -kv[1]))
 
 
-def flat_round_launches(ops, cfg, L):
-    """Launches of one flat round of the dense LM: per iterate one
-    zo_dirnorms, b2 zo_walks, one zo_replay and b2 + 1 batched forwards
-    (2L + 1 RMSNorms and L attentions each); AirComp adds its reduction and
-    the noise walk. None depends on the number of clients."""
-    want = dict.fromkeys(ops.LAUNCHES, 0)
-    H, b2, air = cfg.local_iters, cfg.b2, int(cfg.aircomp)
-    want.update(zo_walk=H * b2 + air, zo_replay=H, zo_dirnorms=H,
-                aircomp_reduce=air, rmsnorm=H * (b2 + 1) * (2 * L + 1),
-                flash_attention=H * (b2 + 1) * L)
-    return want
-
-
 def run_qwen_flat_round(torch, ops, FedZOConfig):
     """Phase 3, the flat FedZO round on Qwen2-0.5B at full width and depth
     in float32 (random weights from seed 0) through
@@ -1253,7 +1432,7 @@ def run_qwen_flat_round(torch, ops, FedZOConfig):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         counts = dict(ops.LAUNCHES)
-        want = flat_round_launches(ops, cfg, L)
+        want = round_launches(ops, cfg, 1, L=L)
         check(counts == want, f"qwen flat round {name}: launches {counts} "
               f"!= {want}")
         for k in total:
@@ -1488,6 +1667,65 @@ def check_pytree_small_reference(torch, neural, FedZOConfig):
           f"max |diff| {worst:.3e}")
 
 
+# the transformer track at the reference's test size (tests/test_neural.py):
+# 24 features in 4 patch tokens, d_model 16 over 2 heads of 8, d = 2,320
+TRACK_SMALL = dict(n_train=180, n_test=48, n_clients=6, n_features=24,
+                   n_classes=4, n_patches=4, d_model=16, d_ff=32, n_heads=2)
+
+
+def check_track_small_reference(torch, ops, neural, FedZOConfig, route):
+    """Phase 4: 2 rounds of the transformer track at its test size (the
+    head dim 8 kernel) on the card and on the CPU, on the flat, pytree or
+    wide (``block``) route, or on the pytree route with bfloat16 sphere or
+    gaussian directions (float32 weights, bfloat16 directions into
+    zo_axpy). The card run's launch counts are exact. A loss ulp moves a
+    coefficient by d.ulp/mu ~ 0.28 here and a weight by lr/b2 of that along
+    a unit direction, so the two runs drift like port and JAX on the CPU
+    (2e-4 to 6e-4 there, tests/test_torch_transformer_track.py and
+    tests/test_torch_wide.py): within the ZO trajectory tolerance 1e-3."""
+    from repro_torch.utils.tree import tree_leaves
+    over = {"flat": dict(flat_params=True, flat_block_rows=4),
+            "pytree": {},
+            "pytree bf16 sphere": dict(direction_dtype="bfloat16"),
+            "pytree bf16 gaussian": dict(direction_dtype="bfloat16",
+                                         estimator="gaussian"),
+            "wide": dict(batch_directions=True, direction_conv="block")}
+    cfg = FedZOConfig(n_devices=6, n_participating=3, local_iters=2, b1=6,
+                      b2=3, lr=2e-2, mu=1e-3, seed=7, **over[route])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = neural.make_task("transformer", device=dev, **TRACK_SMALL)
+        ops.reset_launches()
+        res = neural.run(task, cfg, 2, eval_every=0)
+        if dev == "cuda":
+            want = round_launches(ops, cfg, 2, CLS_LEAVES, CLS_LAYERS)
+            check(dict(ops.LAUNCHES) == want, f"transformer {route}: "
+                  f"launches {dict(ops.LAUNCHES)} != {want}")
+        out[dev] = [t.cpu() for t in tree_leaves(res.params)]
+    worst = max(float((a - b).abs().max()) for a, b in zip(*out.values()))
+    check(worst <= 1e-3, f"transformer {route} card vs CPU: max |diff| "
+          f"{worst}")
+    print(f"small reference (transformer track at its test size, {route}, "
+          f"2 rounds): card vs CPU max |diff| {worst:.3e}")
+
+
+def check_bf16_draws(torch):
+    """Phase 4: bfloat16 normals (the tree convention's draws) made on the
+    card bitwise the CPU's, over ragged shapes: a bf16 draw is one of 128
+    values, and its float32 erfinv rounds to bf16."""
+    from repro_torch.utils import prng
+    n = 0
+    for seed, shape in ((0, (7,)), (1, (1000, 37)), (2, (3, 4097)),
+                        (3, (784, 32))):
+        k = prng.key(seed)
+        got = prng.normal(k, shape, dtype=torch.bfloat16, device="cuda")
+        want = prng.normal(k, shape, dtype=torch.bfloat16)
+        check(torch.equal(got.cpu(), want), f"bf16 normal {shape} differs "
+              f"between the card and the CPU")
+        n += got.numel()
+    print(f"bf16 normals: card bitwise the CPU over {n:,} draws")
+
+
 def check_lm_small_reference(torch, FedZOConfig, flat_params=True):
     """Phase 4: 3 train steps of qwen2-0.5b-smoke on the card and on the
     CPU (plain versions) from the same init, on the flat or the pytree
@@ -1695,6 +1933,9 @@ def main(argv):
         torch, ops, zo_axpy)))
     launches = timed("rounds", lambda: run_main_path(torch, ops, neural,
                                                      FedZOConfig))
+    for k, n in timed("transformer and wide rounds", lambda: run_track_rounds(
+            torch, ops, neural, FedZOConfig)).items():
+        launches[k] += n
     for name, phase in (
             ("qwen flat", lambda: run_qwen_train(torch, ops, FedZOConfig,
                                                  profile_dir=args.profile)),
@@ -1709,7 +1950,11 @@ def main(argv):
         check_pytree_small_reference(torch, neural, FedZOConfig),
         check_lm_small_reference(torch, FedZOConfig),
         check_lm_small_reference(torch, FedZOConfig, flat_params=False),
-        check_lm_round_small_reference(torch, FedZOConfig)))
+        check_lm_round_small_reference(torch, FedZOConfig),
+        check_bf16_draws(torch),
+        *(check_track_small_reference(torch, ops, neural, FedZOConfig, route)
+          for route in ("flat", "pytree", "pytree bf16 sphere",
+                        "pytree bf16 gaussian", "wide"))))
     if args.profile:
         timed("profiles", lambda: (
             profile_round(torch, neural, FedZOConfig, args.profile),

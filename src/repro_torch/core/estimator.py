@@ -10,7 +10,7 @@ with scale = d for the sphere and coordinate estimators and 1 for
 gaussian/rademacher, and the update x + s·Σ_n c_n·v_n/b2 replays the same
 directions from the same keys. Directions are never kept between uses.
 
-Two halves, as in the reference:
+Three parts, as in the reference:
 
 - **The pytree route** (``coefficients``, ``apply_coefficients``): each
   direction is a materialized tree, regenerated per use from
@@ -24,6 +24,9 @@ Two halves, as in the reference:
   ``keys`` ``[M, 2]`` on the buffer's device, and ``loss_fn`` maps a dict
   of ``[M, ...]`` parameters and a batch of ``[M, ...]`` leaves to ``[M]``
   losses.
+- **The wide route's direction blocks** (``direction_block``): all b2
+  directions of an iterate as one ``[..., b2, n_pad]`` tensor drawn by the
+  torch Threefry chain (no kernel), for a batch of client keys at once.
 
 The operation order is the reference's, so the float32 roundings agree:
 ``scale·(lp − base)/μ``, ``scale·c_n/b2`` and ``(scale/b2)·coeffs·inv``.
@@ -117,6 +120,13 @@ def _direction(rng, n, params, kind, dtype, conv):
     return sample_direction(prng.fold_in(rng, n), params, kind, dtype)
 
 
+def _perturb_mu(mu, direction_dtype):
+    """The reference perturbs by ``mu * v`` with ``mu`` a Python float, which
+    takes v's dtype: a bfloat16 direction moves by bf16(μ)·v (XLA keeps the
+    product in float32)."""
+    return float(torch.tensor(mu, dtype=direction_dtype))
+
+
 def stream_perturb(params, key, mag, kind="sphere", dtype=torch.float32):
     """params + mag·v(key) without keeping v: leaf by leaf (the sphere norm
     first, from its own pass over the draws)."""
@@ -138,7 +148,8 @@ def coefficients(loss_fn, params, batch, rng, *, mu, b2, kind="sphere",
     per leaf, with μ read by the kernel from a tensor on the device."""
     scale = _scale_factor(tree_size(params), kind)
     base = loss_fn(params, batch) if base_loss is None else base_loss
-    mu_t = torch.full((), mu, dtype=torch.float32, device=_device(params))
+    mu_t = torch.full((), _perturb_mu(mu, direction_dtype),
+                      dtype=torch.float32, device=_device(params))
     coeffs = []
     for n in range(b2):
         v = _direction(rng, n, params, kind, direction_dtype, conv)
@@ -226,3 +237,65 @@ def flat_apply_coefficients(buf, spec: FlatSpec, keys, coeffs, *, scale=1.0,
     s = torch.full((), scale, dtype=torch.float32, device=buf.device) / b2
     eff = s * coeffs.to(torch.float32) * inv
     return kops.zo_replay(buf, keys, eff, kind=ck)
+
+
+# ---------------------------------------------------------------------------
+# the wide route's direction blocks
+
+
+def direction_block(rng, spec: FlatSpec, b2, *, kind="sphere", conv="block",
+                    like=None, device=None):
+    """All b2 directions of one iterate as ONE float32 ``[..., b2, n_pad]``
+    block and the ``[..., b2]`` float32 factors (1/‖g_n‖ for sphere over
+    the valid ``[:d]`` columns, ones otherwise), drawn on ``device``.
+
+    ``rng`` is a raw key ``[2]`` or a batch of client keys ``[M, 2]`` (CPU);
+    a batch draws every client's block in one call per leaf or block
+    (leading ``[M]`` on both outputs). The conventions are the reference's:
+
+    - ``block``: one ``normal``/``rademacher`` draw over ``(b2, n_pad)``
+      (pad columns carry generator residue; ``unflatten`` drops them).
+    - ``tree``: direction n from ``fold_in(rng, n)`` and its leaf i from
+      ``fold_in(., i)``, flattened with zero padding: the pytree route's
+      directions. ``fold_in(rng, n)`` for n < b2 is ``split(rng, b2)[n]``
+      (both are ``threefry(rng, (0, n))``), so all b2 keys come at once.
+      Needs ``like`` (a parameter tree matching ``spec``).
+    - ``channel``: the gaussian block of ``split(rng)[0]`` (the one-point
+      wireless estimator); ``inv`` is ones whatever ``kind`` says.
+    """
+    if kind == "coordinate":
+        raise ValueError("batched-direction path does not support "
+                         "kind='coordinate'")
+    lead = tuple(rng.shape[:-1])
+    if conv == "channel":
+        kr = prng.split(rng, 2)[..., 0, :]
+        V = prng.normal(kr, (b2, spec.n_pad), device=device)
+        return V, torch.ones(lead + (b2,), dtype=torch.float32,
+                             device=V.device)
+    if conv == "tree":
+        if like is None:
+            raise ValueError("conv='tree' direction blocks need the params "
+                             "pytree (like=...) for per-leaf key derivation")
+        keys = prng.split(rng, b2)                          # [..., b2, 2]
+        parts = []
+        for i, (_, leaf) in enumerate(_leaves(like)):
+            ki = prng.fold_in(keys, i)
+            g = (prng.rademacher(ki, leaf.shape, device=device)
+                 if kind == "rademacher" else
+                 prng.normal(ki, leaf.shape, device=device))
+            parts.append(g.reshape(lead + (b2, -1)))
+        if spec.n_pad > spec.d:
+            parts.append(parts[0].new_zeros(lead + (b2, spec.n_pad - spec.d)))
+        V = torch.cat(parts, dim=-1)
+    elif conv == "block":
+        V = (prng.rademacher(rng, (b2, spec.n_pad), device=device)
+             if kind == "rademacher" else
+             prng.normal(rng, (b2, spec.n_pad), device=device))
+    else:
+        raise ValueError(f"unknown direction block conv {conv!r}")
+    if kind == "sphere":
+        inv = 1.0 / (torch.linalg.vector_norm(V[..., :spec.d], dim=-1)
+                     + 1e-30)
+    else:
+        inv = torch.ones(lead + (b2,), dtype=torch.float32, device=V.device)
+    return V, inv

@@ -23,14 +23,21 @@ Two routes compute one local iterate x ← x − η·∇̃F(x), chosen by
   ``torch.func.vmap``. The ``[M, n_pad]`` delta matrix is
   aggregated by a masked/weighted mean or by AirComp, then unflattened
   once.
+- **The wide route** (``batch_directions=True``, the simulation engine's
+  plan): per iterate one ``[b2, n_pad]`` direction block per client, drawn
+  by the torch Threefry chain for the whole cohort at once
+  (``estimator.direction_block``; conventions ``block``, ``tree``,
+  ``channel``, and the ``surrogate`` phase); the M·b2 perturbed copies go
+  through the loss as one ``[M·b2]`` cohort, and the update is one batched
+  matvec. No ZO kernel runs on it; with AirComp the aggregation runs
+  ``aircomp_reduce`` and the noise ``zo_walk``.
 
 The cross-silo unit, ``local_iterate`` / ``make_train_step``, is one
 iterate on one client on either route; on the flat route it is a row of
 the batched iterate. ``jax.grad`` has no counterpart here: FedZO is
 forward-only.
 
-Routes the port does not have yet raise ``NotImplementedError``: the
-batched-direction (wide) local phase and the estimators that run on it,
+Routes the port does not have yet raise ``NotImplementedError``:
 seed-compressed uplinks, faults, the wireless channel model, and the
 strategy hooks (client state, loss wraps, state functions).
 """
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import FedZOConfig
@@ -45,8 +53,10 @@ from repro_torch.core import estimator
 from repro_torch.core.aircomp import (aircomp_aggregate,
                                       aircomp_aggregate_flat, mask_stats,
                                       schedule_by_channel)
+from repro_torch.kernels.zo_axpy import LANES
 from repro_torch.utils import prng
-from repro_torch.utils.flatparams import flat_geometry, flatten, unflatten
+from repro_torch.utils.flatparams import (flat_geometry, flat_spec, flatten,
+                                          unflatten)
 from repro_torch.utils.tree import (tree_add, tree_map, tree_scale,
                                     tree_stack, tree_sub)
 
@@ -59,26 +69,29 @@ class LocalResult(NamedTuple):
     losses: torch.Tensor   # [H] base losses along the trajectory
 
 
-def check_route(cfg: FedZOConfig):
-    """Reject every config the port cannot run as asked."""
-    if cfg.batch_directions:
-        raise NotImplementedError("the batched-direction (wide) local phase "
-                                  "is not ported")
-    if cfg.direction_conv in ("surrogate", "channel"):
-        raise NotImplementedError(f"direction_conv={cfg.direction_conv!r} "
-                                  "runs on the wide phase, not ported")
+def _check_iterate(cfg: FedZOConfig):
+    """Reject every config a local iterate cannot run as asked (the
+    reference's ``local_iterate`` ignores ``batch_directions`` and takes
+    any ``direction_conv`` other than ``counter`` as ``tree``)."""
     if cfg.channel_model is not None:
         raise NotImplementedError("the wireless channel model is not ported")
     if cfg.delta_compression != "dense":
         raise NotImplementedError("seed-compressed uplinks are not ported")
-    if (not cfg.flat_params and cfg.direction_conv == "tree"
-            and cfg.direction_dtype != "float32"
-            and cfg.estimator in ("sphere", "gaussian")):
-        raise NotImplementedError(
-            f"normal draws in direction_dtype={cfg.direction_dtype!r} on the "
-            "tree convention are not ported (ROADMAP A, item 2)")
     if cfg.flat_params:
         estimator._counter_kind(cfg.estimator)
+
+
+def check_route(cfg: FedZOConfig):
+    """Reject every config a local phase or round cannot run as asked."""
+    if cfg.direction_conv in ("surrogate", "channel") \
+            and not cfg.batch_directions:
+        raise ValueError(
+            f"direction_conv={cfg.direction_conv!r} runs on the batched-"
+            f"direction (wide) local phase — set cfg.batch_directions=True")
+    _check_iterate(cfg)
+    if cfg.batch_directions and cfg.estimator == "coordinate":
+        raise ValueError("batched-direction path does not support "
+                         "kind='coordinate'")
 
 
 def batched_loss(loss_fn):
@@ -92,6 +105,23 @@ def batched_loss(loss_fn):
     vmapped tensor has no storage to hand the kernel) and serves the losses
     that launch none (softmax, CNN)."""
     return getattr(loss_fn, "batched", None) or torch.func.vmap(loss_fn)
+
+
+def _wide_losses(loss_fn, xp, spec, batch):
+    """``[M, r]`` losses of the r points ``xp`` ``[M, r, n_pad]`` of each of
+    M clients, client m's on its own batch (leaves ``[M, ...]``).
+
+    A loss with a client-batched form runs the M·r points as one cohort:
+    ``loss_fn.batched`` takes parameter leaves ``[M·r, ...]`` against the
+    ``[M, ...]`` batch, each batch row serving r consecutive parameter rows
+    (the batch is not copied r times). Any other loss goes through two
+    ``torch.func.vmap`` levels, the inner one sharing the client's batch."""
+    M, r = xp.shape[:2]
+    fn = getattr(loss_fn, "batched", None)
+    if fn is not None:
+        return fn(unflatten(xp.reshape(M * r, -1), spec), batch).reshape(M, r)
+    inner = torch.func.vmap(loss_fn, in_dims=(0, None))
+    return torch.func.vmap(inner)(unflatten(xp, spec), batch)
 
 
 def flat_local_iterate(loss_fn, buf, spec, batch, keys, cfg: FedZOConfig,
@@ -122,7 +152,7 @@ def local_iterate(loss_fn, params, batch, rng, cfg: FedZOConfig):
     unflattened once (leaves are views of the new buffer); on the pytree
     route every perturbation and update is a ``zo_axpy`` per leaf.
     """
-    check_route(cfg)
+    _check_iterate(cfg)
     if cfg.flat_params:
         spec, br = flat_geometry(params, cfg.flat_block_rows)
         buf = flatten(params, spec)[None]
@@ -174,6 +204,98 @@ def _flat_phase_scan(loss_fn, buf0, spec, br, keys, batches, cfg):
     return buf, torch.stack(coeffs, 1), torch.stack(losses, 1)
 
 
+def _wide_setup(params, cfg: FedZOConfig):
+    """(spec, block_rows) of the wide route: padded to the 128-lane width
+    only (no kernel walks the buffer, and every ``[b2, n_pad]`` block pays
+    for the pad), or the kernel geometry when ``aircomp_reduce`` takes the
+    delta matrix."""
+    if cfg.aircomp:
+        return flat_geometry(params, cfg.flat_block_rows)
+    return flat_spec(params, block=LANES), (cfg.flat_block_rows or None)
+
+
+def surrogate_queries(cfg: FedZOConfig) -> int:
+    """Fresh perturbed-loss queries per iterate of the surrogate phase:
+    round(b2·surrogate_fraction), at least 1."""
+    return max(1, int(round(cfg.b2 * cfg.surrogate_fraction)))
+
+
+def _wide_coefficients(loss_fn, buf, spec, batch, V, inv, scale, cfg):
+    """``[M, r]`` coefficients and ``[M]`` base losses of the r directions
+    ``V`` ``[M, r, n_pad]`` around every row of ``buf`` ``[M, n_pad]``, in
+    the reference's order: the points ``buf + (μ·s)·v``, then
+    ``scale·(lp − base)/μ`` or the central difference."""
+    mu = float(np.float32(cfg.mu))
+    base = batched_loss(loss_fn)(unflatten(buf, spec), batch)
+    step = (mu * inv)[..., None] * V
+    lp = _wide_losses(loss_fn, buf[:, None] + step, spec, batch)
+    if cfg.central:
+        lm = _wide_losses(loss_fn, buf[:, None] - step, spec, batch)
+        return scale * (lp - lm).to(torch.float32) / (2 * mu), base
+    return scale * (lp - base[:, None]).to(torch.float32) / mu, base
+
+
+def _combine(coeffs, inv, V):
+    """Σ_n coeffs[:, n]·inv[:, n]·V[:, n] ``[M, n_pad]``: one batched
+    matvec."""
+    return torch.matmul((coeffs * inv)[:, None], V)[:, 0]
+
+
+def _surrogate_phase_scan(loss_fn, buf0, spec, keys, batches, cfg):
+    """The trajectory-informed surrogate phase (FedZOO-style): per iterate
+    ``surrogate_queries(cfg)`` fresh ``block`` directions, their estimate
+    blended into a running surrogate g ← β·g + (1−β)·ĝ (ĝ alone on the
+    first iterate), x ← x − η·g. Returns (buf, coeffs ``[M, H, b2q]``,
+    losses ``[M, H]``)."""
+    scale = estimator._scale_factor(spec.d, cfg.estimator)
+    b2q = surrogate_queries(cfg)
+    beta = float(np.float32(cfg.surrogate_beta))
+    buf, g_hat, coeffs, losses = buf0, torch.zeros_like(buf0), [], []
+    for h in range(cfg.local_iters):
+        V, inv = estimator.direction_block(keys[:, h], spec, b2q,
+                                           kind=cfg.estimator, conv="block",
+                                           device=buf.device)
+        c, base = _wide_coefficients(
+            loss_fn, buf, spec, tree_map(lambda v: v[:, h], batches), V,
+            inv, scale, cfg)
+        g_fresh = _combine(c, inv, V) / b2q
+        w = 0.0 if h == 0 else beta
+        g_hat = w * g_hat + (1.0 - w) * g_fresh
+        buf = buf - cfg.lr * g_hat
+        coeffs.append(c)
+        losses.append(base)
+    return buf, torch.stack(coeffs, 1), torch.stack(losses, 1)
+
+
+def _wide_phase_scan(loss_fn, buf0, spec, keys, batches, cfg, like=None):
+    """H batched-direction ("wide") iterates of every row of ``buf0``
+    ``[M, n_pad]``: per iterate one direction block per client
+    (``keys[:, h]``, ``[M, 2]`` on the CPU), the M·b2 perturbed forwards as
+    one cohort, and the update ``buf + (−lr/b2)·((coeffs·inv) @ V)``.
+    ``batches`` leaves ``[M, H, ...]``; ``like`` the parameter tree (the
+    ``tree`` convention's leaves). ``channel`` directions are gaussian
+    whatever ``cfg.estimator`` says (scale 1). Returns (buf, coeffs ``[M,
+    H, b2]``, losses ``[M, H]``)."""
+    if cfg.direction_conv == "surrogate":
+        return _surrogate_phase_scan(loss_fn, buf0, spec, keys, batches, cfg)
+    conv = (cfg.direction_conv if cfg.direction_conv in ("tree", "channel")
+            else "block")
+    scale = (1.0 if conv == "channel"
+             else estimator._scale_factor(spec.d, cfg.estimator))
+    buf, coeffs, losses = buf0, [], []
+    for h in range(cfg.local_iters):
+        V, inv = estimator.direction_block(keys[:, h], spec, cfg.b2,
+                                           kind=cfg.estimator, conv=conv,
+                                           like=like, device=buf.device)
+        c, base = _wide_coefficients(
+            loss_fn, buf, spec, tree_map(lambda v: v[:, h], batches), V,
+            inv, scale, cfg)
+        buf = buf + (-cfg.lr / cfg.b2) * _combine(c, inv, V)
+        coeffs.append(c)
+        losses.append(base)
+    return buf, torch.stack(coeffs, 1), torch.stack(losses, 1)
+
+
 def local_phase(loss_fn, params, batches, rng, cfg: FedZOConfig
                 ) -> LocalResult:
     """H local iterates (Algorithm 1 inner loop) of one client.
@@ -184,6 +306,13 @@ def local_phase(loss_fn, params, batches, rng, cfg: FedZOConfig
     """
     check_route(cfg)
     keys = prng.split(rng, cfg.local_iters)
+    if cfg.batch_directions:
+        spec, _ = _wide_setup(params, cfg)
+        buf0 = flatten(params, spec)[None]
+        buf, coeffs, losses = _wide_phase_scan(
+            loss_fn, buf0, spec, keys[None],
+            tree_map(lambda v: v[None], batches), cfg, like=params)
+        return LocalResult(unflatten(buf[0], spec), coeffs[0], losses[0])
     if cfg.flat_params:
         spec, br = flat_geometry(params, cfg.flat_block_rows)
         buf0 = flatten(params, spec)[None]
@@ -222,7 +351,7 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
     ``cfg.server_momentum > 0``). Returns (new_params, metrics[,
     new_momentum]).
 
-    The aggregation follows the reference on both routes: AirComp (Eq. 17)
+    The aggregation follows the reference on every route: AirComp (Eq. 17)
     when ``cfg.aircomp``; else the masked (channel scheduling) and/or
     size-weighted mean; else the plain mean, which the pytree route takes
     as ``(1/M)·Σ_i Δ_i``.
@@ -245,13 +374,20 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
         _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
         mask = mask.to(dev)
 
-    if cfg.flat_params:
-        spec, br = flat_geometry(server_params, cfg.flat_block_rows)
+    if cfg.flat_params or cfg.batch_directions:
+        spec, br = (_wide_setup(server_params, cfg) if cfg.batch_directions
+                    else flat_geometry(server_params, cfg.flat_block_rows))
         buf0 = flatten(server_params, spec)
-        keys = prng.split(client_rngs, cfg.local_iters).to(dev)  # [M, H, 2]
-        buf, _, losses = _flat_phase_scan(
-            batched_loss(loss_fn), buf0.expand(M, spec.n_pad).contiguous(),
-            spec, br, keys, client_batches, cfg)
+        bufs = buf0.expand(M, spec.n_pad).contiguous()
+        keys = prng.split(client_rngs, cfg.local_iters)  # [M, H, 2]
+        if cfg.batch_directions:
+            buf, _, losses = _wide_phase_scan(loss_fn, bufs, spec, keys,
+                                              client_batches, cfg,
+                                              like=server_params)
+        else:
+            buf, _, losses = _flat_phase_scan(
+                batched_loss(loss_fn), bufs, spec, br, keys.to(dev),
+                client_batches, cfg)
         deltas = buf - buf0
 
         if cfg.aircomp and channel_rng is not None:

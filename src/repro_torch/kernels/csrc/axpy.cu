@@ -4,7 +4,8 @@
 //   axpy_kernel<1, ...>  <- zo_axpy  (_axpy_kernel):  out = x + a*u
 //   axpy_kernel<2, ...>  <- zo_axpy2 (_axpy2_kernel): out = x + a*u + b*v
 // computed in float32 in that order, (x + a*u) + b*v, and stored in x's
-// dtype. x is float32 or bfloat16; u and v each x's dtype or float32. The
+// dtype. x, u and v are each float32 or bfloat16 (on the pytree route a
+// bfloat16 direction moves float32 or bfloat16 parameters). The
 // scalars a and (a, b) are read from device memory, as the Pallas kernels
 // read their SMEM scalars: on the pytree FedZO route a = lr*c_n/b2 is a
 // tensor on the card, and a host float would cost a synchronisation per
@@ -191,22 +192,19 @@ using bf16 = __nv_bfloat16;
 
 extern "C" {
 
-// dtype codes: 0 float32, 1 bfloat16. x is float32 or bfloat16; u and v
-// each x's dtype or float32; out has x's dtype and n elements.
+// dtype codes: 0 float32, 1 bfloat16. x, u and v are each float32 or
+// bfloat16; out has x's dtype and n elements.
 int zo_axpy_launch(const void* x, const void* u, const float* a, void* out,
                    long long n, int x_dtype, int u_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  if (x_dtype == 0 && u_dtype == 0) {
-    return launch<1, float, float, float>(x, u, nullptr, out, a, n, s);
+  switch (x_dtype * 2 + u_dtype) {
+    case 0: return launch<1, float, float, float>(x, u, nullptr, out, a, n, s);
+    case 1: return launch<1, float, bf16, float>(x, u, nullptr, out, a, n, s);
+    case 2: return launch<1, bf16, float, float>(x, u, nullptr, out, a, n, s);
+    case 3: return launch<1, bf16, bf16, float>(x, u, nullptr, out, a, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (x_dtype == 1 && u_dtype == 1) {
-    return launch<1, bf16, bf16, float>(x, u, nullptr, out, a, n, s);
-  }
-  if (x_dtype == 1 && u_dtype == 0) {
-    return launch<1, bf16, float, float>(x, u, nullptr, out, a, n, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int zo_axpy2_launch(const void* x, const void* u, const void* v,
@@ -214,15 +212,15 @@ int zo_axpy2_launch(const void* x, const void* u, const void* v,
                     int u_dtype, int v_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  if (x_dtype == 0 && u_dtype == 0 && v_dtype == 0) {
-    return launch<2, float, float, float>(x, u, v, out, ab, n, s);
-  }
-  if (x_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (u_dtype * 2 + v_dtype) {
-    case 0: return launch<2, bf16, float, float>(x, u, v, out, ab, n, s);
-    case 1: return launch<2, bf16, float, bf16>(x, u, v, out, ab, n, s);
-    case 2: return launch<2, bf16, bf16, float>(x, u, v, out, ab, n, s);
-    case 3: return launch<2, bf16, bf16, bf16>(x, u, v, out, ab, n, s);
+  switch (x_dtype * 4 + u_dtype * 2 + v_dtype) {
+    case 0: return launch<2, float, float, float>(x, u, v, out, ab, n, s);
+    case 1: return launch<2, float, float, bf16>(x, u, v, out, ab, n, s);
+    case 2: return launch<2, float, bf16, float>(x, u, v, out, ab, n, s);
+    case 3: return launch<2, float, bf16, bf16>(x, u, v, out, ab, n, s);
+    case 4: return launch<2, bf16, float, float>(x, u, v, out, ab, n, s);
+    case 5: return launch<2, bf16, float, bf16>(x, u, v, out, ab, n, s);
+    case 6: return launch<2, bf16, bf16, float>(x, u, v, out, ab, n, s);
+    case 7: return launch<2, bf16, bf16, bf16>(x, u, v, out, ab, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

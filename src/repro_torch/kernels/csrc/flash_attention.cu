@@ -17,7 +17,14 @@
 // by how many warps are in flight to hide it.
 //
 // What the design does about it:
-// - Head dims 16, 32, 64, 128 and 256, each its own instantiation.
+// - Head dims 16, 32, 64, 128 and 256, each its own instantiation, and in
+//   float32 also 8 (the neural transformer track at its test and figure
+//   sizes: d_model 16 over 2 heads). bfloat16 at D = 8 is not built: Q.K^T
+//   there is half of one m16n8k16 k-step.
+// - The grid is (x blocks of a batch row x B, Hq): the batch is folded into
+//   grid.x (up to 2^31 - 1 blocks), not put in grid.z, whose 65,535 the
+//   wide FedZO route passes (B = M.b2.b1 = 5,000 rows at the paper's
+//   settings, twice that under a central difference).
 // - K/V tiles of 64 keys of the kv head (the plain version's BLOCK_K) are
 //   staged with 16-byte cp.async, the whole tile issued at once by all
 //   threads, into two buffers: tile t+1 loads while tile t computes. Where
@@ -30,7 +37,8 @@
 // - float32 (flash_fwd_f32): a block of 256 threads takes 32 q rows; a
 //   thread owns 2 rows and, for the scores, 4 keys of the tile (tx + 16c),
 //   for the output D/16 columns of those rows (one at D = 16, sixteen at
-//   D = 256). The q tile (pre-scaled, as
+//   D = 256; at D = 8 lanes tx and tx + 8 both compute column tx % 8 and
+//   the lower one writes it). The q tile (pre-scaled, as
 //   the reference scales q) sits in shared memory; each thread computes a
 //   2 x 4 register tile of scores from float4 reads of q and K, so one
 //   shared-memory read feeds 8 multiply-adds. A row's max is taken over the
@@ -201,22 +209,22 @@ __device__ __forceinline__ void split_pair(float x0, float x1,
 template <typename T, int D, int NT>
 __device__ __forceinline__ void stage_tile(T* ks, T* vs,
                                            const T* __restrict__ k,
-                                           const T* __restrict__ v, int b,
-                                           int hk, int Sk, int Hkv, int k0,
-                                           int tid) {
+                                           const T* __restrict__ v, int hk,
+                                           int Sk, int Hkv, int k0, int tid) {
   constexpr int kEl = 16 / static_cast<int>(sizeof(T));  // per copy
   constexpr int kCpr = D / kEl;                          // copies per row
   constexpr int kStride = D + kEl;
-  static_assert(kKeys * kCpr % NT == 0, "copies divide over the block");
+  constexpr int kCopies = kKeys * kCpr;
 #pragma unroll
-  for (int i = 0; i < kKeys * kCpr / NT; ++i) {
+  for (int i = 0; i < (kCopies + NT - 1) / NT; ++i) {
     const int c = tid + i * NT;
+    if (kCopies % NT != 0 && c >= kCopies) break;  // D = 8: half the block
     const int j = c / kCpr;
     const int e = (c % kCpr) * kEl;
     const int kp = k0 + j;
     const bool ok = kp < Sk;
     const size_t off =
-        ((static_cast<size_t>(b) * Sk + (ok ? kp : 0)) * Hkv + hk) * D + e;
+        (static_cast<size_t>(ok ? kp : 0) * Hkv + hk) * D + e;
     cp_async16(ks + j * kStride + e, k + off, ok);
     cp_async16(vs + j * kStride + e, v + off, ok);
   }
@@ -249,12 +257,18 @@ constexpr size_t f32_smem_bytes(int stages) {
 template <int D>
 constexpr int kF32Stages = f32_smem_bytes<D>(2) <= kMaxSmem ? 2 : 1;
 
+// output columns a float32 thread holds: D / 16, and one at D = 8
+template <int D>
+constexpr int kCols = D < 16 ? 1 : D / 16;
+
 // the output columns of lane tx: D / 16 of them, as float4 (D >= 64), a
 // float2 (D = 32) or one float (D = 16), each group contiguous so the
 // half-warp reads a V row in one sweep
 template <int D>
 __device__ __forceinline__ int out_col(int tx, int i) {
-  if constexpr (D == 16) {
+  if constexpr (D == 8) {
+    return tx & 7;
+  } else if constexpr (D == 16) {
     return tx;
   } else if constexpr (D == 32) {
     return 2 * tx + i;
@@ -265,8 +279,10 @@ __device__ __forceinline__ int out_col(int tx, int i) {
 
 template <int D>
 __device__ __forceinline__ void read_cols(const float* row, int tx,
-                                          float (&o)[D / 16]) {
-  if constexpr (D == 16) {
+                                          float (&o)[kCols<D>]) {
+  if constexpr (D == 8) {
+    o[0] = row[tx & 7];
+  } else if constexpr (D == 16) {
     o[0] = row[tx];
   } else if constexpr (D == 32) {
     const float2 t = *reinterpret_cast<const float2*>(row + 2 * tx);
@@ -289,10 +305,10 @@ __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out, int Sq,
                   int Sk, int Hq, int Hkv, int causal, int window,
-                  float scale) {
+                  float scale, int xb) {
   constexpr int kS = D + 4;       // padded row of q, K, V
   constexpr int kPS = kKeys + 4;  // padded p strip
-  constexpr int CW = D / 16;      // output columns per thread
+  constexpr int CW = kCols<D>;    // output columns per thread
   constexpr int kStages = kF32Stages<D>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kF32Rows][kS]
@@ -301,13 +317,18 @@ __global__ void __launch_bounds__(kF32Threads)
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int r0 = 2 * (tid >> 4);  // this thread's rows r0, r0 + 1
-  const int q0 = blockIdx.x * kF32Rows;
+  const int bx = blockIdx.x / xb;  // xb q tiles per batch row
+  const int q0 = (blockIdx.x - bx * xb) * kF32Rows;
+  // the batch row as a pointer offset: no index register lives on
+  q += static_cast<size_t>(bx) * Sq * Hq * D;
+  out += static_cast<size_t>(bx) * Sq * Hq * D;
+  k += static_cast<size_t>(bx) * Sk * Hkv * D;
+  v += static_cast<size_t>(bx) * Sk * Hkv * D;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int n_tiles = causal_tiles(Sk, causal, min(q0 + kF32Rows, Sq));
 
-  stage_tile<float, D, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, b, hk, Sk,
+  stage_tile<float, D, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, hk, Sk,
                                     Hkv, 0, tid);
   cp_async_commit();
   // the q tile, scaled as the reference scales q; rows beyond Sq are zeros
@@ -317,7 +338,7 @@ __global__ void __launch_bounds__(kF32Threads)
     float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (q0 + r < Sq) {
       t = *reinterpret_cast<const float4*>(
-          q + ((static_cast<size_t>(b) * Sq + q0 + r) * Hq + h) * D + e);
+          q + (static_cast<size_t>(q0 + r) * Hq + h) * D + e);
       t.x *= scale;
       t.y *= scale;
       t.z *= scale;
@@ -338,13 +359,13 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int t = 0; t < n_tiles; ++t) {
     if (kStages == 2 && t + 1 < n_tiles) {
       float* nk = kv0 + ((t + 1) & 1) * 2 * kKeys * kS;
-      stage_tile<float, D, kF32Threads>(nk, nk + kKeys * kS, k, v, b, hk, Sk,
+      stage_tile<float, D, kF32Threads>(nk, nk + kKeys * kS, k, v, hk, Sk,
                                         Hkv, (t + 1) * kKeys, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       if (kStages == 1 && t > 0) {  // the one buffer is free again
-        stage_tile<float, D, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, b, hk,
+        stage_tile<float, D, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, hk,
                                           Sk, Hkv, t * kKeys, tid);
         cp_async_commit();
       }
@@ -439,9 +460,9 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + r0 + r;
-    if (qi < Sq) {
+    if (qi < Sq && (D >= 16 || tx < D)) {
       const float denom = fmaxf(l[r], 1e-30f);
-      float* orow = out + ((static_cast<size_t>(b) * Sq + qi) * Hq + h) * D;
+      float* orow = out + (static_cast<size_t>(qi) * Hq + h) * D;
 #pragma unroll
       for (int i = 0; i < CW; ++i) orow[out_col<D>(tx, i)] = acc[r][i] / denom;
     }
@@ -466,7 +487,7 @@ __global__ void __launch_bounds__(kBfThreads)
     flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
                    int Sk, int Hq, int Hkv, int causal, int window,
-                   float scale) {
+                   float scale, int xb) {
   constexpr int kS = D + 8;  // padded row of q, K, V (16 bytes)
   constexpr int KD = D / 16;  // k-steps of Q.K^T over D
   constexpr int DV = kBfOutCols<D>;  // output columns of this block
@@ -480,14 +501,20 @@ __global__ void __launch_bounds__(kBfThreads)
   const int lane = tid & 31;
   const int g = lane >> 2;  // accumulator rows g and g + 8
   const int tq = lane & 3;  // accumulator columns 2 tq, 2 tq + 1
-  const int q0 = blockIdx.x / (D / DV) * kBfRows;
-  const int c0 = blockIdx.x % (D / DV) * DV;  // first output column
+  const int bx = blockIdx.x / xb;  // xb = q tiles x column groups per row
+  const int xi = blockIdx.x - bx * xb;
+  // the batch row as a pointer offset: no index register lives on
+  q += static_cast<size_t>(bx) * Sq * Hq * D;
+  out += static_cast<size_t>(bx) * Sq * Hq * D;
+  k += static_cast<size_t>(bx) * Sk * Hkv * D;
+  v += static_cast<size_t>(bx) * Sk * Hkv * D;
+  const int q0 = xi / (D / DV) * kBfRows;
+  const int c0 = xi % (D / DV) * DV;  // first output column
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int n_tiles = causal_tiles(Sk, causal, min(q0 + kBfRows, Sq));
 
-  stage_tile<bf16, D, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, b, hk, Sk, Hkv,
+  stage_tile<bf16, D, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, hk, Sk, Hkv,
                                   0, tid);
   cp_async_commit();
 
@@ -499,7 +526,7 @@ __global__ void __launch_bounds__(kBfThreads)
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < Sq) {
       raw = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(b) * Sq + q0 + r) * Hq + h) * D + e);
+          q + (static_cast<size_t>(q0 + r) * Hq + h) * D + e);
     }
     // a bf16 is the high half of a float32
     const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -537,13 +564,13 @@ __global__ void __launch_bounds__(kBfThreads)
   for (int t = 0; t < n_tiles; ++t) {
     if (kStages == 2 && t + 1 < n_tiles) {
       bf16* nk = kv0 + ((t + 1) & 1) * 2 * kKeys * kS;
-      stage_tile<bf16, D, kBfThreads>(nk, nk + kKeys * kS, k, v, b, hk, Sk,
+      stage_tile<bf16, D, kBfThreads>(nk, nk + kKeys * kS, k, v, hk, Sk,
                                       Hkv, (t + 1) * kKeys, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       if (kStages == 1 && t > 0) {  // the one buffer is free again
-        stage_tile<bf16, D, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, b, hk,
+        stage_tile<bf16, D, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, hk,
                                         Sk, Hkv, t * kKeys, tid);
         cp_async_commit();
       }
@@ -665,9 +692,9 @@ __global__ void __launch_bounds__(kBfThreads)
   const float da = fmaxf(l[0], 1e-30f);
   const float db = fmaxf(l[1], 1e-30f);
   uint32_t* oa = reinterpret_cast<uint32_t*>(
-      out + ((static_cast<size_t>(b) * Sq + ra) * Hq + h) * D + c0);
+      out + (static_cast<size_t>(ra) * Hq + h) * D + c0);
   uint32_t* ob = reinterpret_cast<uint32_t*>(
-      out + ((static_cast<size_t>(b) * Sq + rb) * Hq + h) * D + c0);
+      out + (static_cast<size_t>(rb) * Hq + h) * D + c0);
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     if (ra < Sq) oa[4 * n + tq] = pack_bf16(o[n][0] / da, o[n][1] / da);
@@ -678,6 +705,7 @@ __global__ void __launch_bounds__(kBfThreads)
 // ---------------------------------------------------------------- launch
 
 constexpr int kMaxDevices = 64;
+constexpr long long kMaxGridX = 2147483647;  // grid.x limit (grid.y: 65,535)
 
 // Allow `bytes` of dynamic shared memory for `kernel` on the current device,
 // once: the attribute belongs to the device that is current when it is set.
@@ -705,11 +733,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   static bool done[kMaxDevices] = {};
   const int attr = set_smem_once(flash_fwd_f32<D>, smem, done);
   if (attr != 0) return attr;
-  const dim3 grid((Sq + kF32Rows - 1) / kF32Rows, Hq, B);
+  const long long xb = (Sq + kF32Rows - 1) / kF32Rows;
+  if (xb * B > kMaxGridX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(static_cast<unsigned>(xb * B), Hq, 1);
   flash_fwd_f32<D><<<grid, kF32Threads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq, Hkv,
-      causal, window, scale);
+      causal, window, scale, static_cast<int>(xb));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -722,11 +754,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   static bool done[kMaxDevices] = {};
   const int attr = set_smem_once(flash_fwd_bf16<D, NQ>, smem, done);
   if (attr != 0) return attr;
-  const dim3 grid((Sq + kBfRows - 1) / kBfRows * (D / kBfOutCols<D>), Hq, B);
+  const long long xb = static_cast<long long>((Sq + kBfRows - 1) / kBfRows) *
+                       (D / kBfOutCols<D>);
+  if (xb * B > kMaxGridX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(static_cast<unsigned>(xb * B), Hq, 1);
   flash_fwd_bf16<D, NQ><<<grid, kBfThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, Hq, Hkv,
-      causal, window, scale);
+      causal, window, scale, static_cast<int>(xb));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -738,7 +775,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     return launch_f32<D>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
                          scale, s);
   }
-  if (dtype == 1) {
+  if constexpr (D < 16) {
+    if (dtype == 1) return static_cast<int>(cudaErrorInvalidValue);
+  } else if (dtype == 1) {
     int e2 = 0;
     if (std::frexp(scale, &e2) == 0.5f) {  // a power of two
       return launch_bf16<D, 1>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
@@ -754,8 +793,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// The head dims a launch takes (the kernel is instantiated per head dim).
-int flash_head_dim_ok(int D) {
+// Whether a launch takes head dim D in dtype (0 float32, 1 bfloat16): the
+// kernel is instantiated per head dim.
+int flash_head_dim_ok(int D, int dtype) {
+  if (D == 8) return dtype == 0;
   return D == 16 || D == 32 || D == 64 || D == 128 || D == 256;
 }
 
@@ -773,7 +814,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   if (addr_bits % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (Hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   switch (D) {
+    case 8:
+      return launch<8>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
+                       scale, dtype, s);
     case 16:
       return launch<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
                         scale, dtype, s);

@@ -100,22 +100,19 @@ def _scalars(vals, device):
 
 
 def _axpy_operands(x, vecs):
-    """Check x (float32 or bfloat16) and the vectors (each x's dtype or
-    float32, x's shape, contiguous, on x's device); their dtype codes."""
+    """Check x and the vectors (each float32 or bfloat16, x's shape,
+    contiguous, on x's device); their dtype codes."""
     codes = [_dtype_code(x, "x")]
     _need(x, "x", x.dtype, x.shape, x.device)
     for name, t in vecs:
-        if t.dtype not in (x.dtype, torch.float32):
-            raise ValueError(f"{name}: must be x's dtype ({x.dtype}) or "
-                             f"float32, got {t.dtype}")
+        codes.append(_dtype_code(t, name))
         _need(t, name, t.dtype, x.shape, x.device)
-        codes.append(_DTYPE_CODE[t.dtype])
     return codes
 
 
 def axpy(x, u, a):
-    """x + a·u in float32, returned in x's dtype (``zo_axpy``). x float32
-    or bfloat16, u of x's shape in x's dtype or float32, ``a`` a scalar or
+    """x + a·u in float32, returned in x's dtype (``zo_axpy``). x and u of
+    one shape, each float32 or bfloat16, ``a`` a scalar or
     a one-element tensor (on the card, best a float32 tensor there: it is
     read by the kernel, so the host never waits for it)."""
     if _on_cpu(x):
@@ -133,7 +130,7 @@ def axpy(x, u, a):
 
 def axpy2(x, u, v, a, b):
     """x + a·u + b·v in float32, returned in x's dtype (``zo_axpy2``), for
-    same-shaped x, u, v of any length; u and v each x's dtype or float32.
+    same-shaped x, u, v of any length, each float32 or bfloat16.
     No padding: the kernel masks its own ragged edge."""
     if _on_cpu(x):
         return zo_axpy2_plain(x, u, v, (a, b))
@@ -338,9 +335,16 @@ def attention(q, k, v, *, causal=True, window=0, scale=None):
     # (a slice at an odd row) is copied to a fresh, aligned tensor first
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     lib = build.load()["flash_attention"]
-    if not lib.flash_head_dim_ok(D):
-        raise ValueError(f"attention: head dim {D} not built (16, 32, 64, "
-                         f"128, 256)")
+    if not lib.flash_head_dim_ok(D, code):
+        raise ValueError(f"attention: head dim {D} in {q.dtype} not built "
+                         f"(8 in float32 only; 16, 32, 64, 128, 256)")
+    # the grid: (q tiles x column groups) of every batch row in grid.x,
+    # heads in grid.y
+    x_blocks = B * (-(-Sq // 32) if code == 0
+                    else -(-Sq // 64) * max(1, D // 64))
+    if x_blocks > 2**31 - 1 or Hq > 65535:
+        raise ValueError(f"attention: {x_blocks} blocks of grid.x (at most "
+                         f"2^31 - 1) or {Hq} heads (at most 65,535)")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     _check(lib.flash_attention_launch(

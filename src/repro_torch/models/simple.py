@@ -8,6 +8,8 @@ reference's. The forward permutes to PyTorch's NCHW/OIHW internally.
 
 Losses and accuracies take ONE parameter set; the FedZO round maps them
 over the M clients of a cohort with ``torch.func.vmap``.
+``mean_xent_batched`` is ``mean_xent`` per client for the client-batched
+losses.
 """
 from __future__ import annotations
 
@@ -23,6 +25,17 @@ def mean_xent(logits, y):
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, y.to(torch.int64)[:, None])[:, 0]
     return torch.mean(lse - ll)
+
+
+def mean_xent_batched(logits, y):
+    """``mean_xent`` per row of ``logits`` ``[M', B, C]`` -> ``[M']``, with
+    labels ``y`` ``[M, B]`` (M' = r·M: rows m·r … m·r + r − 1 take y[m])."""
+    Mp, B, C = logits.shape
+    M = y.shape[0]
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = y.to(torch.int64)[:, None, :, None].expand(M, Mp // M, B, 1)
+    ll = torch.gather(logits.reshape(M, Mp // M, B, C), -1, idx)
+    return torch.mean(lse - ll.reshape(Mp, B), dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ dense products are batched GEMMs, and each RMSNorm and attention is one
 kernel launch over the whole cohort: 2L + 1 RMSNorms and L attentions per
 forward, whatever M is.
 
+The classifier head (``init_classifier``, ``classifier_logits``,
+``classifier_loss``, ``classifier_accuracy``) is the neural FedZO
+workload's transformer track: images cut into patch tokens, the LM's
+stacked blocks, mean-pooled into a linear head. Its client-batched form
+(``classifier_logits_batched``, ``classifier_loss_batched``) takes leaves
+``[M', ...]`` against a batch ``[M, ...]`` with M' = r·M (r = 1 on the flat
+round, b2 on the wide route, whose r perturbed copies of a client share
+its batch), and runs each RMSNorm and attention as one launch.
+
 FedZO never calls a gradient: the forward is all the train step needs.
 MoE, MLA, MTP, ssm and hybrid stacks are not ported and raise.
 """
@@ -25,12 +34,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (embed_fwd, embed_fwd_batched,
-                                       init_embed, init_mlp, init_norm,
+from repro_torch.models.layers import (dense_init, embed_fwd,
+                                       embed_fwd_batched, init_embed,
+                                       init_mlp, init_norm,
                                        mlp_fwd, mlp_fwd_batched, norm_fwd,
                                        norm_fwd_batched, softmax_xent,
                                        softmax_xent_batched, unembed_fwd,
                                        unembed_fwd_batched)
+from repro_torch.models.simple import mean_xent, mean_xent_batched
 from repro_torch.utils import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -160,10 +171,87 @@ def backbone_batched(params, cfg, h):
 
 def loss_fn_batched(params, batch, cfg):
     """``loss_fn`` per client: ``[M, ...]`` leaves and batch leaves ``[M,
-    B, S]`` -> ``[M]`` losses."""
+    B, S]`` -> ``[M]`` losses. Leaves ``[r·M, ...]`` (the wide route's r
+    perturbed copies of each client) take client m's tokens for rows m·r …
+    m·r + r − 1 (the token ids are repeated, the weights read in place)."""
     tokens, labels = batch["tokens"], batch["labels"]
+    r = params["final_norm"]["scale"].shape[0] // tokens.shape[0]
+    if r > 1:
+        tokens, labels = (t.repeat_interleave(r, 0) for t in (tokens, labels))
     h = _embed_scale(embed_fwd_batched(params["embed"], tokens), cfg)
     hf = backbone_batched(params, cfg, h)
     logits = unembed_fwd_batched(params["embed"], hf, cfg.tie_embeddings,
                                  cfg.vocab)
     return softmax_xent_batched(logits, labels)
+
+
+# ---------------------------------------------------------------------------
+# tiny classifier head (the neural workload's transformer track)
+
+
+def init_classifier(rng, cfg, *, n_patches, patch_dim, n_classes,
+                    device="cpu"):
+    """Patch embedding, a zero positional table, cfg.n_layers stacked
+    blocks, the final norm and the head, from ``split(rng, 3)`` as the
+    reference draws them."""
+    check_dense(cfg)
+    dtype = _dtype(cfg)
+    ks = prng.split(rng, 3)
+    return {"patch": dense_init(ks[0], patch_dim, cfg.d_model, dtype,
+                                device=device),
+            "pos": torch.zeros((n_patches, cfg.d_model), dtype=dtype,
+                               device=device),
+            "blocks": _stack_init(ks[1], cfg.n_layers,
+                                  lambda k: init_block(k, cfg, dtype,
+                                                       device=device)),
+            "final_norm": init_norm(cfg.d_model, cfg.norm, dtype,
+                                    device=device),
+            "head": dense_init(ks[2], cfg.d_model, n_classes, dtype,
+                               device=device)}
+
+
+def classifier_logits(params, cfg, x):
+    """x ``[B, n_patches·patch_dim]`` (or ``[B, n_patches, patch_dim]``) ->
+    logits ``[B, n_classes]``."""
+    n_p = params["pos"].shape[0]
+    h = x.reshape(x.shape[0], n_p, -1).to(_dtype(cfg))
+    h = h @ params["patch"] + params["pos"]
+    h = _scan_blocks(params["blocks"], cfg, h)
+    h = norm_fwd(params["final_norm"], h, cfg.norm)
+    return torch.mean(h, dim=1) @ params["head"]
+
+
+def classifier_loss(params, batch, cfg):
+    return mean_xent(classifier_logits(params, cfg, batch["x"]), batch["y"])
+
+
+def classifier_accuracy(params, batch, cfg):
+    pred = torch.argmax(classifier_logits(params, cfg, batch["x"]), dim=-1)
+    return torch.mean((pred == batch["y"].to(torch.int64)).to(torch.float32))
+
+
+def classifier_logits_batched(params, cfg, x):
+    """``classifier_logits`` per parameter row: leaves ``[M', ...]``, x
+    ``[M, B, ...]`` with M' = r·M (rows m·r … m·r + r − 1 read x[m]) ->
+    ``[M', B, n_classes]``. The patch product is one batched GEMM of x[m]
+    against the r copies' weights side by side, so x is read as it is."""
+    Mp, n_p, d = params["pos"].shape
+    M, B = x.shape[:2]
+    r = Mp // M
+    xt = x.reshape(M, B * n_p, -1).to(_dtype(cfg))
+    w = params["patch"]                                  # [M', pd, d]
+    if r > 1:
+        w = w.reshape(M, r, -1, d).permute(0, 2, 1, 3).reshape(M, -1, r * d)
+    h = (xt @ w).reshape(M, B, n_p, r, d).permute(0, 3, 1, 2, 4)
+    h = h.reshape(Mp, B, n_p, d) + params["pos"][:, None]
+    for i in range(cfg.n_layers):
+        h = block_fwd_batched(_layer_batched(params["blocks"], i), cfg, h)
+    h = norm_fwd_batched(params["final_norm"], h, cfg.norm)
+    return torch.mean(h, dim=2) @ params["head"]
+
+
+def classifier_loss_batched(params, batch, cfg):
+    """``classifier_loss`` per parameter row -> ``[M']`` losses (batch
+    leaves ``[M, B, ...]``, M' = r·M as in ``classifier_logits_batched``)."""
+    return mean_xent_batched(
+        classifier_logits_batched(params, cfg, batch["x"]), batch["y"])

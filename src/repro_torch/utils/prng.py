@@ -20,8 +20,9 @@ an int64 one masked with ``& 0xFFFFFFFF``). Leading dimensions batch keys:
 ``[M, 2]`` keys and ``shape`` gives ``[M, *shape]``.
 
 Integer outputs are bitwise jax's. ``normal`` evaluates XLA's float32
-erfinv polynomial, but log1p and the rounding order differ, so it agrees
-within a few ulp.
+erfinv polynomial, but log1p and the rounding order differ, so a float32
+draw agrees within a few ulp; a bfloat16 draw takes one of 128 values (jax
+fills the 7 mantissa bits from 8 random bits) and is bitwise jax's.
 Keys are host-side control state: they live on the CPU, and the few words a
 kernel needs are moved to the card by the caller. The bulk draws
 (``random_bits``, ``uniform``, ``normal``) run on the device given by
@@ -191,6 +192,10 @@ def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0, *,
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2)))
+# the bfloat16 constants of jax's draw: nextafter(-1, 0) and sqrt(2), both
+# exact in a Python float
+_NORMAL_LO_BF16 = -1.0 + 2.0 ** -8
+_SQRT2_BF16 = 1.4140625
 # Giles' single-precision erfinv coefficients, the polynomial XLA evaluates
 # for float32 (w < 5 and w >= 5 branches). torch.erfinv is another
 # approximation and lands up to ~90 ulp away from jax; this one within 3.
@@ -214,12 +219,32 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
-    """float32 ``jax.random.normal``: ``sqrt(2)·erfinv(u)`` with u uniform
-    on ``(nextafter(-1, 0), 1)``. Within a few ulp of jax (3 measured on
-    10^5 draws: log1p and rounding order differ from XLA's)."""
-    u = uniform(k, shape, _NORMAL_LO, 1.0, device=device)
-    return erfinv(u) * _SQRT2
+def normal(k: torch.Tensor, shape, *, dtype=torch.float32,
+           device=None) -> torch.Tensor:
+    """``jax.random.normal(k, shape, dtype)``: ``sqrt(2)·erfinv(u)`` with u
+    uniform on ``(nextafter(-1, 0), 1)`` in ``dtype``.
+
+    float32: within a few ulp of jax (3 measured on 10^5 draws: log1p and
+    rounding order differ from XLA's). bfloat16: bitwise. jax draws 8 bits
+    for a dtype of fewer than 8 mantissa bits (the low byte of ``bits1 ^
+    bits2``), fills the mantissa with its top 7, and computes in bfloat16:
+    u = max(lo, f·bf16(1 − lo) + lo) with ``lo = nextafter(-1, 0)`` =
+    -0.99609375 and the span rounded to 2; erfinv in float32 rounded to
+    bfloat16 (XLA upcasts it), then the bfloat16 product with bf16(√2). All
+    128 values of u agree with jax 0.9.0 (``tests/test_torch_wide.py``)."""
+    if dtype == torch.float32:
+        u = uniform(k, shape, _NORMAL_LO, 1.0, device=device)
+        return erfinv(u) * _SQRT2
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(f"normal draws in {dtype}: float32 and "
+                                  f"bfloat16 are ported")
+    bits = random_bits(k, shape, device=device) & 0xFF
+    fbits = ((bits >> 1) | 0x3F80).to(torch.int16)
+    floats = fbits.view(torch.bfloat16) - 1.0
+    # bfloat16 arithmetic with exact bfloat16 scalars (torch rounds each
+    # operation to bfloat16, as XLA does here)
+    u = torch.clamp_min(floats * 2.0 + _NORMAL_LO_BF16, _NORMAL_LO_BF16)
+    return erfinv(u.float()).to(torch.bfloat16) * _SQRT2_BF16
 
 
 def rademacher(k: torch.Tensor, shape, *, dtype=torch.float32,

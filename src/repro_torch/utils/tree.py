@@ -9,7 +9,8 @@ level (``utils/flatparams._leaves``), so leaf i here is leaf i of
 ``tree_axpy`` runs the ``zo_axpy`` kernel on every leaf (its plain version
 for a leaf on the CPU). The normal draws are whole leaves at once: the
 reference's chunked form only starts at ``CHUNK_ELEMS = 1 << 62`` elements,
-so it never runs, and only float32 draws are ported.
+so it never runs. Draws are float32 (within a few ulp of the reference's)
+or bfloat16 (bitwise).
 """
 from __future__ import annotations
 
@@ -109,12 +110,9 @@ def tree_cast(tree, dtype):
 
 
 def leaf_normal(key, shape, dtype=torch.float32, *, device=None):
-    """N(0,1) of ``shape`` from ``key``: ``jax.random.normal`` within a few
-    float32 ulp, drawn on ``device``."""
-    if dtype != torch.float32:
-        raise NotImplementedError(f"normal draws in {dtype} are not ported; "
-                                  f"directions are float32")
-    return prng.normal(key, shape, device=device)
+    """N(0,1) of ``shape`` from ``key`` in ``dtype``, drawn on ``device``:
+    ``jax.random.normal`` (float32 within a few ulp, bfloat16 bitwise)."""
+    return prng.normal(key, shape, dtype=dtype, device=device)
 
 
 def add_leaf_normal(x, key, coef, dtype=torch.float32):

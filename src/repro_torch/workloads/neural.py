@@ -1,7 +1,9 @@
 """Neural FedZO: the paper's Sec. V-B training track, in PyTorch.
 
-Counterpart of ``repro/workloads/neural.py:42-190`` for the ``softmax`` and
-``cnn`` tracks: a model's init/loss/accuracy triple, the Dirichlet-skewed
+Counterpart of ``repro/workloads/neural.py:42-190`` with its three tracks,
+``softmax``, ``cnn`` and ``transformer`` (a patch-token classifier on the
+LM's blocks, whose loss carries its client-batched form as
+``loss.batched``): a model's init/loss/accuracy triple, the Dirichlet-skewed
 client shards of the synthetic class-conditional problem stacked into a
 ``ClientStore`` on the device, and the pooled held-out test batch. The model
 trains forward-only through the flat FedZO round.
@@ -16,9 +18,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import FedZOConfig
+from repro_torch.configs.base import FedZOConfig, ModelConfig
 from repro_torch.data.synthetic import federated_classification
-from repro_torch.models import simple
+from repro_torch.models import simple, transformer
 from repro_torch.sim import engine
 from repro_torch.sim.store import ClientStore, build_store
 from repro_torch.utils import prng
@@ -49,16 +51,48 @@ def _cnn_triple(n_features, n_classes, kw, device):
             simple.smallcnn_loss, simple.smallcnn_accuracy, shape)
 
 
-_TRIPLES = {"softmax": _softmax_triple, "cnn": _cnn_triple}
+def _transformer_triple(n_features, n_classes, kw, device):
+    n_patches = kw.pop("n_patches", 8)
+    if n_features % n_patches:
+        raise ValueError(f"n_features={n_features} must split into "
+                         f"{n_patches} patch tokens")
+    d_model = kw.pop("d_model", 32)
+    n_heads = kw.pop("n_heads", 2)
+    cfg = ModelConfig(
+        name="tiny-patch-cls", family="dense",
+        source="repro-internal tiny head (DESIGN.md §11)",
+        n_layers=kw.pop("n_layers", 1), d_model=d_model,
+        d_ff=kw.pop("d_ff", 64), vocab=0, n_heads=n_heads,
+        n_kv_heads=n_heads, head_dim=d_model // n_heads,
+        act="gelu", dtype="float32")
+    patch_dim = n_features // n_patches
+
+    def loss(p, b):
+        return transformer.classifier_loss(p, b, cfg)
+
+    def loss_batched(p, b):
+        return transformer.classifier_loss_batched(p, b, cfg)
+
+    loss.batched = loss_batched
+    return (lambda seed: transformer.init_classifier(
+                prng.key(seed), cfg, n_patches=n_patches,
+                patch_dim=patch_dim, n_classes=n_classes, device=device),
+            loss,
+            lambda p, b: transformer.classifier_accuracy(p, b, cfg),
+            None)
+
+
+_TRIPLES = {"softmax": _softmax_triple, "cnn": _cnn_triple,
+            "transformer": _transformer_triple}
 
 
 def make_task(name="softmax", *, device="cuda", **kw) -> NeuralTask:
     """Build a registered neural FedZO task on ``device``.
 
-    ``name``: softmax | cnn (the reference's transformer track is not
-    ported). Keywords are the reference's: data (n_train, n_test,
-    n_clients, n_features, n_classes, seed, scale, partition, alpha) and
-    model (cnn: image_shape, width). Cached per argument set.
+    ``name``: softmax | cnn | transformer. Keywords are the reference's:
+    data (n_train, n_test, n_clients, n_features, n_classes, seed, scale,
+    partition, alpha) and model (cnn: image_shape, width; transformer:
+    n_patches, n_layers, d_model, d_ff, n_heads). Cached per argument set.
     """
     if kw.get("image_shape") is not None:
         kw["image_shape"] = tuple(kw["image_shape"])
@@ -70,8 +104,8 @@ def _make_task(name, device, *, n_train=2000, n_test=512, n_clients=10,
                n_features=784, n_classes=10, seed=0, scale=1.0,
                partition="dirichlet", alpha=0.5, **model_kw) -> NeuralTask:
     if name not in _TRIPLES:
-        raise NotImplementedError(f"neural task {name!r} is not ported; "
-                                  f"ported: {sorted(_TRIPLES)}")
+        raise ValueError(f"unknown neural task {name!r}; registered: "
+                         f"{sorted(_TRIPLES)}")
     kw = dict(model_kw)
     if name == "cnn":
         shape = tuple(kw.get("image_shape") or (28, 28, 1))

@@ -14,10 +14,14 @@ RMSNorm and flash attention: float32 within a relative 1e-5 (another
 summation order), bfloat16 within 1 bf16 ulp of the output; RMSNorm (both
 dtypes, one scale or a ``[G, D]`` scale) and float32 flash attention also
 bitwise their summation order's torch twin; attention at every head dim
-it builds (16 to 256). The client-batched LM loss against each client's
-own loss. ``chip_smoke.py`` repeats these at the main path's full shapes
-and times them.
+it builds (8 in float32, 16 to 256), and over more batch rows than grid.z
+holds. The client-batched LM and classifier losses against each client's
+own loss; bfloat16 normals bitwise the CPU's, and the transformer track's
+rounds (also with bfloat16 directions) within 1e-3 of the CPU's.
+``chip_smoke.py`` repeats these at the main path's full shapes and times
+them.
 """
+import itertools
 import math
 import os
 import sys
@@ -179,10 +183,10 @@ def test_wrappers_count_their_launches(gen):
                             "rmsnorm": 1, "flash_attention": 1}
 
 
-_AXPY_DTYPES = [(torch.float32,) * 3, (torch.bfloat16,) * 3,
-                (torch.bfloat16, torch.float32, torch.float32),
-                (torch.bfloat16, torch.bfloat16, torch.float32),
-                (torch.bfloat16, torch.float32, torch.bfloat16)]
+# x, u and v each float32 or bfloat16: a bfloat16 tree-convention direction
+# moves float32 weights
+_AXPY_DTYPES = list(itertools.product((torch.float32, torch.bfloat16),
+                                      repeat=3))
 
 
 @pytest.mark.parametrize("dts", _AXPY_DTYPES,
@@ -266,6 +270,7 @@ def test_rmsnorm_on_card(gen, dtype, rows, d):
     (3, (3, 7), 100),                      # rows that are not 16-byte vectors
     (2, (2, 3), 2100),                     # the streaming kernel
     (5, (5, 1), 64),                       # one row a group
+    (200, (200, 25, 8), 32),               # the wide classifier cohort
 ])
 def test_rmsnorm_group_scale_on_card(gen, dtype, groups, lead, d):
     """A ``[G, D]`` scale, taken as a strided view (a layer's slice of
@@ -418,6 +423,8 @@ def flash_f32_row_order(q, k, v, *, causal=True, window=0, block_k=64):
     (1, 1000, 4, 2, 64, True, 256),  # whole tiles outside the window
     (2, 100, 4, 2, 16, True, 0),     # head dim 16
     (1, 200, 2, 1, 256, True, 48),   # head dim 256, one staging buffer
+    (250, 8, 2, 2, 8, True, 0),      # the classifier's flat cohort, D = 8
+    (3, 100, 4, 2, 8, True, 24),     # head dim 8, ragged, window, G = 2
 ])
 def test_flash_f32_sums_in_row_order_on_card(gen, b, s, hq, hkv, hd, causal,
                                             window):
@@ -432,6 +439,48 @@ def test_flash_f32_sums_in_row_order_on_card(gen, b, s, hq, hkv, hd, causal,
     want = flash_f32_row_order(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", [
+    (250, 8, 2, 2, 8, True, 0),      # the classifier at its test size
+    (250, 8, 2, 2, 16, True, 0),     # the track's default width, flat
+    (5000, 8, 2, 2, 16, True, 0),    # its wide cohort: M.b2.b1 rows
+    (1, 130, 2, 2, 8, False, 0),     # head dim 8 over 3 ragged tiles
+    (2, 300, 4, 1, 8, True, 0),      # 5 tiles, G = 4
+])
+def test_attention_classifier_shapes_on_card(gen, b, s, hq, hkv, hd, causal,
+                                             window):
+    """float32 at the neural transformer track's shapes (S = 8 patch
+    tokens: a q tile of 32 rows mostly empty) and head dim 8, within 1e-5
+    of max |out| of the plain version."""
+    q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
+    k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    top = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_batch_beyond_grid_z_on_card(gen, dtype):
+    """70,000 batch rows (grid.z holds 65,535): the batch is folded into
+    grid.x, and every row is its own call's result bit for bit."""
+    b, s, h, hd = 70_000, 8, 2, 16
+    q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    got = ops.attention(q, k, v)
+    for i in (0, 1, 65_535, 65_536, b - 1):
+        one = ops.attention(q[i:i + 1].clone(), k[i:i + 1].clone(),
+                            v[i:i + 1].clone())
+        assert torch.equal(got[i:i + 1], one), i
+
+
+def test_attention_bf16_head_dim_8_raises_on_card(gen):
+    q = torch.randn(2, 8, 2, 8, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head dim 8"):
+        ops.attention(q, q, q)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -466,6 +515,26 @@ def test_prng_draws_on_card_match_the_cpu(gen):
     b = prng.normal(k, (100_000,))
     spacing = torch.nextafter(b.abs(), torch.tensor(math.inf)) - b.abs()
     assert float(((a - b).abs() / spacing).max()) <= 4
+
+
+def test_bf16_normals_on_card_match_the_cpu(gen):
+    """bfloat16 normals, the tree convention's bf16 draws, bitwise the
+    CPU's over ragged shapes (``chip_smoke.check_bf16_draws``)."""
+    chip_smoke.check_bf16_draws(torch)
+
+
+@pytest.mark.parametrize("route", ["flat", "pytree", "pytree bf16 sphere",
+                                   "pytree bf16 gaussian", "wide"])
+def test_track_rounds_on_card_match_the_cpu(gen, route):
+    """2 rounds of the transformer track at its test size on the card and
+    on the CPU from one seed, exact launch counts on the card, the weights
+    within 1e-3 (``chip_smoke.check_track_small_reference``); the bf16
+    routes put float32 weights and bfloat16 directions through zo_axpy."""
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.workloads import neural
+
+    chip_smoke.check_track_small_reference(torch, ops, neural, FedZOConfig,
+                                           route)
 
 
 
@@ -565,3 +634,35 @@ def test_batched_lm_loss_on_card_matches_each_client(gen):
                         for i in range(m)])
     ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
     assert float(((got - each).abs() / ulp).max()) <= 4
+
+
+def test_batched_classifier_loss_on_card_matches_each_client(gen):
+    """The neural transformer track's client-batched loss on the card at
+    its default width (d_model 32, 2 heads of 16, 8 patch tokens): M = 3
+    clients, and the wide route's r = 4 copies of each client sharing its
+    batch. 2L + 1 RMSNorm and L attention launches per call, and each row
+    within 4 float32 ulps of its own loss."""
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+    from repro_torch.workloads import neural
+
+    task = neural.make_task("transformer", device="cuda", n_train=120,
+                            n_test=16, n_clients=3)
+    init = neural.params_init(task, 0)
+    spec = flat_spec(init)
+    m, r = 3, 4
+    x = torch.rand(m, 5, 784, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (m, 5), generator=gen, device="cuda")
+    for reps in (1, r):
+        buf = flatten(init, spec)[None].repeat(m * reps, 1)
+        buf = buf + 1e-2 * torch.randn(buf.shape, generator=gen,
+                                       device="cuda")
+        ops.reset_launches()
+        got = task.loss.batched(unflatten(buf, spec), {"x": x, "y": y})
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["rmsnorm"] == 3
+        assert ops.LAUNCHES["flash_attention"] == 1
+        each = torch.stack([task.loss(unflatten(buf[i], spec),
+                                      {"x": x[i // reps], "y": y[i // reps]})
+                            for i in range(m * reps)])
+        ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+        assert float(((got - each).abs() / ulp).max()) <= 4

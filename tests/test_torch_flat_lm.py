@@ -111,6 +111,23 @@ def test_batched_loss_matches_each_client_and_jax_vmap(over):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=8 * ulp)
 
 
+def test_batched_loss_serves_each_batch_to_its_copies():
+    """The wide route hands the batched loss r perturbed copies of each
+    client (leaves ``[M·r, ...]``) against the clients' ``[M, ...]``
+    batches: row m·r + j is client m's copy j on client m's batch, bitwise
+    its own ``Model.loss`` on the CPU, as the one-copy cohort is."""
+    r = 2
+    params = _cohort(_jax_params(jget_config(SMOKE)), seed=4, m=M * r)
+    batch = _batches(5, (M,))
+    model = api.build(get_config(SMOKE))
+    got = model.loss_batched(_t(params), _t(batch))
+    assert got.shape == (M * r,)
+    each = torch.stack([model.loss(
+        _t(jax.tree.map(lambda v: v[i], params)),
+        _t({k: v[i // r] for k, v in batch.items()})) for i in range(M * r)])
+    torch.testing.assert_close(got, each, rtol=2e-7, atol=0)
+
+
 def test_batched_forward_reads_the_cohort_buffer_in_place():
     """The flat round hands the loss ``unflatten`` of the ``[M, n_pad]``
     buffer: every leaf a strided view into it, a layer the slice

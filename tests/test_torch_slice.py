@@ -194,17 +194,25 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 
 def test_unported_routes_raise():
+    """The routes the port does not have raise; the wide-only conventions
+    without ``batch_directions`` and flat coordinate directions raise the
+    reference's ValueError."""
     from repro_torch.configs.base import FedZOConfig
-    for kw in (dict(batch_directions=True), dict(direction_conv="surrogate"),
+    for kw in (dict(direction_conv="surrogate"),
+               dict(direction_conv="channel"),
                dict(delta_compression="seed"),
-               dict(direction_dtype="bfloat16"),
-               dict(flat_params=True, batch_directions=True),
+               dict(channel_model=object()),
+               dict(batch_directions=True, delta_compression="seed"),
                dict(flat_params=True, estimator="coordinate")):
         with pytest.raises((NotImplementedError, ValueError)):
             tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(**kw))
-    with pytest.raises(NotImplementedError):
-        tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(
-            flat_params=True, strategy="scaffold"))
+    for algo in ("scaffold", "fedavg"):
+        with pytest.raises(NotImplementedError):
+            tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(
+                flat_params=True, strategy=algo))
+    for impl in ("rbg", "unsafe_rbg"):
+        with pytest.raises(NotImplementedError, match="prng_impl"):
+            tengine.experiment_key(FedZOConfig(prng_impl=impl))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
