@@ -88,6 +88,41 @@ each of which raises on a failure (the script then exits non-zero):
    same run on the CPU (plain versions), within the float32 tolerance of a
    ZO trajectory; bfloat16 normals drawn on the card bitwise the CPU's.
 
+5. Phase "algorithms and uplinks" (the strategy layer, FedAvg, the
+   seed-compressed uplink and ``FedServer``), each part's seconds and peak
+   memory printed:
+   (a) softmax 784x10 at the phase-3 settings, 3 rounds each: fedprox
+       (prox_mu 0.01), feddyn (dyn_alpha 0.01) and scaffold on the flat
+       route, scaffold on the wide route, fedprox with AirComp, fedavg (lr
+       0.05); each strategy launches exactly the fedzo round's kernels on
+       its route, fedavg none; the loss falls.
+   (b) the transformer track at its lr 5e-3: fedprox (flat) and fedavg, one
+       round each, M-free attention and RMSNorm counts; one client's FedAvg
+       gradient on the card against the CPU's (every leaf within 1e-4 of
+       its largest entry: a backward that skipped the kernels' inputs
+       would leave the attention and norm weights at zero).
+   (c) the autograd wrappers' backward at Qwen2-0.5B's shapes (batch 1 x
+       seq 16), the track's, a [G, D] scale and head dims 8-256, float32
+       and bfloat16, bitwise the plain version's autograd on the card, and
+       timed at the Qwen step's and the track round's shapes; then 3 steps
+       of ``repro_torch.launch.train --algo fedavg --opt adam`` on
+       Qwen2-0.5B at full width (float32, batch 4 x seq 128): ms per step,
+       peak memory, the losses, one forward's launches a step, and the
+       recompute's share of a step.
+   (d) ``run_seed_compressed_round`` on Qwen2-0.5B (flat, M = 4, H = 2, b2
+       = 8) against a dense ``fedzo.round_simulated`` on the same batches
+       and keys: the replayed weights within H + 2 ulps of each leaf's
+       largest weight, exactly 1 zo_dirnorms and M.H zo_replay in the
+       aggregate, M.(8 + 4.H.b2 + 4) wire bytes and the compression ratio.
+   (e) one ZO-FedProx flat round on Qwen2-0.5B (M = 4, H = 2, b2 = 8): ms,
+       peak memory, the fedzo round's launch counts.
+   (f) ``FedServer`` on softmax, 2 rounds: the host loop with fedzo and
+       fedavg, the store path with all five strategies; exact counts and
+       the ledger's columns on every row.
+   Then one round each of fedprox (flat), scaffold (wide) and fedavg on the
+   transformer track at its test size, card against CPU (1e-3; FedAvg
+   1e-5).
+
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
 traces of one softmax round and one Qwen2-0.5B train step (kernel time by
@@ -1100,8 +1135,11 @@ def drive_runs(torch, ops, neural, runs):
     ``TEST_DESCENT`` of the start below that of the starting weights (the
     transformer track's per-round losses on fresh batches move by more
     than a round's progress); None, no check (a run of one round of one
-    iterate). Prints ms per round, the peak memory and the counts. Returns
-    {kernel: launches summed over the runs}."""
+    iterate); ``"mean"``, the last round's mean local loss below the first
+    round's (FedAvg, whose metrics have no first-iterate loss). A run's
+    strategy (``cfg.strategy``) carries its state from round to round.
+    Prints ms per round, the peak memory and the counts. Returns {kernel:
+    launches summed over the runs}."""
     from repro_torch.utils.tree import tree_leaves
     total = {k: 0 for k in ops.LAUNCHES}
     for name, task, cfg, rounds, want, descend in runs:
@@ -1110,16 +1148,18 @@ def drive_runs(torch, ops, neural, runs):
                 task, cfg.seed))["test_loss"])
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        params = key = momentum = None
+        params = key = momentum = zstate = None
         per_round, mets = [], {}
         for _ in range(rounds):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = neural.run(task, cfg, 1, eval_every=0, params=params,
-                             key=key, momentum=momentum)
+                             key=key, momentum=momentum, zstate=zstate)
             torch.cuda.synchronize()
             per_round.append(1e3 * (time.perf_counter() - t0))
-            params, key, momentum = res.params, res.key, res.momentum
+            params, key, momentum, zstate = (res.params, res.key,
+                                             res.momentum,
+                                             res.strategy_state)
             for k, v in res.metrics.items():
                 mets.setdefault(k, []).extend(v.cpu().tolist())
         counts = dict(ops.LAUNCHES)
@@ -1133,6 +1173,9 @@ def drive_runs(torch, ops, neural, runs):
             check(bool(torch.isfinite(p).all()), f"{name}: param not finite")
         if descend == "local":
             check(mets["mean_local_loss"][-1] < mets["first_loss"][0],
+                  f"{name}: loss did not descend: {mets}")
+        elif descend == "mean":
+            check(mets["mean_local_loss"][-1] < mets["mean_local_loss"][0],
                   f"{name}: loss did not descend: {mets}")
         elif descend == "test":
             check(evals["test_loss"] <= (1 - TEST_DESCENT) * before,
@@ -1806,6 +1849,519 @@ def check_lm_round_small_reference(torch, FedZOConfig):
           f"{runs['cuda'][1]} cpu {runs['cpu'][1]}")
 
 
+# ---------------------------------------------------------------------------
+# phase "algorithms and uplinks": the strategies, FedAvg, the seed-compressed
+# uplink and FedServer
+
+
+def fedavg_launches(ops, cfg, rounds, L=0):
+    """Launches of ``rounds`` FedAvg rounds: no ZO kernel; per local step
+    one batched forward of the cohort (2L + 1 RMSNorms, L attentions,
+    whatever M is); the backward recomputes the plain versions and
+    launches nothing."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if L:
+        steps = rounds * cfg.local_iters
+        want.update(rmsnorm=steps * (2 * L + 1), flash_attention=steps * L)
+    return want
+
+
+def run_strategy_rounds(torch, ops, neural, FedZOConfig):
+    """Parts (a) and (b) at the other rounds' settings (N = 50, M = 10,
+    H = 5, b1 = 25, b2 = 20, size-weighted). Softmax 784x10, 3 rounds each:
+    fedprox (prox_mu 0.01), feddyn (dyn_alpha 0.01) and scaffold on the
+    flat route, scaffold on the wide route, fedprox with AirComp, and
+    fedavg at a first-order lr of 0.05 (FedZOConfig's 1e-3 is a ZO step).
+    The transformer track at its lr 5e-3: fedprox on the flat route and
+    fedavg, one round each. The hooks add no ZO kernel launch: each
+    strategy's counts are the fedzo round's on its route, M-free; fedavg
+    launches no ZO kernel, and on the track one batched forward a step.
+    Then one client's FedAvg gradient of the track on the card against the
+    CPU's. Returns {kernel: launches}."""
+    softmax = neural.make_task("softmax", n_features=784, n_classes=10,
+                               n_clients=50)
+    track = neural.make_task("transformer", n_clients=50)
+    base = dict(weight_by_size=True)
+    flat = dict(flat_params=True)
+    wide = dict(batch_directions=True, direction_conv="block")
+    air = dict(aircomp=True, channel_schedule=True, snr_db=5.0)
+    prox = dict(strategy="fedprox", prox_mu=0.01)
+
+    def on_track(**kw):
+        return neural.default_config(track, n_participating=10, **kw)
+
+    runs = [("softmax_fedprox", softmax, FedZOConfig(**base, **flat, **prox),
+             3, "local"),
+            ("softmax_feddyn", softmax, FedZOConfig(
+                **base, **flat, strategy="feddyn", dyn_alpha=0.01), 3,
+             "local"),
+            ("softmax_scaffold", softmax, FedZOConfig(
+                **base, **flat, strategy="scaffold"), 3, "local"),
+            ("softmax_scaffold_wide", softmax, FedZOConfig(
+                **base, **wide, strategy="scaffold"), 3, "local"),
+            ("softmax_fedprox_aircomp", softmax, FedZOConfig(
+                **base, **flat, **air, **prox), 3, "local"),
+            ("softmax_fedavg", softmax, FedZOConfig(
+                **base, strategy="fedavg", lr=0.05), 3, "mean"),
+            ("transformer_fedprox", track, on_track(**flat, **prox), 1,
+             None),
+            ("transformer_fedavg", track, on_track(strategy="fedavg"), 1,
+             None)]
+
+    def want(task, cfg, rounds):
+        L = CLS_LAYERS if task is track else 0
+        if cfg.strategy == "fedavg":
+            return fedavg_launches(ops, cfg, rounds, L)
+        return round_launches(ops, cfg, rounds,
+                              CLS_LEAVES if task is track else 2, L)
+
+    total = drive_runs(torch, ops, neural, [
+        (name, task, cfg, rounds, want(task, cfg, rounds), descend)
+        for name, task, cfg, rounds, descend in runs])
+    check_fedavg_gradient(torch, ops, neural, track)
+    return total
+
+
+# A FedAvg gradient on the card against the CPU's: the forward kernels
+# agree with the plain versions within a relative 1e-5 (attention, float32)
+# or bitwise (RMSNorm's order twin), the GEMMs sum in other orders, and the
+# backward is the plain version's on both: every leaf within a relative
+# 1e-4 of its largest entry. A gradient that skipped the kernels' inputs
+# (a launch output with no grad_fn) would leave the attention and norm
+# weights at zero, which no tolerance passes.
+GRAD_REL = 1e-4
+
+
+def check_fedavg_gradient(torch, ops, neural, track):
+    """One client's FedAvg gradient (``fedavg.value_and_grad`` of the
+    track's loss on its first 25 rows) on the card and on the CPU from the
+    same weights; the card's forward launches its kernels once."""
+    from repro_torch.core import fedavg
+    from repro_torch.utils.flatparams import _leaves
+    from repro_torch.utils.tree import tree_map
+    params = neural.params_init(track, 0)
+    batch = {k: v[0, :25] for k, v in track.store.data.items()}
+    ops.reset_launches()
+    loss, grad = fedavg.value_and_grad(track.loss, params, batch)
+    check(ops.LAUNCHES["rmsnorm"] == 2 * CLS_LAYERS + 1
+          and ops.LAUNCHES["flash_attention"] == CLS_LAYERS,
+          f"track gradient: launches {dict(ops.LAUNCHES)}")
+    loss_c, grad_c = fedavg.value_and_grad(
+        track.loss, tree_map(lambda v: v.cpu(), params),
+        {k: v.cpu() for k, v in batch.items()})
+    want = dict(_leaves(grad_c))
+    worst = 0.0
+    for path, g in _leaves(grad):
+        big = float(want[path].abs().max())
+        check(big > 0, f"track gradient {path}: zero on the CPU")
+        rel = float((g.cpu() - want[path]).abs().max()) / big
+        check(rel <= GRAD_REL, f"track gradient {path}: card vs CPU "
+              f"relative {rel} > {GRAD_REL}")
+        worst = max(worst, rel)
+    check(abs(float(loss) - float(loss_c)) <= 1e-5 * abs(float(loss_c)),
+          f"track loss card {float(loss)} cpu {float(loss_c)}")
+    print(f"transformer_fedavg gradient: {len(want)} leaves, card vs CPU "
+          f"largest relative difference {worst:.3e} (limit {GRAD_REL}); "
+          f"loss {float(loss)} vs {float(loss_c)}")
+
+
+def backward_inputs(torch, kind, shape, dtype, gen):
+    """Random inputs and a cotangent on the card for a backward check:
+    ``rmsnorm`` shape (x shape, groups), ``attention`` shape (B, S, Hq,
+    Hkv, D, window)."""
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+    if kind == "rmsnorm":
+        xs, groups = shape
+        d = xs[-1]
+        ins = [rnd(*xs), 1 + 0.1 * rnd(*((d,) if groups == 1
+                                         else (groups, d)))]
+        return ins, rnd(*xs), {}
+    b, s, hq, hkv, d, window = shape
+    ins = [rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)]
+    return ins, rnd(b, s, hq, d), {"window": window}
+
+
+def check_backward(torch, ops, kind, shape, dtype, gen, time_reps=0):
+    """``ops.rmsnorm``/``ops.attention`` with inputs that require a
+    gradient on the card: the forward is the kernel (one launch, bitwise
+    the direct call's output) and the gradients are bitwise autograd of
+    the plain version on the same card tensors, and not all zero. With
+    ``time_reps``, the backward's device time (ms, the recompute and
+    ``autograd.grad``). Returns (max |grad|, ms or None)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    fwd = ops.rmsnorm if kind == "rmsnorm" else ops.attention
+    plain = rmsnorm_plain if kind == "rmsnorm" else flash_attention_plain
+    ins, g, kw = backward_inputs(torch, kind, shape, dtype, gen)
+    name = "rmsnorm" if kind == "rmsnorm" else "flash_attention"
+    leaves = [t.clone().requires_grad_() for t in ins]
+    before = ops.LAUNCHES[name]
+    out = fwd(*leaves, **kw)
+    check(ops.LAUNCHES[name] == before + 1 and out.grad_fn is not None,
+          f"{kind} {shape}: the forward did not launch through autograd")
+    check(torch.equal(out, fwd(*ins, **kw)),
+          f"{kind} {shape}: forward differs from the kernel's")
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    ref = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(plain(*ref, **kw), ref, g)
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{kind} {shape} {dtype}: gradient differs from the plain "
+              f"version's autograd")
+    big = max(float(a.abs().max()) for a in got)
+    check(big > 0, f"{kind} {shape}: zero gradient")
+    ms = (median_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), time_reps)
+        if time_reps else None)
+    return big, ms
+
+
+# backward checks: Qwen2-0.5B's shapes at batch 1 x seq 16 (d_model 896,
+# 14 q heads over 2 kv heads of 64), the transformer track's ([250, 8]
+# rows of d_model 32 in 10 client groups, 2 heads of 16 or 8), the [G, D]
+# scale, and every head dim the attention builds (8 in float32 only)
+BACKWARD_CASES = (
+    [("rmsnorm", ((1, 16, LM_DM), 1), dt) for dt in ("float32", "bfloat16")]
+    + [("attention", (1, 16, LM_HQ, LM_HKV, LM_HD, 0), dt)
+       for dt in ("float32", "bfloat16")]
+    + [("rmsnorm", ((4, 2, 3, 64), 4), "float32"),
+       ("rmsnorm", ((10, 25, 8, 32), 10), "bfloat16"),
+       ("attention", (250, 8, 2, 2, 8, 0), "float32"),
+       ("attention", (250, 8, 2, 2, 16, 0), "float32")]
+    + [("attention", (2, 70, 4, 2, d, w), dt) for d in (16, 32, 128, 256)
+       for dt in ("float32", "bfloat16") for w in (0, 24)])
+# the backward timed at the shapes a step runs: the Qwen2-0.5B FedAvg step
+# (batch 4 x seq 128) and the track's FedAvg round (M.b1 = 250 rows)
+BACKWARD_TIMED = (
+    ("qwen rmsnorm", "rmsnorm", ((LM_B, LM_S, LM_DM), 1)),
+    ("qwen attention", "attention", (LM_B, LM_S, LM_HQ, LM_HKV, LM_HD, 0)),
+    ("track rmsnorm", "rmsnorm", ((10, 25, 8, 32), 10)),
+    ("track attention", "attention", (250, 8, 2, 2, 16, 0)))
+
+
+def check_backwards(torch, ops):
+    """Part (c)'s backward check over ``BACKWARD_CASES``, then the
+    backward's device time at ``BACKWARD_TIMED`` (float32). Returns {name:
+    ms}."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for kind, shape, dt in BACKWARD_CASES:
+        check_backward(torch, ops, kind, shape, getattr(torch, dt), gen)
+    times = {}
+    for name, kind, shape in BACKWARD_TIMED:
+        _, times[name] = check_backward(torch, ops, kind, shape,
+                                        torch.float32, gen, time_reps=20)
+    print(f"backward (plain recompute + autograd.grad): "
+          f"{len(BACKWARD_CASES)} cases bitwise the plain version's "
+          f"autograd on the card; device ms {json.dumps(times)}")
+    return times
+
+
+def run_qwen_fedavg_cli(torch, ops, bwd_ms, steps=3):
+    """Part (c): ``repro_torch.launch.train --algo fedavg --opt adam`` on
+    Qwen2-0.5B at full width in float32, batch 4 x seq 128, 3 steps: per
+    step one forward (2L + 1 RMSNorms and L attentions through the
+    kernels), the backward through the plain versions (no launch), one
+    Adam step. Prints ms per step, peak memory, the losses, and the
+    backward recompute's share of a step estimated from ``bwd_ms`` (its
+    device time at the step's shapes, times the calls a step makes).
+    Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_leaves
+
+    L = get_config("qwen2-0.5b").n_layers
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(rmsnorm=2 * L + 1, flash_attention=L)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", "qwen2-0.5b", "--override", "dtype=float32",
+                      "--algo", "fedavg", "--opt", "adam", "--steps",
+                      str(steps), "--batch", str(LM_B), "--seq", str(LM_S),
+                      "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prev = dict.fromkeys(ops.LAUNCHES, 0)
+    for i, cum in enumerate(res.launches):
+        per = {k: cum[k] - prev[k] for k in cum}
+        check(per == want, f"fedavg CLI step {i}: launches {per} != {want}")
+        prev = cum
+    check(all(map(math.isfinite, res.history)),
+          f"fedavg CLI: loss {res.history}")
+    leaves = tree_leaves(res.params)
+    check(all(bool(torch.isfinite(t).all()) and not t.requires_grad
+              for t in leaves), "fedavg CLI: parameters not finite or "
+          "still requiring a gradient")
+    steady = sorted(res.step_ms[1:]) or res.step_ms
+    med = steady[len(steady) // 2]
+    recompute = L * bwd_ms["qwen attention"] \
+        + (2 * L + 1) * bwd_ms["qwen rmsnorm"]
+    print(f"qwen2_0_5b_fedavg_adam_cli: ms/step "
+          f"{[round(t, 1) for t in res.step_ms]} (median after step 1 "
+          f"{med:.1f}); whole CLI {wall:.1f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB; loss {res.history}; launches per step "
+          f"{want}; backward recompute of RMSNorm and attention "
+          f"{recompute:.2f} ms of device time a step "
+          f"({recompute / med:.3f} of the step)")
+    return dict(res.launches[-1])
+
+
+def qwen_round_inputs(torch):
+    """Qwen2-0.5B in float32 from seed 0, the flat round's M x H batches of
+    4 x 128 tokens (as phase "qwen flat round") and the M client keys."""
+    import numpy as np
+    from repro_torch.utils import prng
+    model, toks = lm_setup("qwen2-0.5b", "float32")
+    params = model.init(prng.key(0), device="cuda")
+    rng = np.random.default_rng(1)
+    per = [lm_batch(torch, toks, rng, LM_B, LM_S, "cuda")
+           for _ in range(QWEN_M * QWEN_H)]
+    batches = {k: torch.stack([b[k] for b in per]).reshape(
+        (QWEN_M, QWEN_H, LM_B, LM_S)) for k in ("tokens", "labels")}
+    return model, params, batches
+
+
+def seed_ulps(torch, got, want):
+    """Largest |got - want| of each leaf in ulps of that leaf's largest
+    |weight|: the worst over the leaves."""
+    from repro_torch.utils.flatparams import _leaves
+    worst = 0.0
+    w = dict(_leaves(want))
+    for path, g in _leaves(got):
+        big = w[path].abs().max()
+        ulp = float(torch.nextafter(big, big + 1) - big)
+        worst = max(worst, float((g - w[path]).abs().max()) / ulp)
+    return worst
+
+
+def run_qwen_seed_round(torch, ops, FedZOConfig):
+    """Part (d): ``run_seed_compressed_round`` on Qwen2-0.5B, flat route, M
+    = 4, H = 2, b2 = 8, against a dense ``fedzo.round_simulated`` on the
+    same batches and keys. Both run the same cohort phase (the same
+    coefficients and updates); the dense round rounds each weight once per
+    iterate, the replay sums a client's updates first, and both round the
+    mean and the final add once: each weight within H + 2 ulps of its
+    leaf's largest weight (2.x ulps by that count; the CPU test reads 3 at
+    softmax size). The seed round's launches are the dense round's plus
+    the aggregate's: exactly 1 zo_dirnorms and M.H zo_replay. Wire bytes
+    M.(8 + 4.H.b2 + 4). Returns the launches of both rounds."""
+    from repro_torch.core import fedzo
+    from repro_torch.fed.server import run_seed_compressed_round
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_bytes
+
+    model, params, batches = qwen_round_inputs(torch)
+    L, m, h = model.cfg.n_layers, QWEN_M, QWEN_H
+    keys = prng.split(prng.key(1), m)
+    cfg = FedZOConfig(n_participating=m, local_iters=h, lr=1e-4, mu=1e-3,
+                      b2=QWEN_B2, estimator="sphere", flat_params=True)
+    counts, ms, out = {}, {}, {}
+    for name in ("dense", "seed"):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "dense":
+            out[name], _ = fedzo.round_simulated(model.loss, params, batches,
+                                                 keys, cfg)
+        else:
+            out[name], wire, dense_bytes = run_seed_compressed_round(
+                model.loss, params, batches, keys, cfg)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        counts[name] = dict(ops.LAUNCHES)
+        print(f"qwen seed round, {name}: ms {ms[name]:.1f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {counts[name]}")
+        torch.cuda.empty_cache()
+    want = round_launches(ops, cfg, 1, L=L)
+    check(counts["dense"] == want, f"qwen dense round: launches "
+          f"{counts['dense']} != {want}")
+    agg = {k: counts["seed"][k] - counts["dense"][k] for k in want}
+    want_agg = dict.fromkeys(ops.LAUNCHES, 0)
+    want_agg.update(zo_dirnorms=1, zo_replay=m * h)
+    check(agg == want_agg, f"qwen seed aggregate: launches {agg} != "
+          f"{want_agg}")
+    msg_bytes = 8 + 4 * h * cfg.b2 + 4
+    check(wire == m * msg_bytes, f"wire bytes {wire} != {m * msg_bytes}")
+    check(dense_bytes == m * tree_bytes(params), "dense bytes")
+    ulps = seed_ulps(torch, out["seed"], out["dense"])
+    check(ulps <= h + 2, f"qwen seed replay vs dense round: {ulps} ulps "
+          f"> {h + 2}")
+    print(f"qwen seed round: wire {wire} bytes for M = {m} "
+          f"({msg_bytes} a client), dense {dense_bytes} bytes: compression "
+          f"{dense_bytes / wire:.4e}x; replay vs dense round {ulps:.2f} "
+          f"ulps of each leaf's largest weight (limit {h + 2}); aggregate "
+          f"launches {agg}")
+    return {k: counts["dense"][k] + counts["seed"][k] for k in want}
+
+
+def run_qwen_fedprox_round(torch, ops, FedZOConfig):
+    """Part (e): one ZO-FedProx flat round on Qwen2-0.5B (prox_mu 0.01; M =
+    4, H = 2, b2 = 8, the flat round's batches) through the strategy's
+    ``run_round``: ms, peak memory, and launches equal to the fedzo
+    round's (the proximal term is tree ops over the cohort's rows).
+    Returns the launches."""
+    from repro_torch.core import strategy
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves
+
+    model, params, batches = qwen_round_inputs(torch)
+    cfg = FedZOConfig(n_participating=QWEN_M, local_iters=QWEN_H, lr=1e-4,
+                      mu=1e-3, b2=QWEN_B2, estimator="sphere",
+                      flat_params=True, strategy="fedprox", prox_mu=0.01)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, met, _, _ = strategy.get("fedprox").run_round(
+        model.loss, params, batches, prng.key(1), cfg)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = dict(ops.LAUNCHES)
+    want = round_launches(ops, cfg, 1, L=model.cfg.n_layers)
+    check(counts == want, f"qwen fedprox round: launches {counts} != "
+          f"{want}")
+    mets = {k: float(v) for k, v in met.items()}
+    check(all(map(math.isfinite, mets.values())), f"qwen fedprox {mets}")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+          "qwen fedprox round: parameters not finite")
+    print(f"qwen fedprox round: M {QWEN_M}, H {QWEN_H}, b2 {QWEN_B2}: "
+          f"ms/round {ms:.1f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; metrics "
+          f"{json.dumps(mets)}; launches {counts} (the fedzo round's)")
+    return counts
+
+
+LEDGER_COLUMNS = ("wire_bytes", "dense_bytes", "downlink_bytes",
+                  "wire_bytes_total", "downlink_bytes_total",
+                  "compression_ratio")
+
+
+def run_fedserver(torch, ops, neural, FedZOConfig):
+    """Part (f): ``FedServer`` on the card, softmax 784x10 on 50 clients,
+    flat route, 2 rounds: the host loop with fedzo and fedavg (numpy
+    sampling, batches moved to the card), the store path with all five
+    strategies (``run``: the engine's round loop). Exact launch counts,
+    finite rows numbered 0 and 1 with the ledger's columns. Returns the
+    launches."""
+    from repro_torch.fed.server import FedServer
+    softmax = neural.make_task("softmax", n_features=784, n_classes=10,
+                               n_clients=50)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    runs = [("host", "fedzo"), ("host", "fedavg")] + [
+        ("store", s) for s in ("fedzo", "fedavg", "fedprox", "feddyn",
+                               "scaffold")]
+    for driver, name in runs:
+        kw = dict(flat_params=True, weight_by_size=True, prox_mu=0.01,
+                  dyn_alpha=0.01, lr=0.05 if name == "fedavg" else 1e-3)
+        cfg = FedZOConfig(**kw)
+        srv = FedServer(softmax.loss, neural.params_init(softmax, 0),
+                        softmax.clients, cfg, strategy=name,
+                        store=softmax.store if driver == "store" else None)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = srv.run(2)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 2
+        counts = dict(ops.LAUNCHES)
+        want = (fedavg_launches(ops, cfg, 2) if name == "fedavg"
+                else round_launches(ops, cfg, 2, 2))
+        check(counts == want, f"FedServer {driver} {name}: launches "
+              f"{counts} != {want}")
+        check([r["round"] for r in hist] == [0, 1],
+              f"FedServer {driver} {name}: rows {hist}")
+        for r in hist:
+            check(all(c in r for c in LEDGER_COLUMNS),
+                  f"FedServer {driver} {name}: ledger columns missing {r}")
+            check(all(math.isfinite(v) for v in r.values()
+                      if isinstance(v, float)),
+                  f"FedServer {driver} {name}: row not finite {r}")
+        print(f"FedServer {driver} {name}: {ms:.1f} ms/round; losses "
+              f"{[round(r['mean_local_loss'], 5) for r in hist]}; wire "
+              f"{hist[-1]['wire_bytes']} bytes/round; launches {counts}")
+        for k in total:
+            total[k] += counts[k]
+    return total
+
+
+def check_strategy_small_reference(torch, ops, neural, FedZOConfig, name):
+    """Phase "algorithms and uplinks": one round of the transformer track
+    at its test size (head dim 8) on the card and on the CPU, under
+    fedprox (flat route), scaffold (wide route) or fedavg; exact launch
+    counts on the card. ZO rounds within the trajectory tolerance 1e-3
+    (``check_track_small_reference``); FedAvg within 1e-5: its gradients
+    agree to float32 reordering (the card's forward kernels within 1e-5
+    relative of the plain versions) and lr.H = 0.04 scales them down."""
+    from repro_torch.utils.tree import tree_leaves
+    over = {"fedprox": dict(flat_params=True, flat_block_rows=4,
+                            strategy="fedprox", prox_mu=0.1),
+            "scaffold": dict(batch_directions=True, direction_conv="block",
+                             strategy="scaffold"),
+            "fedavg": dict(strategy="fedavg")}
+    cfg = FedZOConfig(n_devices=6, n_participating=3, local_iters=2, b1=6,
+                      b2=3, lr=2e-2, mu=1e-3, seed=7, **over[name])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = neural.make_task("transformer", device=dev, **TRACK_SMALL)
+        ops.reset_launches()
+        res = neural.run(task, cfg, 1, eval_every=0)
+        if dev == "cuda":
+            want = (fedavg_launches(ops, cfg, 1, CLS_LAYERS)
+                    if name == "fedavg" else
+                    round_launches(ops, cfg, 1, CLS_LEAVES, CLS_LAYERS))
+            check(dict(ops.LAUNCHES) == want, f"transformer {name}: "
+                  f"launches {dict(ops.LAUNCHES)} != {want}")
+        out[dev] = [t.cpu() for t in tree_leaves(res.params)]
+    worst = max(float((a - b).abs().max()) for a, b in zip(*out.values()))
+    limit = 1e-5 if name == "fedavg" else 1e-3
+    check(worst <= limit, f"transformer {name} card vs CPU: max |diff| "
+          f"{worst} > {limit}")
+    print(f"small reference (transformer track at its test size, {name}, "
+          f"1 round): card vs CPU max |diff| {worst:.3e} (limit {limit})")
+
+
+def run_algorithms(torch, ops, neural, FedZOConfig):
+    """Phase "algorithms and uplinks", parts (a)-(f) and the card-against-
+    CPU references. Prints each part's seconds and peak memory; returns
+    {kernel: launches} of its counted runs."""
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    bwd = {}
+
+    def part(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got = fn()
+        print(f"part {name}: {time.perf_counter() - t:.1f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+        return got
+
+    for name, fn in (
+            ("strategy rounds", lambda: run_strategy_rounds(
+                torch, ops, neural, FedZOConfig)),
+            ("backward checks", lambda: bwd.update(check_backwards(
+                torch, ops)) or {}),
+            ("qwen fedavg cli", lambda: run_qwen_fedavg_cli(torch, ops,
+                                                            bwd)),
+            ("qwen seed round", lambda: run_qwen_seed_round(
+                torch, ops, FedZOConfig)),
+            ("qwen fedprox round", lambda: run_qwen_fedprox_round(
+                torch, ops, FedZOConfig)),
+            ("fedserver", lambda: run_fedserver(torch, ops, neural,
+                                                FedZOConfig))):
+        for k, n in part(name, fn).items():
+            total[k] += n
+    part("references", lambda: [check_strategy_small_reference(
+        torch, ops, neural, FedZOConfig, s)
+        for s in ("fedprox", "scaffold", "fedavg")])
+    return total
+
+
 def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
@@ -1955,6 +2511,9 @@ def main(argv):
         *(check_track_small_reference(torch, ops, neural, FedZOConfig, route)
           for route in ("flat", "pytree", "pytree bf16 sphere",
                         "pytree bf16 gaussian", "wide"))))
+    for k, n in timed("algorithms and uplinks", lambda: run_algorithms(
+            torch, ops, neural, FedZOConfig)).items():
+        launches[k] += n
     if args.profile:
         timed("profiles", lambda: (
             profile_round(torch, neural, FedZOConfig, args.profile),

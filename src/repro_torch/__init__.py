@@ -6,7 +6,12 @@ Sec. IV) on the card on both of the reference's routes, the pytree route
 (its default) and the flat-buffer route, for the paper's models and the
 dense LM family, through eight hand-written CUDA kernels
 (``repro_torch.kernels``), with the training CLI ``repro_torch.launch.train``.
-It never imports ``jax`` or ``repro``.
+The algorithm layer sits on top: the strategy registry (FedZO, FedAvg,
+ZO-FedProx, ZO-FedDyn, ZO-SCAFFOLD; ``core/strategy.py``), first-order
+FedAvg with SGD or Adam (``core/fedavg.py``, ``optim/sgd.py``), the
+seed-compressed uplink (``core/seedcomm.py``), the ZO baselines and the
+``FedServer`` API (``fed/server.py``). It never imports ``jax`` or
+``repro``.
 
 Randomness follows jax's raw Threefry-2x32 key chain
 (``repro_torch.utils.prng``), so a run from a seed draws the same clients,

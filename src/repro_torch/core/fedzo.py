@@ -37,9 +37,13 @@ iterate on one client on either route; on the flat route it is a row of
 the batched iterate. ``jax.grad`` has no counterpart here: FedZO is
 forward-only.
 
-Routes the port does not have yet raise ``NotImplementedError``:
-seed-compressed uplinks, faults, the wireless channel model, and the
-strategy hooks (client state, loss wraps, state functions).
+``round_simulated`` takes the strategy hooks of ``core/strategy.py`` on
+every route (client state, loss wraps, delta corrections), and a
+``delta_compression="seed"`` config runs the same dense round, as in the
+reference (the seed-compressed uplink itself is
+``fed/server.run_seed_compressed_round``, ``core/seedcomm.py``). Routes the
+port does not have yet raise ``NotImplementedError``: faults and the
+wireless channel model.
 """
 from __future__ import annotations
 
@@ -55,8 +59,8 @@ from repro_torch.core.aircomp import (aircomp_aggregate,
                                       schedule_by_channel)
 from repro_torch.kernels.zo_axpy import LANES
 from repro_torch.utils import prng
-from repro_torch.utils.flatparams import (flat_geometry, flat_spec, flatten,
-                                          unflatten)
+from repro_torch.utils.flatparams import (_leaves, flat_geometry, flat_spec,
+                                          flatten, unflatten)
 from repro_torch.utils.tree import (tree_add, tree_map, tree_scale,
                                     tree_stack, tree_sub)
 
@@ -75,8 +79,6 @@ def _check_iterate(cfg: FedZOConfig):
     any ``direction_conv`` other than ``counter`` as ``tree``)."""
     if cfg.channel_model is not None:
         raise NotImplementedError("the wireless channel model is not ported")
-    if cfg.delta_compression != "dense":
-        raise NotImplementedError("seed-compressed uplinks are not ported")
     if cfg.flat_params:
         estimator._counter_kind(cfg.estimator)
 
@@ -95,33 +97,43 @@ def check_route(cfg: FedZOConfig):
 
 
 def batched_loss(loss_fn):
-    """Map a one-client ``loss(params, batch)`` over a leading client axis
-    of both the parameter dict and the batch: returns ``[M]`` losses.
+    """Map a one-client ``loss(params, batch)`` over a cohort: parameter
+    leaves ``[M·r, ...]`` against batch leaves ``[M, ...]`` give ``[M·r]``
+    losses, row m·r + j client m's copy j on client m's batch (r = 1: one
+    row a client).
 
     A loss that carries its client-batched form as ``loss_fn.batched`` (the
-    dense LM's, ``models/api.py``) runs through it: one kernel launch per
-    RMSNorm and attention for the whole cohort. Any other loss goes
-    through ``torch.func.vmap``, which cannot trace a kernel launch (a
-    vmapped tensor has no storage to hand the kernel) and serves the losses
-    that launch none (softmax, CNN)."""
-    return getattr(loss_fn, "batched", None) or torch.func.vmap(loss_fn)
+    dense LM's, ``models/api.py``; the transformer track's) runs through
+    it: one kernel launch per RMSNorm and attention for the whole cohort,
+    and the batch is not copied r times. Any other loss goes through
+    ``torch.func.vmap`` (two levels when r > 1, the inner one sharing the
+    client's batch), which cannot trace a kernel launch (a vmapped tensor
+    has no storage to hand the kernel) and serves the losses that launch
+    none (softmax, CNN)."""
+    fn = getattr(loss_fn, "batched", None)
+    if fn is not None:
+        return fn
+
+    def cohort(params, batch):
+        mr = _leaves(params)[0][1].shape[0]
+        m = _leaves(batch)[0][1].shape[0]
+        if mr == m:
+            return torch.func.vmap(loss_fn)(params, batch)
+        inner = torch.func.vmap(loss_fn, in_dims=(0, None))
+        return torch.func.vmap(inner)(
+            tree_map(lambda v: v.reshape((m, mr // m) + v.shape[1:]),
+                     params), batch).reshape(mr)
+
+    return cohort
 
 
 def _wide_losses(loss_fn, xp, spec, batch):
     """``[M, r]`` losses of the r points ``xp`` ``[M, r, n_pad]`` of each of
-    M clients, client m's on its own batch (leaves ``[M, ...]``).
-
-    A loss with a client-batched form runs the M·r points as one cohort:
-    ``loss_fn.batched`` takes parameter leaves ``[M·r, ...]`` against the
-    ``[M, ...]`` batch, each batch row serving r consecutive parameter rows
-    (the batch is not copied r times). Any other loss goes through two
-    ``torch.func.vmap`` levels, the inner one sharing the client's batch."""
+    M clients, client m's on its own batch (leaves ``[M, ...]``): the M·r
+    points as one cohort of ``batched_loss``."""
     M, r = xp.shape[:2]
-    fn = getattr(loss_fn, "batched", None)
-    if fn is not None:
-        return fn(unflatten(xp.reshape(M * r, -1), spec), batch).reshape(M, r)
-    inner = torch.func.vmap(loss_fn, in_dims=(0, None))
-    return torch.func.vmap(inner)(unflatten(xp, spec), batch)
+    return batched_loss(loss_fn)(unflatten(xp.reshape(M * r, -1), spec),
+                                 batch).reshape(M, r)
 
 
 def flat_local_iterate(loss_fn, buf, spec, batch, keys, cfg: FedZOConfig,
@@ -337,6 +349,79 @@ def client_delta(loss_fn, params, batches, rng, cfg) -> tuple:
     return tree_sub(res.params, params), res
 
 
+class CohortResult(NamedTuple):
+    deltas: object         # [M, n_pad] (flat, wide) or a stacked tree
+    coeffs: torch.Tensor   # [M, H, b2] estimator coefficients
+    losses: torch.Tensor   # [M, H] base losses
+    spec: object           # the flat geometry (None on the pytree route)
+    block_rows: object
+
+
+def _wrapped(loss_fn, loss_wrap, cst):
+    """The cohort's loss under a strategy's wrap on the flat and wide
+    routes: ``loss_wrap`` is called once with the cohort's ``[M, ...]``
+    state, and its loss must carry ``.batched`` (the cohort loss plus the
+    per-row regularizers): the round never maps a wrapped loss with
+    ``torch.func.vmap``, which cannot trace a kernel launch."""
+    if loss_wrap is None:
+        return loss_fn
+    lf = loss_wrap(loss_fn, cst)
+    if getattr(lf, "batched", None) is None:
+        raise ValueError(
+            "on the flat and wide routes loss_wrap(loss_fn, cstate) is "
+            "called once with the cohort's [M, ...] state and must return "
+            "a loss carrying its client-batched form as .batched")
+    return lf
+
+
+def cohort_phase(loss_fn, server_params, client_batches, client_rngs,
+                 cfg: FedZOConfig, *, cstate=None, loss_wrap=None
+                 ) -> CohortResult:
+    """The local phases of the M sampled clients, all from
+    ``server_params``: client i runs H iterates with key
+    ``split(client_rngs[i], H)[h]`` on its batches ``client_batches[i]``.
+
+    On the flat and wide routes the cohort runs side by side on one ``[M,
+    n_pad]`` buffer, and the deltas come back as that matrix; on the pytree
+    route the clients run one after another and the deltas come back as a
+    stacked ``[M, ...]`` tree. ``loss_wrap`` (a strategy's hook) wraps the
+    loss: per client with its row of ``cstate`` on the pytree route, once
+    for the cohort with the whole ``cstate`` on the others (``_wrapped``).
+    """
+    check_route(cfg)
+    M = client_rngs.shape[0]
+    if cfg.flat_params or cfg.batch_directions:
+        lf = _wrapped(loss_fn, loss_wrap, cstate)
+        spec, br = (_wide_setup(server_params, cfg) if cfg.batch_directions
+                    else flat_geometry(server_params, cfg.flat_block_rows))
+        buf0 = flatten(server_params, spec)
+        bufs = buf0.expand(M, spec.n_pad).contiguous()
+        keys = prng.split(client_rngs, cfg.local_iters)  # [M, H, 2]
+        if cfg.batch_directions:
+            buf, coeffs, losses = _wide_phase_scan(
+                lf, bufs, spec, keys, client_batches, cfg,
+                like=server_params)
+        else:
+            buf, coeffs, losses = _flat_phase_scan(
+                batched_loss(lf), bufs, spec, br, keys.to(buf0.device),
+                client_batches, cfg)
+        return CohortResult(buf - buf0, coeffs, losses, spec, br)
+    deltas, coeffs, losses = [], [], []
+    for i in range(M):
+        lf = loss_fn
+        if loss_wrap is not None:
+            lf = loss_wrap(loss_fn, None if cstate is None
+                           else tree_map(lambda v: v[i], cstate))
+        delta, res = client_delta(
+            lf, server_params, tree_map(lambda v: v[i], client_batches),
+            client_rngs[i], cfg)
+        deltas.append(delta)
+        coeffs.append(res.coeffs)
+        losses.append(res.losses)
+    return CohortResult(tree_stack(deltas), torch.stack(coeffs),
+                        torch.stack(losses), None, None)
+
+
 def round_simulated(loss_fn, server_params, client_batches, client_rngs,
                     cfg: FedZOConfig, *, channel_rng=None, momentum=None,
                     weights=None, faults=None, channel=None, cstate=None,
@@ -349,22 +434,36 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
     raw keys and ``channel_rng`` a raw key (both CPU). ``weights`` ``[M]``:
     mean-1 size weights. ``momentum`` a tree like the parameters (with
     ``cfg.server_momentum > 0``). Returns (new_params, metrics[,
-    new_momentum]).
+    new_momentum][, new_cstate]).
 
     The aggregation follows the reference on every route: AirComp (Eq. 17)
     when ``cfg.aircomp``; else the masked (channel scheduling) and/or
     size-weighted mean; else the plain mean, which the pytree route takes
     as ``(1/M)·Σ_i Δ_i``.
+
+    Strategy hooks (``core/strategy.py``), all None by default, when every
+    route is the plain FedZO round:
+
+    - ``cstate``: the cohort's ``[M, ...]`` strategy state (SCAFFOLD
+      controls, FedDyn duals); the updated state is appended to the
+      returned tuple whenever it is passed.
+    - ``loss_wrap(loss_fn, cst) -> loss_fn'`` wraps the ZO loss query:
+      per client with ``cst`` its row on the pytree route; once with the
+      cohort's ``cstate`` on the flat and wide routes, where the wrapped
+      loss must carry ``.batched`` (``cohort_phase``).
+    - ``state_fn(deltas, cstate, spec) -> (deltas', cstate')``: the
+      client-side delta correction before the aggregation, on the ``[M,
+      n_pad]`` matrix (``spec`` set) or the stacked delta tree (``spec``
+      None).
     """
-    for name, hook in (("faults", faults), ("channel", channel),
-                       ("cstate", cstate), ("loss_wrap", loss_wrap),
-                       ("state_fn", state_fn)):
+    for name, hook in (("faults", faults), ("channel", channel)):
         if hook is not None:
             raise NotImplementedError(f"round_simulated({name}=...) is not "
                                       f"ported")
     check_route(cfg)
     M = client_rngs.shape[0]
     dev = estimator._device(server_params)
+    new_cstate = cstate
     mask = None
     noise_rng = channel_rng
     air_stats = {}
@@ -374,26 +473,18 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
         _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
         mask = mask.to(dev)
 
-    if cfg.flat_params or cfg.batch_directions:
-        spec, br = (_wide_setup(server_params, cfg) if cfg.batch_directions
-                    else flat_geometry(server_params, cfg.flat_block_rows))
-        buf0 = flatten(server_params, spec)
-        bufs = buf0.expand(M, spec.n_pad).contiguous()
-        keys = prng.split(client_rngs, cfg.local_iters)  # [M, H, 2]
-        if cfg.batch_directions:
-            buf, _, losses = _wide_phase_scan(loss_fn, bufs, spec, keys,
-                                              client_batches, cfg,
-                                              like=server_params)
-        else:
-            buf, _, losses = _flat_phase_scan(
-                batched_loss(loss_fn), bufs, spec, br, keys.to(dev),
-                client_batches, cfg)
-        deltas = buf - buf0
+    res = cohort_phase(loss_fn, server_params, client_batches, client_rngs,
+                       cfg, cstate=cstate, loss_wrap=loss_wrap)
+    deltas, losses, spec = res.deltas, res.losses, res.spec
+    if state_fn is not None:
+        deltas, new_cstate = state_fn(deltas, cstate, spec)
 
+    if spec is not None:
         if cfg.aircomp and channel_rng is not None:
             agg_flat, air_stats = aircomp_aggregate_flat(
                 deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min,
-                d=spec.d, mask=mask, weights=weights, block_rows=br)
+                d=spec.d, mask=mask, weights=weights,
+                block_rows=res.block_rows)
         elif mask is not None or weights is not None:
             maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
             agg_flat = torch.einsum("mn,m->n", deltas, maskf) / m_div
@@ -401,30 +492,19 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
         else:
             agg_flat = torch.mean(deltas, dim=0)
         agg = unflatten(agg_flat, spec)
+    elif cfg.aircomp and channel_rng is not None:
+        agg, air_stats = aircomp_aggregate(
+            deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min,
+            mask=mask, weights=weights)
+    elif mask is not None or weights is not None:
+        maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
+        agg = tree_map(
+            lambda x: (torch.einsum("m...,m->...", x.to(torch.float32),
+                                    maskf) / m_div).to(x.dtype), deltas)
+        air_stats = {"m_effective": m_sched}
     else:
-        deltas, losses = [], []
-        for i in range(M):
-            delta, res = client_delta(
-                loss_fn, server_params,
-                tree_map(lambda v: v[i], client_batches), client_rngs[i],
-                cfg)
-            deltas.append(delta)
-            losses.append(res.losses)
-        deltas, losses = tree_stack(deltas), torch.stack(losses)
-
-        if cfg.aircomp and channel_rng is not None:
-            agg, air_stats = aircomp_aggregate(
-                deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min,
-                mask=mask, weights=weights)
-        elif mask is not None or weights is not None:
-            maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
-            agg = tree_map(
-                lambda x: (torch.einsum("m...,m->...", x.to(torch.float32),
-                                        maskf) / m_div).to(x.dtype), deltas)
-            air_stats = {"m_effective": m_sched}
-        else:
-            agg = tree_scale(1.0 / M,
-                             tree_map(lambda x: torch.sum(x, 0), deltas))
+        agg = tree_scale(1.0 / M,
+                         tree_map(lambda x: torch.sum(x, 0), deltas))
 
     if momentum is not None and cfg.server_momentum > 0:
         momentum = tree_map(
@@ -434,6 +514,9 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
     new_params = tree_add(server_params, agg)
     metrics = {"mean_local_loss": torch.mean(losses),
                "first_loss": torch.mean(losses[:, 0]), **air_stats}
+    out = (new_params, metrics)
     if momentum is not None:
-        return new_params, metrics, momentum
-    return new_params, metrics
+        out = out + (momentum,)
+    if cstate is not None:
+        out = out + (new_cstate,)
+    return out

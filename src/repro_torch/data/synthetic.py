@@ -9,8 +9,9 @@ preserves the *shape of the problem*: class-conditional Gaussian images
 (classes are linearly separable enough for softmax regression to train,
 like F-MNIST), optionally squashed to [0, 1] pixels for the image track.
 The classification generators and partitioners and the LM corpus
-(``lm_token_stream``, ``lm_batches``: the cross-silo train step's data) are
-copied; the reference's host minibatch sampler is not on the port's path.
+(``lm_token_stream``, ``lm_batches``: the cross-silo train step's data) and
+the host minibatch sampler of ``FedServer``'s host loop
+(``sample_local_batches``) are copied.
 
 Non-iid split (Sec. V-B, following McMahan et al.): sort by label, cut into
 2·N shards, deal 2 shards per client → each client sees ≤ 4 distinct labels
@@ -166,6 +167,13 @@ def federated_classification(n_train, n_test, n_clients, *, n_features=784,
         raise ValueError(f"unknown partition {partition!r}; use dirichlet | "
                          f"shards | iid | uneven")
     return clients, {"x": x[n_train:], "y": y[n_train:]}
+
+
+def sample_local_batches(client, rng: np.random.Generator, h, b1):
+    """Pre-sample H minibatches of size b1 for one client round -> stacked."""
+    n = len(client["y"])
+    idx = rng.integers(0, n, size=(h, b1))
+    return {"x": client["x"][idx], "y": client["y"][idx]}
 
 
 def lm_token_stream(n_tokens, vocab, seed=0, order=3):

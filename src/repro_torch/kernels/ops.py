@@ -16,6 +16,16 @@ its main path went through the kernels.
 
 Kernels launch on PyTorch's current stream and do not synchronise; outputs
 and scratch are allocated here with ``torch.empty``.
+
+``rmsnorm`` and ``attention`` are differentiable on both devices. No kernel
+has a backward (nor has the reference: ``jax.grad`` differentiates its jnp
+math), and a launch's output carries no ``grad_fn``; so when autograd is
+on and an input requires a gradient, the call goes through an
+``autograd.Function`` whose forward is the same dispatch (the kernel on
+the card, counted, or the plain version on the CPU) and which saves only
+its inputs; its backward recomputes the plain version from them under
+``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it. Calls
+that need no gradient (every ZO path) take the direct dispatch.
 """
 from __future__ import annotations
 
@@ -279,7 +289,7 @@ def aircomp_reduce(deltas, scale, d, *, block_rows=None):
     return mean, sq
 
 
-def rmsnorm(x, scale, *, eps=1e-6):
+def _rmsnorm(x, scale, eps):
     """RMSNorm over the last dim of x ``[..., D]``: ``x · rsqrt(mean(x²) +
     eps) · scale`` in float32, returned in x's dtype. x and scale float32 or
     bfloat16. ``scale`` is ``[D]``, or ``[G, D]`` (any row stride) for G
@@ -312,7 +322,7 @@ def rmsnorm(x, scale, *, eps=1e-6):
     return out
 
 
-def attention(q, k, v, *, causal=True, window=0, scale=None):
+def _attention(q, k, v, causal, window, scale):
     """Flash attention on the reference wrapper's layout: q ``[B, Sq, Hq,
     D]``, k/v ``[B, Sk, Hkv, D]`` -> ``[B, Sq, Hq, D]`` in q's dtype.
 
@@ -353,3 +363,77 @@ def attention(q, k, v, *, causal=True, window=0, scale=None):
         _stream()), "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _plain_grads(ctx, fn, grad_out):
+    """Gradients of the plain version ``fn`` at the saved inputs: the
+    forward recomputed under autograd, then ``autograd.grad`` of it against
+    ``grad_out``, for the inputs that need one (None for the others)."""
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(saved, ctx.needs_input_grad)]
+        out = fn(*ins)
+        want = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(out, want, grad_out))
+    return tuple(next(got) if t.requires_grad else None for t in ins)
+
+
+class _RMSNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(x, scale, eps):
+        return _rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, ctx.eps = inputs
+        ctx.save_for_backward(x, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_grads(
+            ctx, lambda x, s: rmsnorm_plain(x, s, eps=ctx.eps), g) + (None,)
+
+
+class _AttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, causal, window, scale):
+        return _attention(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_grads(
+            ctx, lambda q, k, v: flash_attention_plain(q, k, v, **ctx.kw),
+            g) + (None, None, None)
+
+
+def rmsnorm(x, scale, *, eps=1e-6):
+    """RMSNorm over the last dim of x ``[..., D]``: ``x · rsqrt(mean(x²) +
+    eps) · scale`` in float32, returned in x's dtype (the ``rmsnorm``
+    kernel on the card). ``scale`` is ``[D]``, or ``[G, D]`` for G equal
+    contiguous groups of x's rows. Differentiable in x and scale (the
+    plain version's gradient, recomputed in the backward)."""
+    if _wants_grad(x, scale):
+        return _RMSNormFn.apply(x, scale, eps)
+    return _rmsnorm(x, scale, eps)
+
+
+def attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Flash attention on the reference wrapper's layout (the
+    ``flash_attention`` kernel on the card): q ``[B, Sq, Hq, D]``, k/v
+    ``[B, Sk, Hkv, D]`` -> ``[B, Sq, Hq, D]`` in q's dtype. Differentiable
+    in q, k and v (the plain version's gradient, recomputed in the
+    backward)."""
+    if _wants_grad(q, k, v):
+        return _AttentionFn.apply(q, k, v, causal, window, scale)
+    return _attention(q, k, v, causal, window, scale)

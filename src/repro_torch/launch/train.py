@@ -5,15 +5,22 @@
 
 Counterpart of ``repro/launch/train.py``: the same flags and defaults, the
 same printed lines, the same key chain and synthetic LM stream, and with
-``--out`` the same ``history.json`` and ``final/`` checkpoint (the format
-both packages read, ``checkpoint/checkpoint.py``). FedZO runs one local
-iterate per step on the reference's default route, the pytree estimator
-(``FedZOConfig()``'s ``flat_params=False``, ``direction_conv="tree"``),
-whose every perturbation and update is a ``zo_axpy`` launch per leaf.
+``--out`` the same ``history.json`` (with ``algo``) and ``final/``
+checkpoint (the format both packages read, ``checkpoint/checkpoint.py``).
+
+- ``--algo fedzo`` (default, lr 1e-4) runs one local iterate per step on
+  the reference's default route, the pytree estimator (``FedZOConfig()``'s
+  ``flat_params=False``, ``direction_conv="tree"``), whose every
+  perturbation and update is a ``zo_axpy`` launch per leaf. ``--opt`` is
+  ignored, as in the reference.
+- ``--algo fedavg`` (default lr 1e-3) takes one first-order step: the
+  loss and its gradient by autograd (RMSNorm and attention run their
+  kernels forward and differentiate through their plain versions,
+  ``kernels/ops.py``), then ``sgd_apply`` (``--opt sgd``, the reference's
+  ``fedavg.make_train_step``) or ``adam_apply`` (``--opt adam``).
 
 ``--device`` (default ``cuda``; the CPU only when asked) is the port's
-addition. ``--algo fedavg`` and ``--opt adam`` (first-order training) are
-not ported and raise.
+addition.
 """
 from __future__ import annotations
 
@@ -30,10 +37,11 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint.checkpoint import restore, save
 from repro_torch.configs import get_config
 from repro_torch.configs.base import FedZOConfig
-from repro_torch.core import fedzo
+from repro_torch.core import fedavg, fedzo
 from repro_torch.data.synthetic import lm_batches, lm_token_stream
 from repro_torch.kernels import ops
 from repro_torch.models.api import build
+from repro_torch.optim.sgd import adam_apply, adam_init
 from repro_torch.utils import prng
 from repro_torch.utils.tree import tree_size
 
@@ -93,17 +101,13 @@ def _sync(dev):
 
 def main(argv=None) -> TrainResult:
     args = _parser().parse_args(argv)
-    if args.algo != "fedzo" or args.opt != "sgd":
-        raise NotImplementedError(
-            f"--algo {args.algo} --opt {args.opt}: first-order training "
-            f"(fedavg, adam) is not ported (ROADMAP.md section A, still to "
-            f"port item 4); run --algo fedzo")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.override:
         cfg = _overridden(cfg, args.override)
     model = build(cfg)
-    lr = args.lr if args.lr is not None else 1e-4
+    lr = args.lr if args.lr is not None else (1e-4 if args.algo == "fedzo"
+                                              else 1e-3)
     fcfg = FedZOConfig(lr=lr, mu=args.mu, b2=args.b2,
                        estimator=args.estimator, seed=args.seed)
 
@@ -116,7 +120,20 @@ def main(argv=None) -> TrainResult:
         params, start = restore(args.resume, params)
         print(f"resumed from {args.resume} @ step {start}")
 
-    step_fn = fedzo.make_train_step(model.loss, fcfg)
+    opt_state = None
+    if args.algo == "fedzo":
+        step_fn = fedzo.make_train_step(model.loss, fcfg)
+    elif args.opt == "adam":
+        opt_state = adam_init(params)
+
+        def step_fn(p, batch, rng):
+            nonlocal opt_state
+            del rng
+            loss, g = fedavg.value_and_grad(model.loss, p, batch)
+            p, opt_state = adam_apply(p, g, opt_state, lr=lr)
+            return p, {"loss": loss}
+    else:
+        step_fn = fedavg.make_train_step(model.loss, fcfg)
     toks = make_lm_data(cfg, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     key = prng.key(args.seed + 1)

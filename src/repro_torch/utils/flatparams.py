@@ -89,6 +89,18 @@ def flatten(params, spec: FlatSpec) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def flatten_stacked(params, spec: FlatSpec) -> torch.Tensor:
+    """Stacked dict (leaves ``[M, *shape]``) -> float32 ``[M, n_pad]``
+    buffer, row m the ``flatten`` of the tree's row m (the reference's
+    ``jax.vmap(flatten)``)."""
+    parts = [l.reshape(l.shape[0], -1).to(torch.float32)
+             for _, l in _leaves(params)]
+    pad = spec.n_pad - spec.d
+    if pad:
+        parts.append(parts[0].new_zeros((parts[0].shape[0], pad)))
+    return torch.cat(parts, dim=1)
+
+
 def unflatten(buf: torch.Tensor, spec: FlatSpec) -> dict:
     """``[..., >= d]`` buffer -> (nested) dict of ``[..., *shape]`` views,
     cast back to the leaf dtypes."""

@@ -60,6 +60,13 @@ def tree_axpy(a, x_tree, y_tree):
     return tree_map(lambda x, y: kops.axpy(y, x, a), x_tree, y_tree)
 
 
+def tree_axpy_plain(a, x_tree, y_tree):
+    """y + a·x leafwise in plain torch ops (no kernel), each leaf cast back
+    to y's dtype: the reference's ``tree_axpy`` arithmetic, for the
+    first-order updates (FedAvg's SGD step, the optimizers)."""
+    return tree_map(lambda x, y: (y + a * x).to(y.dtype), x_tree, y_tree)
+
+
 def tree_add(x_tree, y_tree):
     return tree_map(torch.add, x_tree, y_tree)
 

@@ -17,7 +17,10 @@ bitwise their summation order's torch twin; attention at every head dim
 it builds (8 in float32, 16 to 256), and over more batch rows than grid.z
 holds. The client-batched LM and classifier losses against each client's
 own loss; bfloat16 normals bitwise the CPU's, and the transformer track's
-rounds (also with bfloat16 directions) within 1e-3 of the CPU's.
+rounds (also with bfloat16 directions) within 1e-3 of the CPU's. The
+autograd wrappers of RMSNorm and attention (their backward bitwise the
+plain version's autograd), strategy and FedAvg rounds against the CPU, and
+the seed aggregate's launch counts.
 ``chip_smoke.py`` repeats these at the main path's full shapes and times
 them.
 """
@@ -666,3 +669,75 @@ def test_batched_classifier_loss_on_card_matches_each_client(gen):
                             for i in range(m * reps)])
         ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
         assert float(((got - each).abs() / ulp).max()) <= 4
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.BACKWARD_CASES)))
+def test_autograd_backward_on_card(gen, case):
+    """``ops.rmsnorm`` and ``ops.attention`` with inputs that require a
+    gradient on the card: the forward is the kernel (one launch, bitwise
+    its direct call), the gradients (the backward recomputes the plain
+    version) bitwise autograd of the plain version on the same tensors, in
+    float32 and bfloat16, with a ``[G, D]`` scale, at head dims 8 to 256
+    (``chip_smoke.check_backward``)."""
+    kind, shape, dt = chip_smoke.BACKWARD_CASES[case]
+    chip_smoke.check_backward(torch, ops, kind, shape, getattr(torch, dt),
+                              gen)
+
+
+@pytest.mark.parametrize("name", ["fedprox", "scaffold", "fedavg"])
+def test_strategy_rounds_on_card_match_the_cpu(gen, name):
+    """One round of the transformer track at its test size under fedprox
+    (flat), scaffold (wide) and fedavg on the card and on the CPU: exact
+    launch counts, the weights within 1e-3 (ZO) or 1e-5 (FedAvg, whose
+    gradient flows through the kernels' autograd wrappers)
+    (``chip_smoke.check_strategy_small_reference``)."""
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.workloads import neural
+
+    chip_smoke.check_strategy_small_reference(torch, ops, neural,
+                                              FedZOConfig, name)
+
+
+def test_fedavg_gradient_on_card_matches_the_cpu(gen):
+    """One client's FedAvg gradient of the transformer track at its
+    default width on the card against the CPU's, every leaf within 1e-4 of
+    its largest entry (``chip_smoke.check_fedavg_gradient``)."""
+    from repro_torch.workloads import neural
+
+    track = neural.make_task("transformer", device="cuda", n_train=200,
+                             n_test=16, n_clients=4)
+    chip_smoke.check_fedavg_gradient(torch, ops, neural, track)
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "pytree"])
+def test_seed_aggregate_launches_on_card(gen, flat):
+    """``seedcomm.aggregate`` of M = 3 messages (H = 2, b2 = 4) on the card:
+    on the flat route exactly 1 zo_dirnorms and M·H zo_replay, on the
+    pytree route b2 zo_axpy per leaf per record; the replay within
+    relative 1e-5 of the CPU's (the card's Box-Muller within a few ulps)."""
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.core import seedcomm
+    from repro_torch.models import simple
+
+    m, h, b2 = 3, 2, 4
+    cfg = FedZOConfig(local_iters=h, b2=b2, flat_params=flat,
+                      flat_block_rows=4)
+    keys = prng.split(prng.key(3), m)
+    coeffs = torch.randn(m, h, b2, generator=gen, device="cuda") * 50
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = simple.softmax_init(24, 4, device=dev)
+        msgs = seedcomm.compress_stacked(keys, coeffs.to(dev), cfg)
+        ops.reset_launches()
+        out[dev] = seedcomm.aggregate(msgs, params, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = dict.fromkeys(ops.LAUNCHES, 0)
+            if flat:
+                want.update(zo_dirnorms=1, zo_replay=m * h)
+            else:
+                want.update(zo_axpy=m * h * b2 * len(params))
+            assert dict(ops.LAUNCHES) == want
+    big = max(float(v.abs().max()) for v in out["cpu"].values())
+    for k, v in out["cpu"].items():
+        assert float((out["cuda"][k].cpu() - v).abs().max()) <= 1e-5 * big

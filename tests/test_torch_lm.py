@@ -101,7 +101,7 @@ def test_unported_architectures_and_routes_raise():
         model.prefill({}, {}, 16)
     with pytest.raises(NotImplementedError):
         fedzo.make_train_step(model.loss, FedZOConfig(
-            delta_compression="seed"))({}, {}, prng.key(0))
+            channel_model=object()))({}, {}, prng.key(0))
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             model.init(prng.key(0))

@@ -318,7 +318,14 @@ def test_training_clis_agree_and_read_each_others_checkpoints(
     assert step == 2
 
 
-def test_cli_rejects_first_order_training():
-    for argv in (["--algo", "fedavg"], ["--opt", "adam"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
+def test_cli_rejects_first_order_training(monkeypatch):
+    """First-order training runs (``tests/test_torch_fedavg.py``); the CLI
+    rejects the algorithms and optimizers it does not have, as the
+    reference's argument parser does."""
+    for argv in (["--algo", "fedprox"], ["--algo", "fedavg", "--opt",
+                                         "lamb"]):
+        with pytest.raises(SystemExit):
             ttrain.main([*argv, "--device", "cpu"])
+        monkeypatch.setattr(sys, "argv", ["train", *argv])
+        with pytest.raises(SystemExit):
+            jtrain.main()

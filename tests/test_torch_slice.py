@@ -196,20 +196,26 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 def test_unported_routes_raise():
     """The routes the port does not have raise; the wide-only conventions
     without ``batch_directions`` and flat coordinate directions raise the
-    reference's ValueError."""
+    reference's ValueError. Every registered strategy and a seed-compressed
+    config build a round step (they are ported); an unknown strategy
+    raises the reference's ValueError."""
     from repro_torch.configs.base import FedZOConfig
     for kw in (dict(direction_conv="surrogate"),
                dict(direction_conv="channel"),
-               dict(delta_compression="seed"),
                dict(channel_model=object()),
-               dict(batch_directions=True, delta_compression="seed"),
                dict(flat_params=True, estimator="coordinate")):
         with pytest.raises((NotImplementedError, ValueError)):
             tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(**kw))
-    for algo in ("scaffold", "fedavg"):
-        with pytest.raises(NotImplementedError):
-            tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(
-                flat_params=True, strategy=algo))
+    for kw in (dict(delta_compression="seed"),
+               dict(batch_directions=True, delta_compression="seed")):
+        assert callable(tengine.make_round_step(lambda p, b: 0.0,
+                                                FedZOConfig(**kw)))
+    for algo in ("fedzo", "fedavg", "fedprox", "feddyn", "scaffold"):
+        assert callable(tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(
+            flat_params=True, strategy=algo)))
+    with pytest.raises(ValueError, match="unknown strategy"):
+        tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(
+            flat_params=True, strategy="fedsgd"))
     for impl in ("rbg", "unsafe_rbg"):
         with pytest.raises(NotImplementedError, match="prng_impl"):
             tengine.experiment_key(FedZOConfig(prng_impl=impl))
