@@ -122,6 +122,29 @@ each of which raises on a failure (the script then exits non-zero):
    Then one round each of fedprox (flat), scaffold (wide) and fedavg on the
    transformer track at its test size, card against CPU (1e-3; FedAvg
    1e-5).
+6. Phase "faults, channel and durability" (fault injection, the wireless
+   channel chain, durable checkpointed runs, taps, manifests and the
+   paper's Sec. V-A attack), each part's seconds and peak memory printed:
+   (a) the flat AirComp round on Qwen2-0.5B (M = 4, H = 2, b2 = 8, 5 dB)
+       under a correlated, energy-gated channel with client 2 poisoned
+       (NaN, guard on): weights bitwise those of the round with client 2
+       masked, the chain's m_effective and m_corrupt 1, non-finite weights
+       with the guard off, the plain AirComp round's launches, peak memory
+       at most one [n_pad] float32 row above it; ms beside it.
+   (b) softmax 784x10 at phase 3's N, M, H with AirComp under dropout,
+       stragglers, NaN uploads and the channel, 6 rounds: taps every 2
+       rounds equal to the history rows; 2-round segments, and a run
+       killed after 2 segments then resumed, bitwise the single-shot run;
+       the manifest read back; a divergence drill (a rollback, then
+       DivergenceError); a poisoned pytree round (H = 1) bitwise the
+       masked one.
+   (c) the attack at the reference task's width (32x32x3 images, 10 uneven
+       shards of 512 images): the classifier trained on the card, 5 flat
+       rounds (H = 20, b2 = 20) with exact launches, and the SNR {0, 10, 20}
+       dB x seeds {0, 1} sweep into a CSV that covers every scenario and
+       round.
+   Then the 6-round run of (b) on the CPU against the card's: the chains
+   and masks equal, the weights within 1e-3.
 
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
@@ -2362,6 +2385,417 @@ def run_algorithms(torch, ops, neural, FedZOConfig):
     return total
 
 
+# Phase "faults, channel and durability": the fault processes, the
+# wireless chain and the durable segment runner on the card. The neural
+# run is softmax 784x10 at phase 3's N = 50, M = 10, H = 5 with AirComp,
+# under these processes (FAULT_KW: dropout, stragglers, NaN uploads).
+FAULT_KW = dict(p_fail=0.1, p_recover=0.5, deadline=2.0, p_corrupt=0.1)
+CHANNEL_KW = dict(rho=0.9, battery=20.0, tx_cost=1.0)
+FAULT_ROUNDS = 6
+
+
+def _leaves_equal(torch, a, b):
+    """Whether two parameter trees are bitwise equal (b may be on the
+    CPU)."""
+    from repro_torch.utils.tree import tree_leaves
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def run_faulted_qwen_round(torch, ops, FedZOConfig):
+    """Part (a): the flat AirComp round on Qwen2-0.5B (M = 4, H = 2, b2 =
+    8, 5 dB; ``qwen_round_inputs``) under a ``RoundChannel`` from
+    ``ChannelModel(rho=0.9, battery=3.0, tx_cost=1.0).step`` over the 4
+    clients (its key chosen so that the chain masks client 3 and client 2
+    transmits) and a ``RoundFaults`` that poisons client 2 with NaN (guard
+    on). Five rounds: the plain AirComp round (the i.i.d. channel draw, no
+    faults; a warm-up), the round with client 2 masked, the poisoned
+    round, the poisoned round with the guard off, and the plain round
+    again, which the poisoned round's time is set beside. Checks: the
+    poisoned round's weights bitwise the masked round's; ``m_effective``
+    the chain's transmitting clients other than client 2 and
+    ``m_corrupt`` 1; the guard off leaves non-finite weights; every
+    round's launches exactly the plain round's; the poisoned round's peak
+    memory at most one [n_pad] float32 row above the plain round's.
+    Returns the launches."""
+    from repro_torch.core import fedzo
+    from repro_torch.sim import ChannelModel, FaultModel, RoundFaults
+    from repro_torch.sim.channel import init_key
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves
+
+    model, params, batches = qwen_round_inputs(torch)
+    m = QWEN_M
+    keys = prng.split(prng.key(1), m)
+    cfg = FedZOConfig(n_participating=m, local_iters=QWEN_H, lr=1e-4,
+                      mu=1e-3, b2=QWEN_B2, estimator="sphere",
+                      flat_params=True, aircomp=True, channel_schedule=True,
+                      snr_db=5.0)
+    cm = ChannelModel(rho=0.9, battery=3.0, tx_cost=1.0)
+    _, chan = cm.step(prng.key(8), cm.init_state(m, init_key(prng.key(0))),
+                      torch.arange(m), h_min=cfg.h_min,
+                      schedule=cfg.channel_schedule)
+    check(chan.mask.tolist() == [True, True, True, False],
+          f"qwen faulted round: channel mask {chan.mask.tolist()}")
+    poison = torch.tensor([False, False, True, False])
+    up, none = torch.ones(m, dtype=torch.bool), torch.zeros(
+        m, dtype=torch.bool)
+    runs = {"aircomp": {},
+            "masked": dict(channel=chan, faults=RoundFaults(
+                FaultModel(), ~poison, none)),
+            "poisoned": dict(channel=chan, faults=RoundFaults(
+                FaultModel(p_corrupt=0.5), up, poison)),
+            "guard off": dict(channel=chan, faults=RoundFaults(
+                FaultModel(p_corrupt=0.5, guard=False), up, poison)),
+            "aircomp again": {}}
+    want = round_launches(ops, cfg, 1, L=model.cfg.n_layers)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    ms, peak, kept = {}, {}, None
+    m_eff = float((chan.mask & ~poison).sum())
+    for name, kw in runs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = fedzo.round_simulated(model.loss, params, batches, keys,
+                                         cfg, channel_rng=prng.key(2), **kw)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        peak[name] = torch.cuda.max_memory_allocated()
+        counts = dict(ops.LAUNCHES)
+        check(counts == want, f"qwen faulted round {name}: launches "
+              f"{counts} != {want}")
+        for k in total:
+            total[k] += counts[k]
+        mets = {k: float(v) for k, v in met.items()}
+        finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+        if name == "guard off":
+            check(not finite, "qwen round with the guard off: the poison "
+                  "did not reach the weights")
+        else:
+            check(finite, f"qwen faulted round {name}: weights not finite")
+        if name == "masked":
+            kept = [t.cpu() for t in tree_leaves(new)]
+        if name == "poisoned":
+            check(all(torch.equal(a.cpu(), b) for a, b in
+                      zip(tree_leaves(new), kept)),
+                  "qwen poisoned round: weights differ from the masked "
+                  "round's")
+        if name in ("masked", "poisoned"):
+            check(mets["m_effective"] == m_eff and mets["m_corrupt"] == (
+                1.0 if name == "poisoned" else 0.0),
+                f"qwen faulted round {name}: m_effective "
+                f"{mets['m_effective']} (want {m_eff}), m_corrupt "
+                f"{mets['m_corrupt']}")
+        print(f"qwen faulted round {name}: ms/round {ms[name]:.1f}; peak "
+              f"memory {peak[name] / 2**30:.2f} GiB; metrics "
+              f"{json.dumps(mets)}; launches {counts}")
+        del new
+    extra = peak["poisoned"] - peak["aircomp again"]
+    check(extra <= 4 * QWEN_N_PAD, f"qwen poisoned round: peak "
+          f"{extra / 2**30:.3f} GiB above the plain AirComp round's")
+    plain = ms["aircomp again"]
+    print(f"qwen faulted round: channel mask {chan.mask.tolist()}, poisoned "
+          f"client 2; poisoned = masked bitwise; poisoned {ms['poisoned']:.1f}"
+          f" ms against the plain AirComp round's {plain:.1f} "
+          f"({ms['poisoned'] / plain - 1:+.2%}); peak {extra / 2**30:+.3f} "
+          f"GiB (limit +{4 * QWEN_N_PAD / 2**30:.2f})")
+    return total
+
+
+def _same_run(torch, a, b):
+    """Whether two engine results are bitwise equal: weights, metrics,
+    evals, key, fault and channel state."""
+    pairs = [(a.key, b.key), (a.fault_state, b.fault_state),
+             *zip(a.channel_state, b.channel_state)]
+    pairs += [(a.metrics[k], b.metrics[k]) for k in a.metrics]
+    pairs += [(a.evals[k], b.evals[k]) for k in a.evals]
+    return (sorted(a.metrics) == sorted(b.metrics)
+            and _leaves_equal(torch, a.params, b.params)
+            and all(torch.equal(x.cpu(), y.cpu()) for x, y in pairs))
+
+
+def faulted_softmax(neural, FedZOConfig, device):
+    """The softmax task, config and fault model of part (b)."""
+    from repro_torch.sim import ChannelModel, FaultModel
+    task = neural.make_task("softmax", n_features=784, n_classes=10,
+                            n_clients=50, device=device)
+    cfg = FedZOConfig(flat_params=True, weight_by_size=True, aircomp=True,
+                      channel_schedule=True, snr_db=5.0,
+                      channel_model=ChannelModel(**CHANNEL_KW))
+    return task, cfg, FaultModel(**FAULT_KW)
+
+
+def run_neural_durability(torch, ops, neural, FedZOConfig, tmp):
+    """Part (b): softmax 784x10 (N = 50, M = 10, H = 5, flat, AirComp,
+    size-weighted) under ``FAULT_KW`` and ``ChannelModel(**CHANNEL_KW)``
+    for 6 rounds with the eval every 2, taps into a ``JsonlSink`` every 2
+    rounds: exact launches; the tap rows equal ``history()``'s; the same
+    run in 2-round segments (``checkpoint_every=2``) and killed after 2
+    segments then resumed are bitwise the single-shot run; the manifest
+    is written and read back (its config hash the snapshot's). A
+    divergence drill (lr 1e6 on an exploding loss) rolls back once and
+    finishes, and with no lr backoff ends in ``DivergenceError``. One
+    pytree round (H = 1) with client 3 poisoned is bitwise the round with
+    it masked (``scrub_tree``, the ``zo_axpy`` leaves). Returns (the
+    6-round result, the launches)."""
+    from repro_torch import obs
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import fedzo
+    from repro_torch.data.synthetic import make_classification, noniid_shards
+    from repro_torch.sim import (DivergenceError, FaultModel, RoundFaults,
+                                 build_store, run_experiment)
+    from repro_torch.sim.channel import battery
+    from repro_torch.sim.store import sample_batches, sample_participants
+    from repro_torch.utils import prng
+
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def add():
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+        ops.reset_launches()
+
+    task, cfg, faults = faulted_softmax(neural, FedZOConfig, "cuda")
+    path = os.path.join(tmp, "taps.jsonl")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.JsonlSink(path) as sink:
+        one = neural.run(task, cfg, FAULT_ROUNDS, faults=faults, sink=sink,
+                         tap_every=2)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / FAULT_ROUNDS
+    want = round_launches(ops, cfg, FAULT_ROUNDS)
+    check(dict(ops.LAUNCHES) == want, f"faulted softmax: launches "
+          f"{dict(ops.LAUNCHES)} != {want}")
+    add()
+    hist = one.history()
+    rows = obs.read_jsonl(path)
+    check([r["round"] for r in rows] == [0, 2, 4] and all(
+        v == hist[r["round"]][k] for r in rows for k, v in r.items()),
+        f"faulted softmax: tap rows {rows} differ from history")
+    check(all(math.isfinite(v) for r in hist for v in r.values()
+              if isinstance(v, float)), "faulted softmax: rows not finite")
+    print(f"faulted softmax: {ms:.1f} ms/round (6 rounds with evals, taps "
+          f"and the manifest); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"m_effective {[r['m_effective'] for r in hist]}; m_corrupt "
+          f"{[r['m_corrupt'] for r in hist]}; energy "
+          f"{[r['energy_spent'] for r in hist]}; batteries "
+          f"{battery(one.channel_state).tolist()}; test_acc "
+          f"{[round(r['test_acc'], 4) for r in hist if 'test_acc' in r]}")
+    ck = os.path.join(tmp, "chunked")
+    chunked = neural.run(task, cfg, FAULT_ROUNDS, faults=faults,
+                         checkpoint_every=2, checkpoint_dir=ck)
+    check(_same_run(torch, one, chunked), "faulted softmax: 2-round "
+          "segments differ from the single-shot run")
+    kill = os.path.join(tmp, "killed")
+    part = neural.run(task, cfg, FAULT_ROUNDS, faults=faults,
+                      checkpoint_every=2, checkpoint_dir=kill,
+                      max_segments=2)
+    check(part.rounds == 4, f"killed run stopped at {part.rounds}")
+    resumed = neural.run(task, cfg, FAULT_ROUNDS, faults=faults,
+                         checkpoint_every=2, checkpoint_dir=kill,
+                         resume=True)
+    check(_same_run(torch, one, resumed), "faulted softmax: the resumed "
+          "run differs from the single-shot run")
+    add()
+    man = obs.read_manifest(ck)
+    side = ckpt.read_sidecar(ckpt.latest_run_state(ck))
+    check(man["config_hash"] == side["config_hash"]
+          and man["rounds_done"] == FAULT_ROUNDS and "faults" in man
+          and man["channel"]["energy_gated"]
+          and obs.read_manifest(f"{path}.manifest.json")["tap_every"] == 2,
+          f"manifest {man}")
+    print(f"faulted softmax: chunked = killed-and-resumed = single-shot, "
+          f"bitwise; manifest {man['config_hash']} on "
+          f"{man['topology']['devices']}, snapshots "
+          f"{sorted(os.listdir(ck))}")
+
+    x, y = make_classification(320, 4, 2, seed=1)
+    store = build_store(noniid_shards(x, y, 8), device="cuda")
+
+    def explode(p, b):
+        return torch.exp(torch.sum(torch.square(p["x"] - 0.1)))
+
+    dcfg = FedZOConfig(n_devices=8, n_participating=4, local_iters=2,
+                       lr=1e6, mu=1e-3, b1=8, b2=4, seed=3)
+    res = run_experiment(explode, {"x": torch.zeros(4, device="cuda")},
+                         store, dcfg, 4, checkpoint_every=2,
+                         checkpoint_dir=os.path.join(tmp, "drill"),
+                         lr_backoff=1e-8)
+    check([e["event"] for e in res.events] == ["rollback"]
+          and bool(torch.isfinite(res.params["x"]).all()),
+          f"divergence drill: events {res.events}")
+    try:
+        run_experiment(explode, {"x": torch.zeros(4, device="cuda")}, store,
+                       dcfg, 4, checkpoint_every=2,
+                       checkpoint_dir=os.path.join(tmp, "drill2"),
+                       max_retries=2, lr_backoff=1.0)
+        check(False, "divergence drill: no DivergenceError")
+    except DivergenceError as e:
+        check(e.retries == 2 and e.round == 2, f"divergence drill: {e}")
+        print(f"divergence drill: rollback events {res.events}; then "
+              f"DivergenceError: {e}")
+    add()
+
+    pcfg = FedZOConfig(weight_by_size=True, local_iters=1)
+    ks = prng.split(prng.key(5), 3)
+    idx = sample_participants(ks[0], task.store.n_clients,
+                              pcfg.n_participating)
+    batches = sample_batches(task.store, idx, ks[1], 1, pcfg.b1)
+    rngs = prng.split(ks[2], pcfg.n_participating)
+    p0 = neural.params_init(task, 0)
+    bad = torch.zeros(pcfg.n_participating, dtype=torch.bool)
+    bad[3] = True
+    out = {}
+    for name, rf in (("poisoned", RoundFaults(FaultModel(p_corrupt=0.5),
+                                              ~torch.zeros_like(bad), bad)),
+                     ("masked", RoundFaults(FaultModel(), ~bad,
+                                            torch.zeros_like(bad)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fedzo.round_simulated(task.loss, p0, batches, rngs,
+                                          pcfg, faults=rf)
+        torch.cuda.synchronize()
+        want = round_launches(ops, pcfg, 1, 2)
+        check(dict(ops.LAUNCHES) == want, f"pytree faulted round {name}: "
+              f"launches {dict(ops.LAUNCHES)} != {want}")
+        add()
+        print(f"pytree softmax round (H = 1) {name}: "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms; metrics "
+              f"{ {k: float(v) for k, v in out[name][1].items()} }")
+    check(_leaves_equal(torch, out["poisoned"][0], out["masked"][0]),
+          "pytree poisoned round differs from the masked round")
+    return one, total
+
+
+def run_attack(torch, ops, tmp):
+    """Part (c): the paper's Sec. V-A federated black-box attack at the
+    reference task's width (32x32x3 images, d = 3,072; 10 clients with
+    uneven shards, 512 attack images): ``attack.make_task`` on the card
+    (300 SGD steps), then ``attack.run`` on the flat route (H = 20, b2 =
+    20, full participation) for 5 rounds with the eval every 5 (exact
+    launches), then ``attack.run_sweep`` over SNR {0, 10, 20} dB x seeds
+    {0, 1}, 3 rounds each, into a CSV that must cover every scenario,
+    round and metric. Returns the launches."""
+    from repro_torch.workloads import attack
+
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task = attack.make_task(device="cuda")
+    torch.cuda.synchronize()
+    print(f"attack task: classifier trained in "
+          f"{time.perf_counter() - t0:.1f} s; clean accuracy "
+          f"{task.clean_accuracy:.4f}; shards "
+          f"{[len(c['y']) for c in task.clients]}")
+    cfg = attack.default_config(task, flat_params=True)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = attack.run(task, cfg, 5, eval_every=5)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 5
+    want = round_launches(ops, cfg, 5)
+    check(dict(ops.LAUNCHES) == want, f"attack: launches "
+          f"{dict(ops.LAUNCHES)} != {want}")
+    for k in total:
+        total[k] += ops.LAUNCHES[k]
+    hist = res.history()
+    check(all(math.isfinite(v) for r in hist for v in r.values()
+              if isinstance(v, float)), f"attack: rows not finite {hist}")
+    print(f"attack (flat, H {cfg.local_iters}, b2 {cfg.b2}, M "
+          f"{cfg.n_participating}): {ms:.1f} ms/round; losses "
+          f"{[round(r['mean_local_loss'], 5) for r in hist]}; "
+          f"attack_success {float(res.evals['attack_success'][0]):.4f}, "
+          f"eval CW loss {float(res.evals['eval_cw_loss'][0]):.5f} after "
+          f"round 0; launches {dict(ops.LAUNCHES)}")
+    out = os.path.join(tmp, "attack_snr.csv")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    recs = attack.run_sweep(task, cfg, snr_dbs=(0.0, 10.0, 20.0),
+                            seeds=(0, 1), rounds=3, eval_every=1,
+                            out_csv=out)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    for k in total:
+        total[k] += ops.LAUNCHES[k]
+    with open(out) as f:
+        lines = f.read().splitlines()
+    n_rows = sum(3 * (len(r["metrics"]) + len(r["evals"])) for r in recs)
+    tags = {ln.split(",")[0] for ln in lines[1:]}
+    check(len(recs) == 6 and lines[0] == "scenario,round,metric,value"
+          and len(lines) == 1 + n_rows and len(tags) == 6,
+          f"attack sweep CSV: {len(lines)} lines, {len(tags)} scenarios")
+    noise = {s: sum(float(r["metrics"]["aircomp_noise_std"].mean())
+                    for r in recs if r["scenario"]["snr_db"] == s) / 2
+             for s in (0.0, 10.0, 20.0)}
+    check(noise[0.0] > noise[10.0] > noise[20.0] > 0,
+          f"attack sweep: AirComp noise by SNR {noise}")
+    succ = {s: [round(float(r["evals"]["attack_success"][-1]), 4)
+                for r in recs if r["scenario"]["snr_db"] == s]
+            for s in (0.0, 10.0, 20.0)}
+    print(f"attack sweep: 6 scenarios x 3 rounds in {sweep_s:.1f} s; "
+          f"noise std by SNR {json.dumps(noise)}; attack_success after "
+          f"round 2 by SNR (seeds 0, 1) {json.dumps(succ)}; {len(lines)} "
+          f"CSV lines")
+    return total
+
+
+def run_faults_channel(torch, ops, neural, FedZOConfig):
+    """Phase "faults, channel and durability", parts (a)-(c). Prints each
+    part's seconds and peak memory; returns (the 6-round faulted softmax
+    result, {kernel: launches})."""
+    import tempfile
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (
+                ("qwen faulted round", lambda: run_faulted_qwen_round(
+                    torch, ops, FedZOConfig)),
+                ("neural durability", lambda: run_neural_durability(
+                    torch, ops, neural, FedZOConfig, tmp)),
+                ("attack", lambda: run_attack(torch, ops, tmp))):
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            got = fn()
+            if isinstance(got, tuple):
+                one, got = got
+            print(f"part {name}: {time.perf_counter() - t:.1f} s, peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB")
+            torch.cuda.empty_cache()
+            for k in total:
+                total[k] += got[k]
+    return one, total
+
+
+def check_faulted_reference(torch, neural, FedZOConfig, card):
+    """References: the 6-round faulted softmax run of part (b) on the CPU
+    against the card's: the fault and channel chains bitwise (they run on
+    the CPU either way), the surviving and poisoned counts equal every
+    round, the weights within the flat route's trajectory tolerance 1e-3
+    (a loss ulp moves a ZO coefficient by d.ulp/mu)."""
+    task, cfg, faults = faulted_softmax(neural, FedZOConfig, "cpu")
+    cpu = neural.run(task, cfg, FAULT_ROUNDS, faults=faults)
+    check(torch.equal(cpu.fault_state, card.fault_state) and all(
+        torch.equal(a, b) for a, b in zip(cpu.channel_state,
+                                          card.channel_state)),
+        "faulted softmax card vs CPU: chains differ")
+    for k in ("m_effective", "m_corrupt"):
+        check(torch.equal(cpu.metrics[k], card.metrics[k].cpu()),
+              f"faulted softmax card vs CPU: {k} differs")
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        card.params.values(), cpu.params.values()))
+    check(worst <= 1e-3, f"faulted softmax card vs CPU: max |diff| {worst}")
+    print(f"small reference (faulted softmax 784x10, 6 rounds, faults and "
+          f"channel): card vs CPU max |diff| {worst:.3e} (limit 1e-3); "
+          f"chains and masks equal")
+
+
 def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
@@ -2514,6 +2948,13 @@ def main(argv):
     for k, n in timed("algorithms and uplinks", lambda: run_algorithms(
             torch, ops, neural, FedZOConfig)).items():
         launches[k] += n
+    faulted, counts = timed("faults, channel and durability",
+                            lambda: run_faults_channel(torch, ops, neural,
+                                                       FedZOConfig))
+    for k, n in counts.items():
+        launches[k] += n
+    timed("faults references", lambda: check_faulted_reference(
+        torch, neural, FedZOConfig, faulted))
     if args.profile:
         timed("profiles", lambda: (
             profile_round(torch, neural, FedZOConfig, args.profile),

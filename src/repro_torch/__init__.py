@@ -10,8 +10,13 @@ The algorithm layer sits on top: the strategy registry (FedZO, FedAvg,
 ZO-FedProx, ZO-FedDyn, ZO-SCAFFOLD; ``core/strategy.py``), first-order
 FedAvg with SGD or Adam (``core/fedavg.py``, ``optim/sgd.py``), the
 seed-compressed uplink (``core/seedcomm.py``), the ZO baselines and the
-``FedServer`` API (``fed/server.py``). It never imports ``jax`` or
-``repro``.
+``FedServer`` API (``fed/server.py``). Around the rounds sit fault
+injection (``sim/faults.py``), the wireless scenario's correlated fading and
+energy gating (``sim/channel.py``), durable checkpointed runs with
+divergence rollback (``sim/engine.py``, ``checkpoint/``), the metric taps,
+trace spans and run manifests (``obs/``), scenario sweeps
+(``sim/sweep.py``) and the paper's Sec. V-A federated black-box attack
+(``workloads/attack.py``). It never imports ``jax`` or ``repro``.
 
 Randomness follows jax's raw Threefry-2x32 key chain
 (``repro_torch.utils.prng``), so a run from a seed draws the same clients,

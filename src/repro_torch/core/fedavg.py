@@ -86,14 +86,11 @@ def round_simulated(loss_fn, server_params, client_batches, cfg: FedZOConfig,
     ``[M, H, ...]`` on the parameters' device). ``channel_rng`` a raw key
     (CPU); ``weights`` ``[M]`` mean-1 size weights. The aggregation follows
     the reference branch for branch: channel-truncation scheduling
-    (``cfg.channel_schedule``), AirComp on the stacked delta tree, the
-    masked and/or size-weighted mean, else ``(1/M)·Σ_i Δ_i``. Returns
+    (``cfg.channel_schedule``; a realized ``channel``'s transmit mask in
+    its place), ``faults`` corrupting and scrubbing the stacked deltas in
+    place (``sim.faults.RoundFaults``), AirComp on the stacked delta tree,
+    the masked and/or size-weighted mean, else ``(1/M)·Σ_i Δ_i``. Returns
     (new_params, metrics)."""
-    for name, hook in (("faults", faults), ("channel", channel)):
-        if hook is not None:
-            raise NotImplementedError(
-                f"fedavg.round_simulated({name}=...) is not ported "
-                f"(ROADMAP.md section A, item 5)")
     dev = _device(server_params)
     p_fin, losses = cohort_phase(loss_fn, server_params, client_batches, cfg)
     deltas = tree_sub(p_fin, server_params)
@@ -104,8 +101,14 @@ def round_simulated(loss_fn, server_params, client_batches, cfg: FedZOConfig,
     if cfg.channel_schedule and channel_rng is not None:
         ks = prng.split(channel_rng, 2)
         k_sched, noise_rng = ks[0], ks[1]
-        _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
-        mask = mask.to(dev)
+        if channel is None:
+            _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
+            mask = mask.to(dev)
+    if channel is not None:
+        mask = channel.mask.to(dev)
+    if faults is not None:
+        deltas, fmask = faults.apply_tree(deltas)
+        mask = fmask if mask is None else mask & fmask
     if cfg.aircomp and channel_rng is not None:
         agg, stats = aircomp_aggregate(deltas, noise_rng, snr_db=cfg.snr_db,
                                        h_min=cfg.h_min, mask=mask,
@@ -118,6 +121,8 @@ def round_simulated(loss_fn, server_params, client_batches, cfg: FedZOConfig,
         stats = {"m_effective": m_sched}
     else:
         agg = tree_scale(1.0 / M, tree_map(lambda x: torch.sum(x, 0), deltas))
+    if faults is not None:
+        stats["m_corrupt"] = faults.n_corrupt.to(dev)
     return tree_add(server_params, agg), {"mean_local_loss": torch.mean(losses),
                                           **stats}
 

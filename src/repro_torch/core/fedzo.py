@@ -38,12 +38,16 @@ the batched iterate. ``jax.grad`` has no counterpart here: FedZO is
 forward-only.
 
 ``round_simulated`` takes the strategy hooks of ``core/strategy.py`` on
-every route (client state, loss wraps, delta corrections), and a
-``delta_compression="seed"`` config runs the same dense round, as in the
-reference (the seed-compressed uplink itself is
-``fed/server.run_seed_compressed_round``, ``core/seedcomm.py``). Routes the
-port does not have yet raise ``NotImplementedError``: faults and the
-wireless channel model.
+every route (client state, loss wraps, delta corrections), a round's
+realized faults (``sim/faults.RoundFaults``: the deltas corrupted and
+scrubbed in place before the aggregation) and its realized wireless channel
+(``sim/channel.RoundChannel``: its transmit mask in place of the i.i.d.
+scheduling draw); a ``delta_compression="seed"`` config runs the same dense
+round, as in the reference (the seed-compressed uplink itself is
+``fed/server.run_seed_compressed_round``, ``core/seedcomm.py``). The
+reference's other deployments of this round, the sharded round
+(``sim/shard.py``) and the tiered store's cohort round
+(``sim/tiered.py``), are not ported.
 """
 from __future__ import annotations
 
@@ -77,8 +81,6 @@ def _check_iterate(cfg: FedZOConfig):
     """Reject every config a local iterate cannot run as asked (the
     reference's ``local_iterate`` ignores ``batch_directions`` and takes
     any ``direction_conv`` other than ``counter`` as ``tree``)."""
-    if cfg.channel_model is not None:
-        raise NotImplementedError("the wireless channel model is not ported")
     if cfg.flat_params:
         estimator._counter_kind(cfg.estimator)
 
@@ -455,11 +457,14 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
       client-side delta correction before the aggregation, on the ``[M,
       n_pad]`` matrix (``spec`` set) or the stacked delta tree (``spec``
       None).
+
+    ``faults`` (a ``sim.faults.RoundFaults``) corrupts and scrubs the
+    deltas after ``state_fn`` and before the aggregation; its surviving
+    rows' mask composes with the channel mask (``mask = fmask & mask``),
+    ``m_effective`` reports the survivors and ``m_corrupt`` the poisoned
+    uploads. ``channel`` (a ``sim.channel.RoundChannel``) supplies the
+    round's transmit mask in place of ``schedule_by_channel``'s draw.
     """
-    for name, hook in (("faults", faults), ("channel", channel)):
-        if hook is not None:
-            raise NotImplementedError(f"round_simulated({name}=...) is not "
-                                      f"ported")
     check_route(cfg)
     M = client_rngs.shape[0]
     dev = estimator._device(server_params)
@@ -470,14 +475,25 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
     if cfg.channel_schedule and channel_rng is not None:
         ks = prng.split(channel_rng, 2)
         k_sched, noise_rng = ks[0], ks[1]
-        _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
-        mask = mask.to(dev)
+        if channel is None:
+            _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
+            mask = mask.to(dev)
+    if channel is not None:
+        # the scenario's realized channel (sim/channel.py): correlated-
+        # fading scheduling ∧ battery gating replaces the i.i.d. draw
+        mask = channel.mask.to(dev)
 
     res = cohort_phase(loss_fn, server_params, client_batches, client_rngs,
                        cfg, cstate=cstate, loss_wrap=loss_wrap)
     deltas, losses, spec = res.deltas, res.losses, res.spec
     if state_fn is not None:
         deltas, new_cstate = state_fn(deltas, cstate, spec)
+    if faults is not None:
+        # corrupt-then-guard the uploads in place; the survivors' mask
+        # composes with the channel's
+        deltas, fmask = (faults.apply_flat(deltas) if spec is not None
+                         else faults.apply_tree(deltas))
+        mask = fmask if mask is None else mask & fmask
 
     if spec is not None:
         if cfg.aircomp and channel_rng is not None:
@@ -512,6 +528,10 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
             momentum, agg)
         agg = momentum
     new_params = tree_add(server_params, agg)
+    if faults is not None:
+        # the mask is set under faults, so every branch above reported
+        # m_effective (the surviving cohort)
+        air_stats["m_corrupt"] = faults.n_corrupt.to(dev)
     metrics = {"mean_local_loss": torch.mean(losses),
                "first_loss": torch.mean(losses[:, 0]), **air_stats}
     out = (new_params, metrics)

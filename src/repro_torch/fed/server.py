@@ -15,19 +15,24 @@ and runs the round of its strategy. Two drivers share the class:
   (``sim.run_experiment``), the counterpart of the reference's one
   compiled scan.
 
+On the store path the server also carries the engine's fault chain
+(``faults=FaultModel``) and wireless chain (``cfg.channel_model``), as the
+reference does; both need a store (the reference's ValueErrors otherwise).
 ``run_round`` can guard against divergence (non-finite metrics, evals or
 parameters): the round is rolled back, the lr backed off, a ``rollback``
 event row recorded, and after ``max_retries`` consecutive failures
 ``DivergenceError`` is raised. Every history row carries the comms
-ledger's byte columns (``obs/ledger.py``) and, on the host-driven rounds,
-``round_ms``.
+ledger's byte (and energy) columns (``obs/ledger.py``) and, on the
+host-driven rounds, ``round_ms``. A ``tracer`` (``obs.Tracer``) records an
+``eval`` span per host-driven eval and the engine's compile and execute
+spans on ``run(driver="scan")``.
 
 ``run_seed_compressed_round`` is the digital uplink (``core/seedcomm.py``):
 each client ships (key, coefficients), the server replays them.
 
-Not ported (ROADMAP.md section A, item 5): fault injection, the wireless
-channel model, a tiered ``HostStore`` and the tracer raise
-``NotImplementedError``.
+A store that is not a ``ClientStore`` (the reference's tiered
+``HostStore``) raises ``NotImplementedError``: the tiered store is not
+ported.
 """
 from __future__ import annotations
 
@@ -44,17 +49,13 @@ from repro_torch.core import aircomp, estimator, fedavg, fedzo, seedcomm
 from repro_torch.core import strategy as strategy_mod
 from repro_torch.data.synthetic import sample_local_batches
 from repro_torch.obs.ledger import CommsLedger
+from repro_torch.sim import channel as channel_lib
 from repro_torch.sim import engine as sim_engine
-from repro_torch.sim.faults import DivergenceError
+from repro_torch.sim.faults import DivergenceError, FaultModel
 from repro_torch.sim.store import ClientStore
 from repro_torch.utils import prng
 from repro_torch.utils.tree import (tree_add, tree_bytes, tree_leaves,
                                     tree_stack, tree_zeros_like)
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported (ROADMAP.md section "
-                               f"A, item 5)")
 
 
 @dataclass
@@ -73,11 +74,11 @@ class FedServer:
     store: Optional[object] = None       # sim.ClientStore -> engine driver
     jit_eval: Optional[Callable] = None  # eval -> dict of tensors, per round
     eval_every: int = 1                  # engine eval cadence (rounds)
-    faults: Optional[object] = None      # not ported
+    faults: Optional[FaultModel] = None  # fault injection (store path)
     divergence_guard: bool = False       # roll back non-finite rounds
     max_retries: int = 3                 # lr-backoff retries before failing
     lr_backoff: float = 0.5              # lr multiplier per rollback
-    tracer: Optional[object] = None      # not ported
+    tracer: Optional[object] = None      # obs.Tracer: eval/compile spans
 
     def __post_init__(self):
         if self.clients is None and self.store is None:
@@ -85,14 +86,18 @@ class FedServer:
                              "clients=[...] and/or store=ClientStore")
         if self.store is not None and not isinstance(self.store,
                                                      ClientStore):
-            raise _not_ported("a tiered HostStore")
-        if self.faults is not None:
-            raise _not_ported("fault injection (faults=FaultModel)")
-        if self.cfg.channel_model is not None:
-            raise _not_ported("the wireless channel model "
-                              "(cfg.channel_model)")
-        if self.tracer is not None:
-            raise _not_ported("the tracer (obs.Tracer)")
+            raise NotImplementedError(
+                "store= takes a ClientStore; the tiered HostStore "
+                "(sim/tiered.py) is not ported")
+        if self.faults is not None and self.store is None:
+            raise ValueError("fault injection runs inside the round step "
+                             "— construct the FedServer with a "
+                             "store=ClientStore")
+        if self.cfg.channel_model is not None and self.store is None:
+            raise ValueError("cfg.channel_model (the correlated wireless "
+                             "scenario) advances inside the round step — "
+                             "construct the FedServer with a "
+                             "store=ClientStore")
         n = (len(self.clients) if self.clients is not None
              else self.store.n_clients)
         if n != self.cfg.n_devices:
@@ -126,12 +131,20 @@ class FedServer:
         self._round_idx = 0
         if self._strategy.has_momentum(self.cfg):
             self._momentum = tree_zeros_like(self.params)
+        self._fstate = (self.faults.init_state(n)
+                        if self.faults is not None else None)
         self._zstate = self._strategy.init_state(self.params, self.cfg, n)
         # one byte model per server (the lr never enters it, so rollbacks
         # do not invalidate it)
-        self._ledger = CommsLedger.from_run(self.cfg, self.params)
+        self._ledger = CommsLedger.from_run(self.cfg, self.params,
+                                            channel=self.cfg.channel_model)
         self._key = (sim_engine.experiment_key(self.cfg)
                      if self.store is not None else prng.key(self.cfg.seed))
+        # the wireless chain starts from the fold-in key, as run_experiment
+        # does, so the host-driven and engine trajectories share it
+        cm = self.cfg.channel_model
+        self._cstate = (cm.init_state(n, channel_lib.init_key(self._key))
+                        if cm is not None else None)
         self._build_round_fns()
 
     def _build_round_fns(self):
@@ -140,7 +153,8 @@ class FedServer:
         into the config (the host loop reads ``self.cfg`` each round)."""
         if self.store is not None:
             self._sim_step = sim_engine.make_round_step(
-                self.loss_fn, self.cfg, strategy=self._strategy)
+                self.loss_fn, self.cfg, strategy=self._strategy,
+                faults=self.faults)
 
     # -- client sampling (host loop) -----------------------------------------
     def sample_clients(self):
@@ -161,9 +175,10 @@ class FedServer:
         host loop) and return its metrics as Python floats."""
         if self.store is not None:
             state, metrics = self._sim_step(
-                (self.params, self._momentum, self._key, self._zstate),
-                self.store)
-            self.params, self._momentum, self._key, self._zstate = state
+                (self.params, self._momentum, self._key, self._fstate,
+                 self._cstate, self._zstate), self.store)
+            (self.params, self._momentum, self._key, self._fstate,
+             self._cstate, self._zstate) = state
         else:
             chosen = self.sample_clients()
             batches = self._stack_batches(chosen)
@@ -214,18 +229,24 @@ class FedServer:
             t = self._round_idx
         ev = self._eval()
         while True:
-            snap = (self.params, self._momentum, self._key, self._zstate)
+            snap = (self.params, self._momentum, self._key, self._fstate,
+                    self._cstate, self._zstate)
             t_start = time.perf_counter()
             metrics = self._step_once()
             metrics["round"] = t
             if ev:
-                metrics.update(ev(self.params))
+                if self.tracer is not None:
+                    with self.tracer.span("eval", round=t):
+                        metrics.update(ev(self.params))
+                else:
+                    metrics.update(ev(self.params))
             if not self.divergence_guard or not self._diverged(metrics):
                 # host wall-clock of the surviving attempt (the round, its
                 # device sync and the eval)
                 metrics["round_ms"] = (time.perf_counter() - t_start) * 1e3
                 break
-            self.params, self._momentum, self._key, self._zstate = snap
+            (self.params, self._momentum, self._key, self._fstate,
+             self._cstate, self._zstate) = snap
             self._retries += 1
             if self._retries > self.max_retries:
                 raise DivergenceError(t, self.max_retries, self.cfg.lr)
@@ -269,9 +290,13 @@ class FedServer:
             self.loss_fn, self.params, self.store, self.cfg, rounds,
             strategy=self._strategy, eval_fn=self.jit_eval,
             eval_every=self.eval_every if self.jit_eval is not None else 0,
-            key=self._key, momentum=self._momentum, zstate=self._zstate)
-        self.params, self._momentum, self._key, self._zstate = (
-            res.params, res.momentum, res.key, res.strategy_state)
+            key=self._key, momentum=self._momentum, zstate=self._zstate,
+            faults=self.faults, fault_state=self._fstate,
+            channel_state=self._cstate, tracer=self.tracer)
+        (self.params, self._momentum, self._key, self._fstate, self._cstate,
+         self._zstate) = (res.params, res.momentum, res.key,
+                          res.fault_state, res.channel_state,
+                          res.strategy_state)
         if self.divergence_guard and self._diverged(
                 {k: float(v[-1]) for k, v in res.metrics.items()}):
             raise DivergenceError(

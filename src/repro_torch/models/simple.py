@@ -1,7 +1,10 @@
 """Models for the paper's own experiments (Sec. V-B), in PyTorch.
 
-Counterpart of ``repro/models/simple.py:20-97``: softmax regression and the
-LeNet-style SmallCNN. Parameters are plain dicts of tensors in the
+Counterpart of ``repro/models/simple.py:20-173``: softmax regression, the
+LeNet-style SmallCNN, and the paper's Sec. V-A pieces: the CIFAR-shaped CNN
+classifier that the federated black-box attack queries, the Carlini–Wagner
+attack objective (Eq. 21) and the attack's success rate. Parameters are
+plain dicts of tensors in the
 reference's layouts (HWIO conv weights, NHWC images), so the flat index of
 every scalar, and with it every direction the ZO kernels walk, is the
 reference's. The forward permutes to PyTorch's NCHW/OIHW internally.
@@ -113,3 +116,72 @@ def smallcnn_loss(params, batch):
 def smallcnn_accuracy(params, batch):
     pred = torch.argmax(smallcnn_logits(params, batch["x"]), dim=-1)
     return torch.mean((pred == batch["y"].to(torch.int64)).to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# small CNN classifier (the black-box target of the attack, Sec. V-A)
+
+
+def cnn_init(key, n_classes=10, width=16, *, device="cuda"):
+    """The 32x32x3 classifier: 3x3 conv (HWIO) -> 2x2 pool, twice, then a
+    linear head; weights from the jax-compatible key chain (``key``: a raw
+    key) on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    ks = prng.split(key, 4)
+
+    def conv(k, ci, co):
+        return prng.normal(k, (3, 3, ci, co)) * (2.0 / (9 * ci)) ** 0.5
+
+    params = {"c1": conv(ks[0], 3, width),
+              "c2": conv(ks[1], width, 2 * width),
+              "w": prng.normal(ks[2], (2 * width * 8 * 8, n_classes)) * 0.01,
+              "b": torch.zeros((n_classes,), dtype=torch.float32)}
+    return {k: v.to(device) for k, v in params.items()}
+
+
+def cnn_logits(params, images):
+    """images [B, 32, 32, 3] in [0, 1] -> logits [B, C] (SAME 3x3 convs,
+    VALID 2x2 max-pools, the NHWC flatten of the reference)."""
+    return smallcnn_logits(params, images)
+
+
+def cnn_loss(params, batch):
+    return mean_xent(cnn_logits(params, batch["x"]), batch["y"])
+
+
+# ---------------------------------------------------------------------------
+# Carlini-Wagner federated black-box attack loss (Eq. 21)
+
+
+def _tanh_example(z, x):
+    """The adversarial example 0.5·(tanh(atanh(2z − 1) + x) + 1) in [0, 1]
+    image space (the paper's [−1/2, 1/2] images under the same
+    bijection)."""
+    z_c = torch.clamp(z * 2.0 - 1.0, -1 + 1e-6, 1 - 1e-6)
+    return 0.5 * (torch.tanh(torch.atanh(z_c) + x) + 1.0)
+
+
+def cw_attack_loss(x_pert, batch, classifier_params, c=1.0):
+    """Eq. (21): the mean over the device's images of
+    max(Φ_y(adv) − max_{j≠y} Φ_j(adv), 0) + c·‖adv − z‖².
+
+    ``x_pert`` ``[32·32·3]`` is the shared perturbation (the FedZO
+    variable); the classifier is only queried."""
+    z, y = batch["x"], batch["y"].to(torch.int64)
+    adv = _tanh_example(z, x_pert.reshape(1, 32, 32, 3))
+    logits = cnn_logits(classifier_params, adv)
+    conf_true = torch.gather(logits, -1, y[:, None])[:, 0]
+    onehot = (torch.arange(logits.shape[-1], device=logits.device)
+              == y[:, None]).to(logits.dtype)
+    conf_best_other = torch.max(logits - 1e9 * onehot, dim=-1).values
+    margin = torch.clamp_min(conf_true - conf_best_other, 0.0)
+    dist = torch.sum(torch.square(adv - z), dim=(1, 2, 3))
+    return torch.mean(margin + c * dist)
+
+
+def attack_success(x_pert, batch, classifier_params):
+    """The share of the batch's images the perturbation misclassifies."""
+    z, y = batch["x"], batch["y"].to(torch.int64)
+    adv = _tanh_example(z, x_pert.reshape(1, 32, 32, 3))
+    pred = torch.argmax(cnn_logits(classifier_params, adv), dim=-1)
+    return torch.mean((pred != y).to(torch.float32))

@@ -11,7 +11,8 @@ integers as the reference:
 - ``split(key, num)``       -> ``[..., num, 2]`` (fold-like split)
 - ``fold_in(key, data)``
 - ``random_bits(key, shape)`` (32-bit: ``bits1 ^ bits2``)
-- ``randint``, ``permutation``, ``uniform``, ``normal``, ``rademacher``
+- ``randint``, ``permutation``, ``uniform``, ``normal``, ``rademacher``,
+  ``exponential``
 
 A key is an int64 tensor of shape ``[..., 2]`` holding the two uint32 words
 (torch has no uint32 add or shift on the CPU, so every uint32 operation is
@@ -245,6 +246,13 @@ def normal(k: torch.Tensor, shape, *, dtype=torch.float32,
     # operation to bfloat16, as XLA does here)
     u = torch.clamp_min(floats * 2.0 + _NORMAL_LO_BF16, _NORMAL_LO_BF16)
     return erfinv(u.float()).to(torch.bfloat16) * _SQRT2_BF16
+
+
+def exponential(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
+    """float32 ``jax.random.exponential``: ``-log1p(-u)`` of a uniform draw.
+    ``torch.log1p`` and XLA's may differ by an ulp, so a draw agrees with
+    jax's within an ulp (the uniform itself is bitwise)."""
+    return -torch.log1p(-uniform(k, shape, device=device))
 
 
 def rademacher(k: torch.Tensor, shape, *, dtype=torch.float32,

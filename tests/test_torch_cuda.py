@@ -20,7 +20,10 @@ own loss; bfloat16 normals bitwise the CPU's, and the transformer track's
 rounds (also with bfloat16 directions) within 1e-3 of the CPU's. The
 autograd wrappers of RMSNorm and attention (their backward bitwise the
 plain version's autograd), strategy and FedAvg rounds against the CPU, and
-the seed aggregate's launch counts.
+the seed aggregate's launch counts. Under faults: a poisoned upload
+bitwise a masked one through ``aircomp_reduce`` and ``zo_walk``, the
+poison reaching the weights with the guard off (also from a zero-
+coefficient row), and kill-and-resume bitwise on the card.
 ``chip_smoke.py`` repeats these at the main path's full shapes and times
 them.
 """
@@ -741,3 +744,118 @@ def test_seed_aggregate_launches_on_card(gen, flat):
     big = max(float(v.abs().max()) for v in out["cpu"].values())
     for k, v in out["cpu"].items():
         assert float((out["cuda"][k].cpu() - v).abs().max()) <= 1e-5 * big
+
+
+def _faulted_round_inputs(device, m=4):
+    """Softmax 784x10 on 12 clients, one round's batches and keys for M
+    clients (H = 2, b2 = 6), on ``device``."""
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.sim.store import sample_batches, sample_participants
+    from repro_torch.workloads import neural
+
+    task = neural.make_task("softmax", n_train=600, n_test=60,
+                            n_features=784, n_classes=10, n_clients=12,
+                            device=device)
+    cfg = FedZOConfig(n_devices=12, n_participating=m, local_iters=2, b1=8,
+                      b2=6, flat_params=True, aircomp=True, snr_db=5.0)
+    ks = prng.split(prng.key(5), 3)
+    idx = sample_participants(ks[0], 12, m)
+    batches = sample_batches(task.store, idx, ks[1], 2, 8)
+    return (task, cfg, neural.params_init(task, 0), batches,
+            prng.split(ks[2], m))
+
+
+@pytest.mark.parametrize("aircomp", [True, False], ids=["aircomp", "mean"])
+def test_poisoned_equals_masked_on_card(gen, aircomp):
+    """Softmax 784x10 (n_pad 65,536), M = 4: a NaN upload with the guard
+    on gives weights bitwise those of the round with that client masked,
+    through ``aircomp_reduce`` and the noise ``zo_walk`` (or the masked
+    mean), with the plain round's launches; the poisoned round on the card
+    within 1e-3 of the CPU's (at the default lr 1e-3 the weights move by
+    up to 0.028 in the round; port against the reference on the CPU reads
+    2.4e-5: a loss ulp moves a ZO coefficient by d·ulp/μ ≈ 1.9 here)."""
+    import dataclasses
+
+    from repro_torch.core import fedzo
+    from repro_torch.sim import FaultModel, RoundFaults
+
+    bad = torch.tensor([False, True, False, False])
+    rfs = {"poisoned": RoundFaults(FaultModel(p_corrupt=0.5),
+                                   torch.ones(4, dtype=torch.bool), bad),
+           "masked": RoundFaults(FaultModel(), ~bad, torch.zeros_like(bad))}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task, cfg, p0, batches, rngs = _faulted_round_inputs(dev)
+        cfg = dataclasses.replace(cfg, aircomp=aircomp)
+        for name, rf in rfs.items():
+            if dev == "cpu" and name == "masked":
+                continue
+            ops.reset_launches()
+            out[dev, name] = fedzo.round_simulated(
+                task.loss, p0, batches, rngs, cfg, channel_rng=prng.key(2),
+                faults=rf)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert dict(ops.LAUNCHES) == chip_smoke.round_launches(
+                    ops, cfg, 1)
+    for k, v in out["cuda", "poisoned"][0].items():
+        assert bool(torch.isfinite(v).all())
+        assert torch.equal(v, out["cuda", "masked"][0][k]), k
+        assert float((v.cpu() - out["cpu", "poisoned"][0][k]).abs().max()) \
+            <= 1e-3, k
+    assert float(out["cuda", "poisoned"][1]["m_effective"]) == 3.0
+
+
+@pytest.mark.parametrize("mode", ["nan", "inf"])
+def test_guard_off_poison_reaches_weights_on_card(gen, mode):
+    """The guard off: a NaN upload NaNs the AirComp mean and Δ_max; an Inf
+    upload from a client the channel masks (row coefficient 0) still NaNs
+    the mean, as 0·inf does in the reference's einsum: no kernel skips a
+    zero-coefficient row, no max swallows a NaN."""
+    from repro_torch.core import fedzo
+    from repro_torch.sim import ChannelModel, FaultModel, RoundChannel
+    from repro_torch.sim import RoundFaults
+
+    task, cfg, p0, batches, rngs = _faulted_round_inputs("cuda")
+    bad = torch.tensor([False, True, False, False])
+    chan = RoundChannel(ChannelModel(), torch.ones(4, dtype=torch.complex64),
+                        ~bad if mode == "inf" else torch.ones(
+                            4, dtype=torch.bool))
+    new, met = fedzo.round_simulated(
+        task.loss, p0, batches, rngs, cfg, channel_rng=prng.key(2),
+        channel=chan, faults=RoundFaults(
+            FaultModel(p_corrupt=0.5, corrupt_mode=mode, guard=False),
+            torch.ones(4, dtype=torch.bool), bad))
+    assert not all(bool(torch.isfinite(v).all()) for v in new.values())
+    assert math.isfinite(float(met["delta_max"])) == (mode == "inf")
+
+
+def test_kill_and_resume_bitwise_on_card(gen, tmp_path):
+    """Softmax 24x4 under faults and an energy-gated channel on the card:
+    6 rounds in 2-round segments, and killed after 2 segments then
+    resumed, are bitwise the single-shot run (weights, metrics, evals,
+    key, chains)."""
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.sim import ChannelModel, FaultModel
+    from repro_torch.workloads import neural
+
+    task = neural.make_task("softmax", n_train=320, n_test=96, n_clients=6,
+                            n_features=24, n_classes=4, alpha=0.5,
+                            device="cuda")
+    cfg = FedZOConfig(n_devices=6, n_participating=3, local_iters=2, b1=8,
+                      b2=4, lr=5e-2, seed=11, flat_params=True,
+                      flat_block_rows=4, aircomp=True, channel_schedule=True,
+                      h_min=0.3, channel_model=ChannelModel(
+                          rho=0.8, battery=4.0, tx_cost=1.0))
+    kw = dict(faults=FaultModel(p_fail=0.2, p_recover=0.5, p_corrupt=0.2),
+              eval_rows=96)
+    one = neural.run(task, cfg, 6, **kw)
+    chunked = neural.run(task, cfg, 6, checkpoint_every=2,
+                         checkpoint_dir=str(tmp_path / "a"), **kw)
+    d = str(tmp_path / "b")
+    assert neural.run(task, cfg, 6, checkpoint_every=2, checkpoint_dir=d,
+                      max_segments=2, **kw).rounds == 4
+    resumed = neural.run(task, cfg, 6, checkpoint_every=2, checkpoint_dir=d,
+                         resume=True, **kw)
+    assert chip_smoke._same_run(torch, one, chunked)
+    assert chip_smoke._same_run(torch, one, resumed)

@@ -99,9 +99,17 @@ def test_unported_architectures_and_routes_raise():
     model = api.build(cfg)
     with pytest.raises(NotImplementedError):
         model.prefill({}, {}, 16)
-    with pytest.raises(NotImplementedError):
-        fedzo.make_train_step(model.loss, FedZOConfig(
-            channel_model=object()))({}, {}, prng.key(0))
+    # the wireless channel model is ported; the train step ignores it, as
+    # the reference's does
+    from repro_torch.sim import ChannelModel
+    params = model.init(prng.key(0), device="cpu")
+    toks = torch.arange(16, dtype=torch.int32).reshape(2, 8) % cfg.vocab
+    batch = {"tokens": toks, "labels": toks}
+    steps = [fedzo.make_train_step(model.loss, FedZOConfig(
+        b2=2, mu=1e-2, channel_model=cm))(params, batch, prng.key(1))[0]
+        for cm in (None, ChannelModel(rho=0.5))]
+    for a, b in zip(*(tflat._leaves(p) for p in steps)):
+        assert torch.equal(a[1], b[1]), a[0]
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             model.init(prng.key(0))

@@ -239,19 +239,29 @@ def test_ledger_matches_reference():
 
 
 def test_unported_routes_raise():
-    """Fault injection, the wireless channel model, a store that is not a
-    ``ClientStore`` (the tiered ``HostStore``) and the tracer raise
-    ``NotImplementedError``; the reference's own checks stay
-    ValueErrors."""
+    """A store that is not a ``ClientStore`` (the tiered ``HostStore``)
+    raises ``NotImplementedError``. Fault injection and the wireless
+    channel model build on the store path and raise the reference's
+    ValueErrors without a store; a tracer builds on either driver; the
+    reference's own checks stay ValueErrors."""
+    from repro_torch.obs import Tracer
+    from repro_torch.sim import ChannelModel, FaultModel
     tt = tneural.make_task("softmax", device="cpu", **TASK)
     p0 = tneural.params_init(tt, 11)
     cfg = FedZOConfig(**BASE)
-    for kw in (dict(faults=object()), dict(tracer=object()),
-               dict(store=object()),
-               dict(cfg=FedZOConfig(**BASE, channel_model=object()))):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        FedServer(tt.loss, p0, tt.clients, cfg, store=object())
+    cm_cfg = FedZOConfig(**BASE, channel_model=ChannelModel(rho=0.5))
+    for kw, match in ((dict(faults=FaultModel(p_fail=0.1)), "fault"),
+                      (dict(cfg=cm_cfg), "channel_model")):
         kw = {"cfg": cfg, **kw}
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match=match):
             FedServer(tt.loss, p0, tt.clients, **kw)
+        assert FedServer(tt.loss, p0, tt.clients, store=tt.store,
+                         **kw)._sim_step is not None
+    for store in (None, tt.store):
+        assert FedServer(tt.loss, p0, tt.clients, cfg, store=store,
+                         tracer=Tracer()).tracer is not None
     with pytest.raises(ValueError, match="needs the engine round step"):
         FedServer(tt.loss, p0, tt.clients, cfg, strategy="scaffold")
     with pytest.raises(ValueError, match="n_devices"):

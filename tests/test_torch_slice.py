@@ -86,7 +86,7 @@ def test_round_draws_are_bitwise_equal(name):
     jkey, tkey = jsim.experiment_key(jcfg), tengine.experiment_key(jcfg)
     for _ in range(spec["rounds"]):
         jkey, jp, jb, jz, jc = jsim.engine.round_keys(jkey)
-        tkey, tp, tb, tz, tc = tengine.split_round_keys(tkey)
+        tkey, tp, tb, tz, tc = tengine.round_keys(tkey)
         for a, b in ((jkey, tkey), (jz, tz), (jc, tc)):
             np.testing.assert_array_equal(
                 np.asarray(jax.random.key_data(a)).astype(np.int64),
@@ -196,16 +196,23 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 def test_unported_routes_raise():
     """The routes the port does not have raise; the wide-only conventions
     without ``batch_directions`` and flat coordinate directions raise the
-    reference's ValueError. Every registered strategy and a seed-compressed
-    config build a round step (they are ported); an unknown strategy
-    raises the reference's ValueError."""
+    reference's ValueError. Every registered strategy, a seed-compressed
+    config and a wireless channel model (with and without faults) build a
+    round step (they are ported); an unknown strategy raises the
+    reference's ValueError."""
     from repro_torch.configs.base import FedZOConfig
+    from repro_torch.sim import ChannelModel, FaultModel
     for kw in (dict(direction_conv="surrogate"),
                dict(direction_conv="channel"),
-               dict(channel_model=object()),
                dict(flat_params=True, estimator="coordinate")):
         with pytest.raises((NotImplementedError, ValueError)):
             tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(**kw))
+    cm = ChannelModel(rho=0.5, battery=2.0)
+    assert callable(tengine.make_round_step(
+        lambda p, b: 0.0, FedZOConfig(channel_model=cm)))
+    assert callable(tengine.make_round_step(
+        lambda p, b: 0.0, FedZOConfig(channel_model=cm, flat_params=True),
+        faults=FaultModel(p_fail=0.1)))
     for kw in (dict(delta_compression="seed"),
                dict(batch_directions=True, delta_compression="seed")):
         assert callable(tengine.make_round_step(lambda p, b: 0.0,
