@@ -145,6 +145,26 @@ each of which raises on a failure (the script then exits non-zero):
        round.
    Then the 6-round run of (b) on the CPU against the card's: the chains
    and masks equal, the weights within 1e-3.
+7. Phase "tiered, hypertune and kernel timing" (budget 90 s, the data's
+   generation included), each part's seconds and peak memory printed, each
+   number with the card's name and power limit:
+   (a) tiered_100k: softmax 784x10 over N = 100,000 ragged clients of 6-12
+       rows (seed 1) in a 4-bucket ``HostStore``; 16 flat rounds (M = 32,
+       H = 2, b1 = 4, b2 = 20, lr 1e-3, mu 1e-3) in segments of 4, the next
+       segment staged on a worker thread into pinned buffers and copied on
+       a side stream; then the same run on the resident store: params, key
+       and metrics bitwise, exact launches, ms a round of each tier and the
+       overhead, stall_pct, host bytes, the staged device bytes (two
+       segments under 2 % of the resident store) and each run's peak.
+   (b) tiered_aircomp_faulted: the same population, flat AirComp under
+       faults and an energy-gated channel, 8 rounds: single-shot, killed
+       after one 4-round segment and resumed, and resident, all bitwise.
+   (c) hypertune: ``make_task()`` at the reference's defaults, 10 rounds on
+       the pytree and the flat route, exact launches, each within 1e-4 of
+       the CPU's run, the validation loss falling by a fifth.
+   (d) ``obs.kernel_report`` at the softmax pad and at the Qwen2-0.5B flat
+       pad: measured us beside the 3.35 TB/s model, the full-width times
+       within 10 % of the kernel table's.
 
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
@@ -254,34 +274,17 @@ def smi_line():
 
 def median_ms(torch, fn, reps, trials=3):
     """Device time of one ``fn()`` call: CUDA events around ``reps`` calls
-    enqueued back to back, median over ``trials``.
+    enqueued back to back, median over ``trials``
+    (``obs.kernel_timing.device_ms``).
 
     A wrapper's host work (checks, allocation, the ctypes call) takes longer
     than a small kernel runs, so events around calls issued one by one would
-    time the host. Here a ``torch.cuda._sleep`` spin holds the stream while
+    time the host. There a ``torch.cuda._sleep`` spin holds the stream while
     the host enqueues all ``reps`` calls, and the events bracket only the
     calls, which then run back to back on the device.
     """
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int((2 * enqueue_s + 2e-3) * 2e9))  # ~2 GHz clock
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    times.sort()
-    return times[len(times) // 2]
+    from repro_torch.obs.kernel_timing import device_ms
+    return device_ms(fn, reps, trials)
 
 
 def ulp_err(torch, got, want, scale):
@@ -2506,9 +2509,12 @@ def run_faulted_qwen_round(torch, ops, FedZOConfig):
 
 def _same_run(torch, a, b):
     """Whether two engine results are bitwise equal: weights, metrics,
-    evals, key, fault and channel state."""
-    pairs = [(a.key, b.key), (a.fault_state, b.fault_state),
-             *zip(a.channel_state, b.channel_state)]
+    evals, key, and the fault and channel states where the run has them."""
+    pairs = [(a.key, b.key)]
+    if a.fault_state is not None or b.fault_state is not None:
+        pairs.append((a.fault_state, b.fault_state))
+    if a.channel_state is not None or b.channel_state is not None:
+        pairs += zip(a.channel_state, b.channel_state)
     pairs += [(a.metrics[k], b.metrics[k]) for k in a.metrics]
     pairs += [(a.evals[k], b.evals[k]) for k in a.evals]
     return (sorted(a.metrics) == sorted(b.metrics)
@@ -2796,6 +2802,300 @@ def check_faulted_reference(torch, neural, FedZOConfig, card):
           f"chains and masks equal")
 
 
+# Phase "tiered, hypertune and kernel timing": the tiered client store at
+# the paper's partial participation, federated hyperparameter tuning and the
+# kernel-timing harness. The population: softmax 784x10 (Sec. V-B width)
+# over N = 100,000 ragged clients of 6-12 rows, seed 1 (the reference's
+# tiered population, examples/tiered_scale.py, at the track's width); the
+# round: the reference's scale100k round on the flat route (M = 32, H = 2,
+# b1 = 4, b2 = 20, lr 1e-3, mu 1e-3, threefry).
+TIERED_N, TIERED_ROWS, TIERED_BUCKETS = 100_000, (6, 13), 4
+TIERED_ROUNDS, TIERED_SEGMENT = 16, 4
+TIERED_FAULT_KW = dict(p_fail=0.1, p_recover=0.5, p_corrupt=0.1)
+TIERED_FAULT_ROUNDS, TIERED_CKPT = 8, 4
+# hypertune on the card against the CPU: the same tolerance as the port
+# against the reference (tests/test_torch_hypertune.py)
+HYPERTUNE_ROUNDS, HYPERTUNE_ATOL = 10, 1e-4
+# kernel_report at the softmax pad and at the Qwen2-0.5B flat pad, held to
+# within 10 % of the kernel table's full-width times (PERF.md section 6,
+# the phase "full width" timings of earlier runs): zo_walk 5.755 ms,
+# zo_replay (b2 8) 22.74 ms, aircomp_reduce [4, n] 3.202 ms
+KERNEL_REPORT_SIZES = ((N_PAD, B2, M), (QWEN_N_PAD, QWEN_B2, QWEN_M))
+KERNEL_TABLE_MS = {"zo_walk": 5.755, "zo_replay": 22.74,
+                   "aircomp_reduce": 3.202}
+
+
+class _RoundClock:
+    """A metrics sink that stamps the host clock at every tapped round (the
+    tap syncs the round's metrics, in either tier alike)."""
+
+    def __init__(self):
+        self.stamps = []
+
+    def write(self, row):
+        self.stamps.append(time.perf_counter())
+
+    def close(self):
+        pass
+
+
+def _round_ms(clock, skip):
+    """(mean, median) ms a round over the rounds after the first ``skip``
+    (one segment). The mean carries the tiered runner's per-segment work
+    (the next segment's plan, the wait on its staging), which falls on one
+    round in a segment and which the median leaves out."""
+    gaps = [b - a for a, b in zip(clock.stamps, clock.stamps[1:])][skip - 1:]
+    mean = 1e3 * sum(gaps) / len(gaps)
+    gaps.sort()
+    return mean, 1e3 * gaps[len(gaps) // 2]
+
+
+def tiered_population():
+    """The N = 100,000 ragged clients (host numpy views of one pool)."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_classification
+    rng = np.random.default_rng(1)
+    sizes = rng.integers(*TIERED_ROWS, size=TIERED_N)
+    x, y = make_classification(int(sizes.sum()), 784, 10, seed=1)
+    ends = np.cumsum(sizes)
+    return [{"x": x[e - s:e], "y": y[e - s:e]} for s, e in zip(sizes, ends)]
+
+
+def run_tiered_100k(torch, ops, FedZOConfig, smi, tmp):
+    """Parts (a) and (b). (a) the population built into a ``HostStore`` (4
+    buckets); 16 rounds through ``sim.run_experiment`` in segments of 4,
+    prefetched, then the same experiment on the resident ``ClientStore``
+    (``to_resident``, bitwise ``build_store``): params, key and metrics
+    ring bitwise, exact and equal launches, ms a round of each tier after
+    the first segment (a tap every round; mean and median), the overhead
+    of the means, the stall share, host bytes, the staged device bytes (two segments in flight
+    under 2 % of the resident store) and each run's peak memory. (b) the
+    flat AirComp round under faults and an energy-gated channel, 8 rounds:
+    single-shot, killed after one 4-round segment and resumed, and
+    resident, all bitwise. Returns the launches."""
+    from repro_torch import sim
+    from repro_torch.models.simple import softmax_init, softmax_loss
+
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def add():
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+
+    t0 = time.perf_counter()
+    clients = tiered_population()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = sim.build_host_store(clients, n_buckets=TIERED_BUCKETS)
+    del clients
+    build_s = time.perf_counter() - t0
+    print(f"tiered population: N {host.n_clients}, {int(host.sizes.sum())} "
+          f"rows of 784 features, buckets {[b.cap for b in host.buckets]} "
+          f"rows; generated in {gen_s:.1f} s, bucketed in {build_s:.1f} s; "
+          f"host store {host.nbytes / 1e9:.3f} GB [{smi}]")
+    cfg = FedZOConfig(n_devices=TIERED_N, n_participating=32,
+                      local_iters=2, lr=1e-3, mu=1e-3, b1=4, b2=20,
+                      flat_params=True)
+    want = round_launches(ops, cfg, TIERED_ROUNDS)
+
+    def timed_run(store, **kw):
+        clock = _RoundClock()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        res = sim.run_experiment(softmax_loss, softmax_init(784, 10), store,
+                                 cfg, TIERED_ROUNDS, sink=clock,
+                                 tap_every=1, **kw)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        add()
+        check(launches == want,
+              f"tiered_100k launches {launches} != {want}")
+        return (res, _round_ms(clock, TIERED_SEGMENT),
+                torch.cuda.max_memory_allocated())
+
+    tier, tier_ms, tier_peak = timed_run(host, stream_segment=TIERED_SEGMENT)
+    pf = tier.prefetch
+    t0 = time.perf_counter()
+    resident = host.to_resident(device="cuda")
+    torch.cuda.synchronize()
+    res_bytes = sum(v.numel() * v.element_size()
+                    for v in resident.data.values())
+    print(f"tiered resident store: {res_bytes / 1e9:.3f} GB on the card, "
+          f"materialized in {time.perf_counter() - t0:.1f} s [{smi}]")
+    res, res_ms, res_peak = timed_run(resident)
+    check(_same_run(torch, tier, res),
+          "tiered_100k: tiered and resident runs differ")
+    staged = 2 * pf["device_segment_bytes_max"]
+    check(staged < 0.02 * res_bytes,
+          f"tiered_100k: {staged} staged bytes >= 2 % of {res_bytes}")
+    losses = [round(float(v), 5) for v in tier.metrics["mean_local_loss"]]
+    check(all(math.isfinite(v) for v in losses),
+          f"tiered_100k: losses {losses}")
+    print(f"tiered_100k (N {TIERED_N}, M 32, H 2, b1 4, b2 20, flat, "
+          f"{TIERED_ROUNDS} rounds, segments of {TIERED_SEGMENT}): ms/round "
+          f"after the first segment, mean (median): tiered {tier_ms[0]:.2f} "
+          f"({tier_ms[1]:.2f}), resident {res_ms[0]:.2f} ({res_ms[1]:.2f}); "
+          f"overhead {100 * (tier_ms[0] / res_ms[0] - 1):+.2f} %; stall_pct "
+          f"{pf['stall_pct']:.3f} ({pf['stall_s'] * 1e3:.2f} ms of "
+          f"{pf['wall_s']:.3f} s), staging {pf['stage_s'] * 1e3:.1f} ms on "
+          f"the worker; host bytes {pf['host_bytes']}, "
+          f"device_segment_bytes_max {pf['device_segment_bytes_max']} "
+          f"({100 * staged / res_bytes:.3f} % of the resident store for two "
+          f"segments); peak memory tiered {tier_peak / 2**30:.3f} GiB, "
+          f"resident {res_peak / 2**30:.3f} GiB (its store "
+          f"{res_bytes / 2**30:.3f} GiB); bitwise equal; launches "
+          f"{want} [{smi}]")
+
+    fcfg = FedZOConfig(n_devices=TIERED_N, n_participating=32,
+                       local_iters=2, lr=1e-3, mu=1e-3, b1=4, b2=20,
+                       flat_params=True, aircomp=True, channel_schedule=True,
+                       snr_db=5.0,
+                       channel_model=sim.ChannelModel(**CHANNEL_KW))
+    faults = sim.FaultModel(**TIERED_FAULT_KW)
+    fwant = round_launches(ops, fcfg, TIERED_FAULT_ROUNDS)
+    runs, times = {}, {}
+    d = os.path.join(tmp, "tiered_ckpt")
+    for name, store, kw in (
+            ("single", host, {}),
+            ("killed", host, dict(checkpoint_every=TIERED_CKPT,
+                                  checkpoint_dir=d, max_segments=1)),
+            ("resumed", host, dict(checkpoint_every=TIERED_CKPT,
+                                   checkpoint_dir=d, resume=True)),
+            ("resident", resident, {})):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = sim.run_experiment(
+            softmax_loss, softmax_init(784, 10), store, fcfg,
+            TIERED_FAULT_ROUNDS, faults=faults, stream_segment=TIERED_SEGMENT,
+            **kw)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        add()
+        if name in ("single", "resident"):
+            check(launches == fwant, f"tiered_aircomp_faulted {name}: "
+                  f"launches {launches} != {fwant}")
+    check(runs["killed"].rounds == TIERED_CKPT
+          and runs["resumed"].rounds == TIERED_FAULT_ROUNDS,
+          "tiered_aircomp_faulted: the kill or the resume stopped early")
+    for name in ("resumed", "resident"):
+        check(_same_run(torch, runs["single"], runs[name]),
+              f"tiered_aircomp_faulted: {name} differs from single-shot")
+    m_eff = runs["single"].metrics["m_effective"].cpu().tolist()
+    print(f"tiered_aircomp_faulted (N {TIERED_N}, M 32, flat AirComp, "
+          f"faults {TIERED_FAULT_KW}, channel {CHANNEL_KW}, "
+          f"{TIERED_FAULT_ROUNDS} rounds): single-shot "
+          f"{times['single']:.2f} s, killed after {TIERED_CKPT} rounds and "
+          f"resumed {times['killed'] + times['resumed']:.2f} s, resident "
+          f"{times['resident']:.2f} s; all bitwise equal; m_effective "
+          f"{m_eff}; launches a run {fwant} [{smi}]")
+    del resident
+    return total
+
+
+def run_hypertune(torch, ops, FedZOConfig, smi):
+    """Part (c): ``hypertune.make_task()`` at the reference's defaults on
+    the card, 10 rounds with the eval every 2 on the pytree route
+    (``default_config``) and on the flat route, exact launches; each
+    against the same run on the CPU (the hyperparameters and evals within
+    ``HYPERTUNE_ATOL``); the pooled validation loss falls by a fifth.
+    Returns the launches."""
+    from repro_torch.workloads import hypertune
+
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    task = hypertune.make_task(device="cuda")
+    cpu_task = hypertune.make_task(device="cpu")
+    for route, kw in (("pytree", {}),
+                      ("flat", dict(flat_params=True, flat_block_rows=4))):
+        cfg = hypertune.default_config(task, **kw)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = hypertune.run(task, cfg, HYPERTUNE_ROUNDS, eval_every=2)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / HYPERTUNE_ROUNDS
+        want = round_launches(ops, cfg, HYPERTUNE_ROUNDS, n_leaves=1)
+        check(dict(ops.LAUNCHES) == want, f"hypertune {route}: launches "
+              f"{dict(ops.LAUNCHES)} != {want}")
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+        t0 = time.perf_counter()
+        cpu = hypertune.run(cpu_task, cfg, HYPERTUNE_ROUNDS, eval_every=2)
+        cpu_s = time.perf_counter() - t0
+        worst = max([float((res.params["h"].cpu() - cpu.params["h"])
+                           .abs().max())]
+                    + [float((res.evals[k].cpu() - cpu.evals[k]).abs().max())
+                       for k in res.evals])
+        check(worst <= HYPERTUNE_ATOL, f"hypertune {route}: card vs CPU "
+              f"max |diff| {worst}")
+        val = [round(float(v), 5) for v in res.evals["val_loss"].cpu()]
+        lr = [round(float(v), 5) for v in res.evals["log_lr"].cpu()]
+        check(val[-1] < 0.8 * val[0] and lr[-1] > lr[0],
+              f"hypertune {route}: val_loss {val}, log_lr {lr}")
+        print(f"hypertune {route} (N 8, M 4, H 2, b2 6, {HYPERTUNE_ROUNDS} "
+              f"rounds): {ms:.1f} ms/round; val_loss by eval {val}; log_lr "
+              f"{lr}; card vs CPU max |diff| {worst:.3e} (limit "
+              f"{HYPERTUNE_ATOL}; CPU run {cpu_s:.1f} s); launches {want} "
+              f"[{smi}]")
+    return total
+
+
+def run_kernel_report(torch, ops, smi):
+    """Part (d): ``obs.kernel_timing.kernel_report`` on the card at the
+    softmax pad (n 65,536, b2 20, m 10) and the Qwen2-0.5B flat pad (n
+    494,075,904, b2 8, m 4), measured us beside the 3.35 TB/s model; the
+    full-width times within 10 % of the kernel table's."""
+    from repro_torch.obs import kernel_report
+
+    for n, b2, m in KERNEL_REPORT_SIZES:
+        rows = kernel_report(n=n, b2=b2, m=m)
+        for r in rows:
+            check(math.isfinite(r.measured_us) and r.measured_us > 0,
+                  f"kernel_report {r.name}: {r.measured_us}")
+            print(f"kernel_report {r.name}: {r.measured_us:.3f} us, model "
+                  f"{r.model_us:.3f} us ({r.hbm_passes:g} passes, "
+                  f"{r.hbm_bytes} bytes), {r.model_us / r.measured_us:.1%} "
+                  f"of the byte model [{smi}]")
+            if n == QWEN_N_PAD:
+                kernel = r.name.split("_n")[0].split("_m")[0]
+                ref = KERNEL_TABLE_MS[kernel]
+                got = r.measured_us / 1e3
+                check(abs(got / ref - 1) <= 0.10,
+                      f"kernel_report {r.name}: {got:.4f} ms is not within "
+                      f"10 % of the table's {ref} ms")
+        torch.cuda.empty_cache()
+
+
+def run_tiered_hypertune(torch, ops, FedZOConfig):
+    """Phase "tiered, hypertune and kernel timing", parts (a)-(d). Prints
+    each part's seconds and peak memory; returns the launches of (a)-(c)
+    (the harness's timing launches of (d) are not a main path's)."""
+    import tempfile
+    smi = smi_line()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (
+                ("tiered", lambda: run_tiered_100k(torch, ops, FedZOConfig,
+                                                   smi, tmp)),
+                ("hypertune", lambda: run_hypertune(torch, ops, FedZOConfig,
+                                                    smi)),
+                ("kernel report", lambda: run_kernel_report(torch, ops,
+                                                            smi))):
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            got = fn()
+            print(f"part {name}: {time.perf_counter() - t:.1f} s, peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB")
+            torch.cuda.empty_cache()
+            for k in (got or {}):
+                total[k] += got[k]
+    ops.reset_launches()
+    return total
+
+
 def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
@@ -2955,6 +3255,10 @@ def main(argv):
         launches[k] += n
     timed("faults references", lambda: check_faulted_reference(
         torch, neural, FedZOConfig, faulted))
+    for k, n in timed("tiered, hypertune and kernel timing",
+                      lambda: run_tiered_hypertune(torch, ops,
+                                                   FedZOConfig)).items():
+        launches[k] += n
     if args.profile:
         timed("profiles", lambda: (
             profile_round(torch, neural, FedZOConfig, args.profile),

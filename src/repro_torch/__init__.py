@@ -15,8 +15,12 @@ injection (``sim/faults.py``), the wireless scenario's correlated fading and
 energy gating (``sim/channel.py``), durable checkpointed runs with
 divergence rollback (``sim/engine.py``, ``checkpoint/``), the metric taps,
 trace spans and run manifests (``obs/``), scenario sweeps
-(``sim/sweep.py``) and the paper's Sec. V-A federated black-box attack
-(``workloads/attack.py``). It never imports ``jax`` or ``repro``.
+(``sim/sweep.py``), the tiered client store that keeps the population in
+host memory and streams the sampled cohorts to the card
+(``sim/tiered.py``), the paper's Sec. V-A federated black-box attack
+(``workloads/attack.py``), federated hyperparameter tuning
+(``workloads/hypertune.py``) and the kernel-timing harness
+(``obs/kernel_timing.py``). It never imports ``jax`` or ``repro``.
 
 Randomness follows jax's raw Threefry-2x32 key chain
 (``repro_torch.utils.prng``), so a run from a seed draws the same clients,

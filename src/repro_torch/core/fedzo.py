@@ -45,9 +45,9 @@ scrubbed in place before the aggregation) and its realized wireless channel
 scheduling draw); a ``delta_compression="seed"`` config runs the same dense
 round, as in the reference (the seed-compressed uplink itself is
 ``fed/server.run_seed_compressed_round``, ``core/seedcomm.py``). The
-reference's other deployments of this round, the sharded round
-(``sim/shard.py``) and the tiered store's cohort round
-(``sim/tiered.py``), are not ported.
+tiered store's cohort round (``sim/engine.make_cohort_round_step``) runs
+this round on staged cohorts; the sharded round (``sim/shard.py``) is not
+ported.
 """
 from __future__ import annotations
 

@@ -30,9 +30,10 @@ spans on ``run(driver="scan")``.
 ``run_seed_compressed_round`` is the digital uplink (``core/seedcomm.py``):
 each client ships (key, coefficients), the server replays them.
 
-A store that is not a ``ClientStore`` (the reference's tiered
-``HostStore``) raises ``NotImplementedError``: the tiered store is not
-ported.
+``store=`` takes either tier: a tiered ``HostStore`` materializes on the
+parameters' device through ``sim.tiered.resolve_store(store,
+tier="resident")``, bitwise ``build_store`` on the same clients; anything
+else raises the reference's ``TypeError``.
 """
 from __future__ import annotations
 
@@ -52,7 +53,6 @@ from repro_torch.obs.ledger import CommsLedger
 from repro_torch.sim import channel as channel_lib
 from repro_torch.sim import engine as sim_engine
 from repro_torch.sim.faults import DivergenceError, FaultModel
-from repro_torch.sim.store import ClientStore
 from repro_torch.utils import prng
 from repro_torch.utils.tree import (tree_add, tree_bytes, tree_leaves,
                                     tree_stack, tree_zeros_like)
@@ -84,11 +84,12 @@ class FedServer:
         if self.clients is None and self.store is None:
             raise ValueError("FedServer needs client datasets: pass "
                              "clients=[...] and/or store=ClientStore")
-        if self.store is not None and not isinstance(self.store,
-                                                     ClientStore):
-            raise NotImplementedError(
-                "store= takes a ClientStore; the tiered HostStore "
-                "(sim/tiered.py) is not ported")
+        if self.store is not None:
+            # either tier plugs in: the round step reads a resident store,
+            # so a HostStore materializes here (bitwise build_store)
+            from repro_torch.sim.tiered import resolve_store
+            self.store = resolve_store(self.store, tier="resident",
+                                       device=estimator._device(self.params))
         if self.faults is not None and self.store is None:
             raise ValueError("fault injection runs inside the round step "
                              "— construct the FedServer with a "

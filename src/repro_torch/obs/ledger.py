@@ -1,7 +1,7 @@
 """Per-round communication ledger.
 
-Counterpart of ``repro/obs/ledger.py:28-153`` (``CommsLedger``; the
-tiered store's staging columns are not ported). One byte model per run: the
+Counterpart of ``repro/obs/ledger.py:28-153`` (``CommsLedger``, with the
+tiered store's staging columns). One byte model per run: the
 per-client uplink under the run's wire format (a dense delta, the
 seed-compressed message of ``core/seedcomm.py``, or the analog AirComp
 symbols, costed at their dense-equivalent count), the per-client downlink
@@ -10,7 +10,8 @@ cumulative figure of a history row derives from it. The columns are
 deterministic in the round index and the row's own ``m_effective``, so the
 engine's rows and ``FedServer``'s host rows agree. Under an energy-gated
 wireless scenario (``sim/channel.py``) each row also gets the energy its
-transmitting clients spent.
+transmitting clients spent, and on a tiered run (``sim/tiered.py``) the
+round's dominating bucket and the bytes staged for it.
 """
 from __future__ import annotations
 
@@ -81,7 +82,8 @@ class CommsLedger:
         return self.round_dense_bytes() / max(1, self.round_uplink_bytes())
 
     # -- history annotation --------------------------------------------------
-    def annotate(self, rows: list) -> list:
+    def annotate(self, rows: list, staging: dict = None, *,
+                 start_round: int = 0) -> list:
         """Add the ledger columns to history rows in place (and return
         them): per-round ``wire_bytes``, ``dense_bytes``,
         ``downlink_bytes``, the cumulative ``wire_bytes_total`` and
@@ -109,6 +111,10 @@ class CommsLedger:
                 if self.tx_energy_client > 0.0:
                     row["energy_spent"] = float(
                         row["m_effective"] * self.tx_energy_client)
+            if staging is not None:
+                srow = staging.get(t - start_round)
+                if srow:
+                    row.update(srow)
         return rows
 
     def manifest(self) -> dict:

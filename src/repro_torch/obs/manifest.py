@@ -4,8 +4,9 @@ Counterpart of ``repro/obs/manifest.py``, with the same keys: the config
 and its hash (``checkpoint.config_hash``, as the snapshot sidecars record
 it, so a manifest and a checkpoint of one run cross-check), the strategy,
 the versions, the git sha of the tree, the device topology, the comms
-ledger, the fault and wireless-scenario blocks and the run's event stream
-(divergence rollbacks). The versions block names torch and CUDA where the
+ledger, the fault and wireless-scenario blocks, the run's event stream
+(divergence rollbacks) and, on a tiered run, its staging block
+(``tiered_block``). The versions block names torch and CUDA where the
 reference names jax; ``topology`` reads ``torch.cuda``.
 
 ``sim.run_experiment`` writes one beside durable checkpoints
@@ -89,6 +90,16 @@ def build_manifest(cfg=None, *, strategy: Optional[str] = None,
     if extra:
         md.update(extra)
     return md
+
+
+def tiered_block(store, *, stream_segment: int, prefetch: bool) -> dict:
+    """The tiered run's manifest block (``sim/tiered.py``): the host
+    store's bucket count and bytes, the segment length the stream ran at
+    and whether staging overlapped compute. Merge it through ``extra``."""
+    return {"tiered": {"n_buckets": store.n_buckets,
+                       "stream_segment": int(stream_segment),
+                       "host_bytes": store.nbytes,
+                       "prefetch": bool(prefetch)}}
 
 
 def write_manifest(path: str, manifest: dict) -> str:

@@ -35,8 +35,13 @@ reference's layout). A killed run resumes bitwise (``resume=True``); a
 segment whose carry comes back non-finite rolls back to the last snapshot
 with the lr scaled by ``lr_backoff``, at most ``max_retries`` times, then
 raises ``DivergenceError``. Runs with a checkpoint dir or a file-backed
-sink write a run manifest. The tiered host store (``sim/tiered.py``) and
-the sharded round (``sim/shard.py``) are not ported.
+sink write a run manifest.
+
+A ``sim.tiered.HostStore`` (the population in host memory) goes to the
+tiered runner (``tiered.run_tiered_experiment``): its rounds are
+``make_cohort_round_step`` over staged cohorts, run by ``stream_core``
+through the same round loop, bitwise the resident run. The sharded round
+(``sim/shard.py``) is not ported.
 """
 from __future__ import annotations
 
@@ -57,8 +62,9 @@ from repro_torch.obs.ledger import CommsLedger
 from repro_torch.obs.taps import RoundTap
 from repro_torch.sim import channel as channel_lib
 from repro_torch.sim.faults import DivergenceError, FaultModel
-from repro_torch.sim.store import (ClientStore, sample_batches,
-                                   sample_participants)
+from repro_torch.sim.channel import RoundChannel
+from repro_torch.sim.store import (ClientStore, CohortBatch, sample_batches,
+                                   sample_cohort_batches, sample_participants)
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import _leaves
 from repro_torch.utils.tree import tree_zeros_like
@@ -91,6 +97,21 @@ def experiment_key(cfg: FedZOConfig):
     return prng.key(cfg.seed)
 
 
+def _step_strategy(strategy, algo, cfg: FedZOConfig, round_fn):
+    """The round step's strategy, resolved and checked against the config
+    and a custom ``round_fn``."""
+    strat = strategy_mod.resolve(strategy, algo, cfg)
+    strat.validate(cfg)
+    if round_fn is not None and not strat.supports_round_fn:
+        raise ValueError(
+            f"strategy {strat.name!r} wraps the local phase with loss/state "
+            f"hooks that a custom round_fn (the sharded round) cannot carry "
+            f"— run it through the default fedzo round")
+    if strat.name != "fedavg":
+        fedzo.check_route(cfg)
+    return strat
+
+
 def make_round_step(loss_fn, cfg: FedZOConfig, *, algo: Optional[str] = None,
                     strategy=None, round_fn=None,
                     faults: Optional[FaultModel] = None) -> Callable:
@@ -101,15 +122,7 @@ def make_round_step(loss_fn, cfg: FedZOConfig, *, algo: Optional[str] = None,
     wireless chain of ``cfg.channel_model``, ``zstate`` the strategy's
     carry; each None when unused. ``round_fn`` replaces
     ``fedzo.round_simulated`` (only for strategies without hooks)."""
-    strat = strategy_mod.resolve(strategy, algo, cfg)
-    strat.validate(cfg)
-    if round_fn is not None and not strat.supports_round_fn:
-        raise ValueError(
-            f"strategy {strat.name!r} wraps the local phase with loss/state "
-            f"hooks that a custom round_fn (the sharded round) cannot carry "
-            f"— run it through the default fedzo round")
-    if strat.name != "fedavg":
-        fedzo.check_route(cfg)
+    strat = _step_strategy(strategy, algo, cfg, round_fn)
     channel = cfg.channel_model
 
     def step(state, store: ClientStore):
@@ -138,6 +151,54 @@ def make_round_step(loss_fn, cfg: FedZOConfig, *, algo: Optional[str] = None,
     return step
 
 
+def make_cohort_round_step(loss_fn, cfg: FedZOConfig, *,
+                           algo: Optional[str] = None, strategy=None,
+                           round_fn=None,
+                           faults: Optional[FaultModel] = None) -> Callable:
+    """One round as a function of a staged cohort instead of a resident
+    store: ``step((params, momentum, key, zstate), CohortBatch) ->
+    ((params', momentum', key', zstate'), metrics)``. The tiered twin of
+    ``make_round_step``, bitwise equal to it:
+
+    - the same per-round split, with ``k_part`` and ``k_chanm`` left
+      unconsumed (the host ``CohortStream`` spent its replicas choosing the
+      staged clients and advancing the wireless chain);
+    - minibatches from ``sample_cohort_batches`` over the staged rows and
+      true sizes, the resident draws and gathers;
+    - faults from ``FaultModel.realize`` on the host-replayed availability
+      slice, the channel as the host-replayed ``RoundChannel``;
+    - ``zstate`` cohort-shaped (``{"client": [M, ...], "server": ...}``)
+      and ``idx = arange(M)``, so the stateful strategies' gather and
+      scatter are identity permutations; the ``[N]`` master stays on the
+      host.
+    """
+    strat = _step_strategy(strategy, algo, cfg, round_fn)
+    channel = cfg.channel_model
+
+    def step(state, cohort: CohortBatch):
+        params, momentum, key, zstate = state
+        key, _k_part, k_batch, k_zo, k_chan, k_fault, _k_chanm = \
+            split_round_keys(key, faults=faults is not None,
+                             channel=channel is not None)
+        batches = sample_cohort_batches(cohort.data, cohort.sizes, k_batch,
+                                        cfg.local_iters, cfg.b1)
+        wkw = ({"weights": aircomp.size_weights(cohort.sizes)}
+               if cfg.weight_by_size else {})
+        if faults is not None:
+            wkw["faults"] = faults.realize(k_fault, cohort.avail)
+        if channel is not None:
+            wkw["channel"] = RoundChannel(model=channel, h=cohort.chan_h,
+                                          mask=cohort.chan_mask)
+        idx = torch.arange(cohort.sizes.shape[0], dtype=torch.int64)
+        params, metrics, momentum, zstate = strat.run_round(
+            loss_fn, params, batches, k_zo, cfg, channel_rng=k_chan,
+            momentum=momentum, zstate=zstate, idx=idx, round_fn=round_fn,
+            **wkw)
+        return (params, momentum, key, zstate), metrics
+
+    return step
+
+
 @dataclass
 class ExperimentResult:
     """One engine run: final ``params`` (and ``momentum``), the carry
@@ -148,7 +209,10 @@ class ExperimentResult:
     (divergence rollbacks); ``strategy`` the algorithm's name and
     ``strategy_state`` its final carry; ``ledger`` the run's
     ``obs.CommsLedger`` and ``manifest`` the run manifest written (None
-    when the run had nowhere to write one)."""
+    when the run had nowhere to write one). Tiered runs also fill
+    ``staging`` (round -> ``{"bucket_id", "staged_bytes"}``, merged into
+    ``history()`` rows) and ``prefetch`` (the stream's stall and byte
+    accounting)."""
     params: Any
     momentum: Any
     key: Any
@@ -164,6 +228,8 @@ class ExperimentResult:
     strategy_state: Any = None
     ledger: Any = None
     manifest: Any = None
+    staging: Any = None
+    prefetch: Any = None
 
     def recorded_rounds(self) -> np.ndarray:
         """Round numbers still present in the ring, oldest to newest."""
@@ -180,9 +246,13 @@ def _run_rounds(step, state, ring, ebuf, t0, t1, store, *, ring_alloc,
     """Rounds ``[t0, t1)``: ring-buffer each round's metrics (slot ``t %
     ring_alloc``), emit the tap's rounds, evaluate every ``eval_every``
     rounds into ``ebuf`` (slot ``t // eval_every``). The buffers are
-    allocated on their first write, with the metric's dtype and device."""
+    allocated on their first write, with the metric's dtype and device.
+    ``store`` is every round's input (a ``ClientStore``), or a list of one
+    input a round (the tiered segment's staged cohorts, round t at
+    ``t - t0``): one loop for both tiers."""
     for t in range(t0, t1):
-        state, metrics = step(state, store)
+        x = store[t - t0] if isinstance(store, list) else store
+        state, metrics = step(state, x)
         slot = t % ring_alloc
         for k, v in metrics.items():
             v = torch.as_tensor(v)
@@ -215,6 +285,43 @@ def _compile_span(tracer, params):
     tracer.compile_once(("kernels", dev.type), build)
 
 
+def stream_core(loss_fn, params, cfg: FedZOConfig, key, momentum, *,
+                strategy=None, zstate=None, xs: CohortBatch, t0: int,
+                total_rounds: int, ring, ebuf, eval_fn=None,
+                eval_every: int = 0, ring_size: int = 0, round_fn=None,
+                faults: Optional[FaultModel] = None, tap=None):
+    """One tiered segment: ``make_cohort_round_step`` over the staged
+    cohort stream ``xs`` (a ``CohortBatch`` whose fields carry a leading
+    ``[S]`` rounds axis), as global rounds ``[t0, t0 + S)`` of a
+    ``total_rounds``-round run. The ring and eval buffers are sized and
+    slotted against the total and threaded through, and the loop is the
+    resident runner's ``_run_rounds``, so the two tiers cannot drift.
+    Returns ``(params, momentum, key, zstate, ring, ebuf)``."""
+    strat = strategy_mod.resolve(strategy, None, cfg)
+    seg = xs.sizes.shape[0]
+    ring_alloc = min(total_rounds, ring_size) if ring_size else total_rounds
+    do_eval = eval_fn is not None and eval_every > 0
+    n_evals = ((total_rounds + eval_every - 1) // eval_every if do_eval
+               else 0)
+    step = make_cohort_round_step(loss_fn, cfg, strategy=strat,
+                                  round_fn=round_fn, faults=faults)
+
+    def at(v, j):
+        return None if v is None else v[j]
+
+    rounds = [CohortBatch(data={k: v[j] for k, v in xs.data.items()},
+                          sizes=xs.sizes[j], avail=at(xs.avail, j),
+                          chan_h=at(xs.chan_h, j),
+                          chan_mask=at(xs.chan_mask, j))
+              for j in range(seg)]
+    state = _run_rounds(step, (params, momentum, key, zstate), ring, ebuf,
+                        t0, t0 + seg, rounds, ring_alloc=ring_alloc,
+                        n_evals=n_evals, eval_fn=eval_fn,
+                        eval_every=eval_every, tap=tap)
+    params, momentum, key, zstate = state
+    return params, momentum, key, zstate, ring, ebuf
+
+
 def run_experiment(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
                    rounds: int, *, algo: Optional[str] = None, strategy=None,
                    eval_fn=None, eval_every: int = 0, ring_size: int = 0,
@@ -225,7 +332,8 @@ def run_experiment(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
                    segment_callback=None, max_retries: int = 3,
                    lr_backoff: float = 0.5, sink=None,
                    tap_every: Optional[int] = None,
-                   tracer=None) -> ExperimentResult:
+                   tracer=None, stream_segment: int = 8,
+                   prefetch: bool = True) -> ExperimentResult:
     """Run ``rounds`` rounds of the resolved strategy (``strategy=`` a name
     or instance, the deprecated ``algo=``, else ``cfg.strategy``).
 
@@ -253,11 +361,31 @@ def run_experiment(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
     segment) spans and, with its ``profile_dir``, a torch.profiler trace.
     Every result carries ``result.ledger``; runs with a checkpoint dir or a
     file-backed sink also write a run manifest beside their artifacts.
+
+    A ``sim.tiered.HostStore`` goes to the tiered runner
+    (``tiered.run_tiered_experiment``): the same contract and, bitwise,
+    the same trajectory, with the population in host memory.
+    ``stream_segment`` and ``prefetch`` tune that tier's staging only; the
+    resident runner ignores them, as it does ``zstate``, ``fault_state``
+    and ``channel_state`` on the tiered one.
     """
     if not isinstance(store, ClientStore):
-        raise NotImplementedError(
-            f"store must be a ClientStore; the tiered HostStore "
-            f"(sim/tiered.py) is not ported, got {type(store).__name__}")
+        from repro_torch.sim import tiered
+        if isinstance(store, tiered.HostStore):
+            return tiered.run_tiered_experiment(
+                loss_fn, params, store, cfg, rounds, algo=algo,
+                strategy=strategy, eval_fn=eval_fn, eval_every=eval_every,
+                ring_size=ring_size, key=key, momentum=momentum,
+                round_fn=round_fn, faults=faults,
+                checkpoint_every=checkpoint_every,
+                checkpoint_dir=checkpoint_dir, resume=resume,
+                max_segments=max_segments,
+                segment_callback=segment_callback,
+                max_retries=max_retries, lr_backoff=lr_backoff, sink=sink,
+                tap_every=tap_every, tracer=tracer,
+                stream_segment=stream_segment, prefetch=prefetch)
+        raise TypeError(f"store must be a ClientStore or HostStore, got "
+                        f"{type(store).__name__}")
     strat = strategy_mod.resolve(strategy, algo, cfg)
     if key is None:
         key = experiment_key(cfg)
@@ -549,7 +677,8 @@ def history(result: ExperimentResult, *, start_round: int = 0) -> list:
     metrics and, on eval rounds, the evals, as Python floats. Eval rounds
     evicted from a small ring still surface as eval-only rows; event rows
     (rollbacks) interleave by round, before the round's retried row; then
-    the ledger's byte (and energy) columns."""
+    the ledger's byte (and energy) columns and, on a tiered run, each
+    round's ``bucket_id`` and ``staged_bytes``."""
     mets = {k: v.cpu().tolist() for k, v in result.metrics.items()}
     evals = {k: v.cpu().tolist() for k, v in result.evals.items()}
     ev_by_round = {int(t): {k: float(v[i]) for k, v in evals.items()}
@@ -572,5 +701,6 @@ def history(result: ExperimentResult, *, start_round: int = 0) -> list:
                    for e in result.events)
         out.sort(key=lambda r: (r["round"], "event" not in r))
     if result.ledger is not None:
-        result.ledger.annotate(out)
+        result.ledger.annotate(out, staging=result.staging,
+                               start_round=start_round)
     return out

@@ -32,8 +32,9 @@ n_pad]`` cohort of a full-width LM is gigabytes, so a poisoned row is
 filled and a rejected row zeroed where it lies, and a row's squared norm is
 one dot product of the row with itself (no cohort-sized temporary). The
 norm runs over all ``n_pad`` columns, pad included, as the reference's
-does (``faults.py:197``). The reference's sharded round and tiered store,
-which also call the scrub and ``realize``, are not ported.
+does (``faults.py:197``). The tiered store's cohort round realizes a
+round's faults with ``realize`` from the availability slice its host
+stream replayed; the reference's sharded round is not ported.
 """
 from __future__ import annotations
 

@@ -9,14 +9,17 @@ clients and rows from the same keys:
 - ``sample_participants``: the M-of-N draw, a permutation prefix;
 - ``sample_batches``: H minibatches of b1 rows per sampled client, uniform
   with replacement over that client's own rows (``randint`` bounded by its
-  true size, so pad rows are never drawn), gathered on the device.
+  true size, so pad rows are never drawn), gathered on the device. It
+  delegates to ``sample_cohort_batches``, which draws the same rows from an
+  already gathered cohort: the tiered store's staged cohort
+  (``sim/tiered.py``) samples exactly the resident store's rows.
 
 The draws run on the CPU (keys and sizes are host-side control state); only
 the index tensors cross to the device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +41,22 @@ class ClientStore(NamedTuple):
     @property
     def device(self) -> torch.device:
         return next(iter(self.data.values())).device
+
+
+class CohortBatch(NamedTuple):
+    """One round's staged cohort on the tiered path (``sim/tiered.py``):
+    the M sampled clients' rows padded to the cohort's bucket capacity
+    (leaves ``[M, cap, ...]`` on the run's device) and their true sizes
+    (``[M]`` int32, CPU). In a segment every field carries a leading ``[S]``
+    rounds axis. ``avail`` is the host-replayed availability slice of a
+    fault run, ``chan_h``/``chan_mask`` the host-replayed realization of a
+    ``cfg.channel_model`` run (``[M]`` CPU tensors); each None when the
+    process is off."""
+    data: Any              # dict, leaves [M, cap, ...]
+    sizes: torch.Tensor    # [M] int32 true row counts (CPU)
+    avail: Any = None      # [M] bool fault-chain slice, or None
+    chan_h: Any = None     # [M] complex64 cohort fading, or None
+    chan_mask: Any = None  # [M] bool transmit mask, or None
 
 
 def client_sizes(clients) -> list:
@@ -91,16 +110,26 @@ def sample_participants(key, n_clients: int, m: int) -> torch.Tensor:
     return prng.permutation(key, n_clients)[:m]
 
 
-def sample_batches(store: ClientStore, idx, key, h: int, b1: int):
-    """``[M, H, b1, ...]`` minibatches of the sampled clients ``idx``.
-
-    Per client i of the cohort, rows ``randint(split(key, M)[i], (h, b1),
-    0, sizes[idx[i]])``, the reference's draw, gathered on the device."""
-    m = idx.shape[0]
+def sample_cohort_batches(data, sizes, key, h: int, b1: int):
+    """``[M, H, b1, ...]`` minibatches from an already gathered cohort:
+    ``data`` leaves ``[M, cap, ...]`` on the device, ``sizes`` ``[M]`` true
+    row counts. Client i's rows are ``randint(split(key, M)[i], (h, b1), 0,
+    sizes[i])``: the draw depends only on the key and the true size, never
+    on the padded capacity, so a bucket-padded staged cohort samples the
+    rows the resident store would."""
+    m = sizes.shape[0]
     keys = prng.split(key, m)
     rows = prng.randint(keys, (h, b1), 0,
-                        store.sizes[idx].to(torch.int64).reshape(m, 1, 1))
-    dev = store.device
-    ci = idx.to(dev).reshape(m, 1, 1)
+                        sizes.to(torch.int64).reshape(m, 1, 1))
+    dev = next(iter(data.values())).device
+    ci = torch.arange(m, device=dev).reshape(m, 1, 1)
     ri = rows.to(device=dev, dtype=torch.int64)
-    return {k: v[ci, ri] for k, v in store.data.items()}
+    return {k: v[ci, ri] for k, v in data.items()}
+
+
+def sample_batches(store: ClientStore, idx, key, h: int, b1: int):
+    """``[M, H, b1, ...]`` minibatches of the sampled clients ``idx``: the
+    cohort gathered from the store, then ``sample_cohort_batches``."""
+    ci = idx.to(store.device)
+    cohort = {k: v[ci] for k, v in store.data.items()}
+    return sample_cohort_batches(cohort, store.sizes[idx], key, h, b1)

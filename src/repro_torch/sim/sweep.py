@@ -15,7 +15,9 @@ reference does; where the reference then runs a group as one vmapped
 compiled program, the port runs each of the group's scenarios as its own
 ``engine.run_experiment`` in one loop, so a scenario's record is bitwise
 its own single run. The records and the long-format CSV (scenario, round,
-metric, value) are the reference's.
+metric, value) are the reference's. ``store`` takes either tier: a
+tiered ``HostStore`` materializes as a resident store, bitwise
+``build_store``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from contextlib import nullcontext
 from typing import Optional, Sequence
 
 from repro_torch.configs.base import FedZOConfig
+from repro_torch.core import estimator
 from repro_torch.core import strategy as strategy_mod
-from repro_torch.sim import engine
+from repro_torch.sim import engine, tiered
 from repro_torch.sim.store import ClientStore
 
 # fields that only change numbers (everything else is static; the strategy
@@ -85,6 +88,10 @@ def run_sweep(loss_fn, params, store: ClientStore, base_cfg: FedZOConfig,
     "strategy": name, "metrics": {name: [ring] np.ndarray}, "evals":
     {name: [n_evals] np.ndarray}, "eval_rounds": np.ndarray}``.
     """
+    # either tier plugs in; the rounds read a resident store, so a tiered
+    # HostStore materializes (bitwise build_store) on the params' device
+    store = tiered.resolve_store(store, tier="resident",
+                                 device=estimator._device(params))
     groups: dict = {}
     for s in scenarios:
         static, dyn = _split(s)

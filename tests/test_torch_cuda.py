@@ -859,3 +859,73 @@ def test_kill_and_resume_bitwise_on_card(gen, tmp_path):
                          resume=True, **kw)
     assert chip_smoke._same_run(torch, one, chunked)
     assert chip_smoke._same_run(torch, one, resumed)
+
+
+def _ragged_population(n_clients, lo, hi, n_features, seed=1):
+    """Clients of ``lo``..``hi - 1`` rows from one classification pool
+    (the reference's tiered population at any width)."""
+    from repro_torch.data.synthetic import make_classification
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lo, hi, size=n_clients)
+    x, y = make_classification(int(sizes.sum()), n_features, 4, seed=seed)
+    out, off = [], 0
+    for s in sizes:
+        out.append({"x": x[off:off + s], "y": y[off:off + s]})
+        off += s
+    return out
+
+
+@pytest.mark.parametrize("prefetch", [True, False], ids=["prefetch",
+                                                         "inline"])
+@pytest.mark.parametrize("case", ["plain", "aircomp_faults", "scaffold"])
+def test_tiered_bitwise_resident_on_card(gen, case, prefetch):
+    """A ``HostStore`` run on the card, its segments staged through the
+    pinned buffers and the copy stream (with the next segment prefetched
+    on the worker thread, or staged in line), is bitwise the resident
+    run: weights, metrics, key, chains and the strategy state."""
+    from repro_torch import sim
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.models.simple import softmax_init, softmax_loss
+
+    clients = _ragged_population(64, 6, 40, 24)
+    kw = dict(n_devices=64, n_participating=8, local_iters=2, b1=4, b2=4,
+              lr=1e-2, seed=5)
+    faults = None
+    if case == "aircomp_faults":
+        kw.update(flat_params=True, flat_block_rows=4, aircomp=True,
+                  channel_schedule=True, h_min=0.3,
+                  channel_model=sim.ChannelModel(rho=0.8, battery=4.0,
+                                                 tx_cost=1.0))
+        faults = sim.FaultModel(p_fail=0.2, p_recover=0.5, p_corrupt=0.2)
+    elif case == "scaffold":
+        kw.update(strategy="scaffold")
+    cfg = FedZOConfig(**kw)
+    p0 = softmax_init(24, 4, device="cuda")
+    res = sim.run_experiment(softmax_loss, p0,
+                             sim.build_store(clients, device="cuda"), cfg, 7,
+                             faults=faults)
+    host = sim.build_host_store(clients, n_buckets=3)
+    tier = sim.run_experiment(softmax_loss, p0, host, cfg, 7, faults=faults,
+                              stream_segment=3, prefetch=prefetch)
+    assert chip_smoke._same_run(torch, res, tier)
+    if case == "scaffold":
+        for k, v in res.strategy_state["client"].items():
+            assert torch.equal(v.cpu(), tier.strategy_state["client"][k])
+    assert tier.prefetch["device_segment_bytes_max"] > 0
+
+
+def test_kernel_report_on_card(gen):
+    """``obs.kernel_report`` on the card: the three kernels launch, every
+    time is finite and positive, and the pass model is the reference's."""
+    from repro_torch.obs import kernel_report
+
+    before = dict(ops.LAUNCHES)
+    rows = kernel_report(n=65536, b2=20, m=10)
+    assert [r.name for r in rows] == ["zo_walk_n65536",
+                                      "zo_replay_n65536_b220",
+                                      "aircomp_reduce_m10_n65536"]
+    for r in rows:
+        assert math.isfinite(r.measured_us) and r.measured_us > 0
+        assert r.model_us == pytest.approx(r.hbm_bytes / 3.35e12 * 1e6)
+    for k in ("zo_walk", "zo_replay", "aircomp_reduce"):
+        assert ops.LAUNCHES[k] > before[k]

@@ -239,8 +239,10 @@ def test_ledger_matches_reference():
 
 
 def test_unported_routes_raise():
-    """A store that is not a ``ClientStore`` (the tiered ``HostStore``)
-    raises ``NotImplementedError``. Fault injection and the wireless
+    """A store that is neither tier raises the reference's ``TypeError``
+    (``resolve_store``), and a tiered ``HostStore`` runs: it materializes
+    bitwise as the resident store, so its rounds are the store path's.
+    Fault injection and the wireless
     channel model build on the store path and raise the reference's
     ValueErrors without a store; a tracer builds on either driver; the
     reference's own checks stay ValueErrors."""
@@ -249,8 +251,18 @@ def test_unported_routes_raise():
     tt = tneural.make_task("softmax", device="cpu", **TASK)
     p0 = tneural.params_init(tt, 11)
     cfg = FedZOConfig(**BASE)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="not a client store"):
         FedServer(tt.loss, p0, tt.clients, cfg, store=object())
+    from repro_torch.sim import build_host_store
+    host = FedServer(tt.loss, p0, tt.clients, cfg,
+                     store=build_host_store(tt.clients, n_buckets=3))
+    resident = FedServer(tt.loss, p0, tt.clients, cfg, store=tt.store)
+    for k in tt.store.data:
+        assert torch.equal(host.store.data[k], tt.store.data[k])
+    host.run(2)
+    resident.run(2)
+    for k in p0:
+        assert torch.equal(host.params[k], resident.params[k])
     cm_cfg = FedZOConfig(**BASE, channel_model=ChannelModel(rho=0.5))
     for kw, match in ((dict(faults=FaultModel(p_fail=0.1)), "fault"),
                       (dict(cfg=cm_cfg), "channel_model")):
