@@ -175,6 +175,7 @@ timeline) of one pytree softmax round and one pytree Qwen2-0.5B step.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -2898,19 +2899,19 @@ def run_tiered_100k(torch, ops, FedZOConfig, smi, tmp):
                       flat_params=True)
     want = round_launches(ops, cfg, TIERED_ROUNDS)
 
-    def timed_run(store, **kw):
+    def timed_run(store, run_cfg=cfg, run_want=want, **kw):
         clock = _RoundClock()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         res = sim.run_experiment(softmax_loss, softmax_init(784, 10), store,
-                                 cfg, TIERED_ROUNDS, sink=clock,
+                                 run_cfg, TIERED_ROUNDS, sink=clock,
                                  tap_every=1, **kw)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         add()
-        check(launches == want,
-              f"tiered_100k launches {launches} != {want}")
+        check(launches == run_want,
+              f"tiered_100k launches {launches} != {run_want}")
         return (res, _round_ms(clock, TIERED_SEGMENT),
                 torch.cuda.max_memory_allocated())
 
@@ -2946,6 +2947,23 @@ def run_tiered_100k(torch, ops, FedZOConfig, smi, tmp):
           f"resident {res_peak / 2**30:.3f} GiB (its store "
           f"{res_bytes / 2**30:.3f} GiB); bitwise equal; launches "
           f"{want} [{smi}]")
+
+    # the reference's scale100k configuration (benchmarks/sim_bench.py:
+    # 376-380): the quickstart's fast_sim_config at N 100k, M 32, b1 4, H 2
+    qcfg = dataclasses.replace(sim.fast_sim_config(cfg), flat_params=False)
+    qwant = fast_launches(ops, qcfg, TIERED_ROUNDS)
+    qtier, qtier_ms, qtier_peak = timed_run(
+        host, qcfg, qwant, stream_segment=TIERED_SEGMENT)
+    qres, qres_ms, qres_peak = timed_run(resident, qcfg, qwant)
+    check(_same_run(torch, qtier, qres),
+          "tiered_100k fast_sim_config: tiered and resident runs differ")
+    print(f"tiered_100k fast_sim_config (the reference's scale100k: wide "
+          f"block, unsafe_rbg, {TIERED_ROUNDS} rounds): ms/round after the "
+          f"first segment, mean (median): tiered {qtier_ms[0]:.2f} "
+          f"({qtier_ms[1]:.2f}), resident {qres_ms[0]:.2f} "
+          f"({qres_ms[1]:.2f}); peak tiered {qtier_peak / 2**30:.3f} GiB, "
+          f"resident {qres_peak / 2**30:.3f} GiB; bitwise equal; launches "
+          f"{qwant} [{smi}]")
 
     fcfg = FedZOConfig(n_devices=TIERED_N, n_participating=32,
                        local_iters=2, lr=1e-3, mu=1e-3, b1=4, b2=20,
@@ -3094,6 +3112,303 @@ def run_tiered_hypertune(torch, ops, FedZOConfig):
                 total[k] += got[k]
     ops.reset_launches()
     return total
+
+
+# phase "fast strategy and batched sweeps": the reference's fast execution
+# strategy (sim.fast_sim_config: the wide block route, unsafe_rbg keys)
+FAST_BUDGET_S = 60.0
+# the quickstart's AirComp direction block, one philox_bits launch per
+# iterate: [M, b2, n_pad] = [10, 20, 65,536] words
+PHILOX_SHAPE = (10, 20, 65_536)
+# int32 operations of one Philox-4x32-10 block as the compiler can issue
+# them: per round two 32x32 -> 64-bit multiplies (one IMAD.WIDE each gives
+# the high and the low word) and two three-input XORs (LOP3), 4; the key
+# schedule is the same for every thread (uniform registers), so it is not
+# counted per block; the counter's 64-bit add with its carry, 4
+PHILOX_BLOCK_OPS = 10 * 4 + 4
+QUICKSTART = dict(n_devices=50, n_participating=10, local_iters=5, lr=1e-3,
+                  mu=1e-3, b1=25, b2=20)
+QS_ROUNDS, QS_EVAL = 20, 5
+# the port's trajectory tolerance (tests/test_torch_slice.py; AirComp 2e-3)
+FAST_ATOL = 2e-3
+# the attack's batched sweep against its sequential runs, relative, on the
+# losses (run_attack_sweeps says why the card's records separate; an H100
+# read 1.0e-3 on mean_local_loss and 2.1e-3 on first_loss, losses near 4.9,
+# and 0.24 on delta_max)
+ATTACK_LOSS_RTOL = 5e-3
+
+
+def fast_launches(ops, cfg, rounds):
+    """``round_launches`` plus the Philox draws of a wide route under rbg
+    or unsafe_rbg keys: one ``philox_bits`` launch per iterate (the
+    cohort's direction block); the integer draws of the round (keys,
+    participants, rows) run on the host's CPU and launch nothing."""
+    want = round_launches(ops, cfg, rounds)
+    if cfg.batch_directions and cfg.prng_impl != "threefry2x32":
+        want["philox_bits"] = rounds * cfg.local_iters
+    return want
+
+
+def check_philox(torch, ops, smi):
+    """Part (a): philox_bits bitwise its plain version (the plain version
+    on the card too) at the quickstart's AirComp block, at a ragged n,
+    across the 128-bit counter's carry and from an odd start word; timed
+    beside the plain version and its bound. No library call computes XLA's
+    layout (torch's own Philox is another stream). Returns the row."""
+    from repro_torch.kernels.philox import philox_bits_plain
+    from repro_torch.utils import prng
+    key = tuple(prng.split(prng.key(0, "unsafe_rbg"), 2,
+                           "unsafe_rbg")[1].tolist())
+    n = math.prod(PHILOX_SHAPE)
+    cases = (("block", key, n, 0), ("ragged", key, 1_000_003, 0),
+             ("carry", (5, 7, 0xFFFFFFFE, 0xFFFFFFFF), 4 * 4096 + 5, 0),
+             ("offset", key, 65_537, 13))
+    for name, words, count, start in cases:
+        got = ops.philox_bits(words, count, device="cuda", start=start)
+        want = philox_bits_plain(words, count, start=start, device="cuda")
+        check(torch.equal(got, want), f"philox_bits {name}: not bitwise "
+              f"the plain version")
+    ms = median_ms(torch, lambda: ops.philox_bits(key, n, device="cuda"), 50)
+    plain_ms = median_ms(
+        torch, lambda: philox_bits_plain(key, n, device="cuda"), 3)
+    b = bound(4 * n, (n // 4) * PHILOX_BLOCK_OPS, "int")
+    print(f"philox_bits {list(PHILOX_SHAPE)} ({n} words): bitwise the plain "
+          f"version (also ragged, across the carry, from word 13); "
+          f"{ms:.5f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.5f} "
+          f"ms by {b['bound_by']} ({100 * b['bound_ms'] / ms:.1f} %) [{smi}]")
+    return {"source": "src/repro_torch/kernels/csrc/philox.cu",
+            "replaces": "src/repro/core/estimator.py:335 (jax.random.normal "
+                        "over an rbg key: XLA's RngBitGenerator, not a "
+                        "Pallas kernel)",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
+def quickstart_data(torch):
+    from repro_torch.data.synthetic import make_classification, noniid_shards
+    x, y = make_classification(7000, 784, 10, seed=0)
+    clients = noniid_shards(x[:6000], y[:6000], 50)
+    test = {"x": torch.from_numpy(x[6000:]).cuda(),
+            "y": torch.from_numpy(y[6000:]).cuda()}
+    return clients, test
+
+
+def run_quickstart(torch, ops, FedZOConfig, data, impl, aircomp, total):
+    """The quickstart through ``FedServer`` over the store: the scanned
+    driver with the eval every 5 rounds (exact launches, peak memory, the
+    final test accuracy), then the host-driven rounds of the same server
+    without the eval (ms a round after the first, bitwise the scanned
+    run). Returns a summary dict."""
+    from repro_torch import sim
+    from repro_torch.fed.server import FedServer
+    from repro_torch.models.simple import (softmax_accuracy, softmax_init,
+                                           softmax_loss)
+    clients, test = data
+    cfg = dataclasses.replace(sim.fast_sim_config(
+        FedZOConfig(**QUICKSTART, aircomp=aircomp)), prng_impl=impl)
+    store = sim.build_store(clients, device="cuda")
+    want = fast_launches(ops, cfg, QS_ROUNDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv = FedServer(softmax_loss, softmax_init(784, 10, device="cuda"),
+                    clients, cfg, store=store,
+                    jit_eval=lambda p: {"test_acc": softmax_accuracy(p, test)},
+                    eval_every=QS_EVAL)
+    srv.run(QS_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for k in total:
+        total[k] += launches[k]
+    check(launches == want, f"quickstart {impl} aircomp={aircomp}: launches "
+          f"{launches} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    acc = float(softmax_accuracy(srv.params, test))
+    host = FedServer(softmax_loss, softmax_init(784, 10, device="cuda"),
+                     clients, cfg, store=store)
+    rows = host.run(QS_ROUNDS, driver="host")
+    check(_leaves_equal(torch, host.params, srv.params),
+          f"quickstart {impl}: host-driven rounds differ from the scanned")
+    gaps = sorted(r["round_ms"] for r in rows[1:])
+    mean = sum(gaps) / len(gaps)
+    losses = [r["mean_local_loss"] for r in rows]
+    check(all(math.isfinite(v) for v in losses), f"quickstart: {losses}")
+    return {"wall_s": wall, "ms_mean": mean, "ms_median": gaps[len(gaps) // 2],
+            "peak_gib": peak / 2**30, "acc": acc, "launches": launches,
+            "loss": (losses[0], losses[-1])}
+
+
+def check_fast_card_vs_cpu(torch, neural):
+    """Card against CPU at the golden size under unsafe_rbg with AirComp,
+    on the wide route (``fast_sim_config``) and the pytree route (each
+    client's per-leaf draws its slice of one Philox stream, drawn from a
+    word offset): the round's integer draws and the direction bits
+    bitwise (philox_bits on the card, its plain version on the CPU), the
+    trajectories within the port's tolerance."""
+    from repro_torch import sim
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec
+    kw = dict(n_train=320, n_test=96, n_clients=8, n_features=24,
+              n_classes=4, alpha=0.5)
+    for route in ("wide", "pytree"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            task = neural.make_task("softmax", device=dev, **kw)
+            cfg = neural.default_config(
+                task, n_participating=4, local_iters=2, b1=8, b2=4,
+                lr=5e-2, mu=1e-3, seed=11, aircomp=True,
+                prng_impl="unsafe_rbg")
+            if route == "wide":
+                cfg = sim.fast_sim_config(cfg)
+            res = neural.run(task, cfg, 4 if route == "wide" else 2,
+                             eval_rows=96)
+            spec = flat_spec(res.params, block=128)
+            keys = prng.split(prng.key(3, "unsafe_rbg"), 4, "unsafe_rbg")
+            lane = prng.lanes(keys, "unsafe_rbg")[3]
+            out[dev] = (res, prng.random_bits(keys, (4, spec.n_pad),
+                                              impl="unsafe_rbg", device=dev),
+                        prng.random_bits(lane, (5, 77), impl="unsafe_rbg",
+                                         device=dev))
+        check(torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+              and torch.equal(out["cuda"][2].cpu(), out["cpu"][2]),
+              "fast strategy: card bits differ from the CPU's")
+        a, b = out["cuda"][0], out["cpu"][0]
+        check(torch.equal(a.key, b.key), "fast strategy: key chains differ")
+        check(torch.equal(a.metrics["m_effective"].cpu(),
+                          b.metrics["m_effective"].cpu()),
+              "m_effective differs")
+        worst = max(float((a.params[k].cpu() - b.params[k]).abs().max())
+                    for k in b.params)
+        mworst = max(float((a.metrics[k].cpu() - b.metrics[k]).abs().max())
+                     for k in b.metrics)
+        check(max(worst, mworst) <= FAST_ATOL, f"unsafe_rbg {route} card vs "
+              f"CPU: params {worst}, metrics {mworst}")
+        print(f"unsafe_rbg {route} card vs CPU (softmax 24x4, AirComp): bits "
+              f"(also a lane's offset draw) and key chain bitwise; max "
+              f"|diff| params {worst:.3e}, metrics {mworst:.3e}")
+
+
+def run_attack_sweeps(torch, ops, smi, total):
+    """Part (d): the attack's SNR sweep, 6 scenarios (SNR {0, 10, 20} dB x
+    seeds {0, 1}, 3 rounds, flat route, AirComp) as one batched group
+    against the sequential loop of ``attack.run`` calls under threefry,
+    then the sweep once under ``fast_sim_config``.
+
+    A one-scenario group is bitwise its single run. The six-scenario
+    group's forward runs 60 rows where a single run's runs 10, and the
+    card's convolutions and matmuls pick their kernels (and summation
+    orders) by shape: a loss ulp moves a coefficient by d·ulp/μ = 3,072 x
+    4.8e-7 / 1e-3 = 1.5, so the records separate within a round. They are
+    held to a relative ATTACK_LOSS_RTOL on the losses the attack reports
+    and exactly on m_effective; the spread of delta_max is printed."""
+    from repro_torch import sim
+    from repro_torch.workloads import attack
+    task = attack.make_task(device="cuda")
+    cfg = attack.default_config(task, flat_params=True)
+    kw = dict(snr_dbs=(0.0, 10.0, 20.0), seeds=(0, 1), rounds=3,
+              eval_every=1)
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = []
+    for s in (0.0, 10.0, 20.0):
+        for seed in (0, 1):
+            seq.append(attack.run(task, dataclasses.replace(
+                cfg, aircomp=True, snr_db=s, seed=seed), 3, eval_every=1))
+    torch.cuda.synchronize()
+    times["sequential"] = time.perf_counter() - t0
+    one = sim.run_sweep(attack.attack_loss(task), attack.pert_init("cuda"),
+                        task.store, dataclasses.replace(cfg, aircomp=True),
+                        [{"snr_db": 0.0, "seed": 0}], 3,
+                        eval_fn=attack.attack_eval(task), eval_every=1)[0]
+    check(all((one["metrics"][k] == v.cpu().numpy()).all()
+              for k, v in seq[0].metrics.items()),
+          "one-scenario sweep is not bitwise its single run")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    recs = attack.run_sweep(task, cfg, **kw)
+    torch.cuda.synchronize()
+    times["batched"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for k in total:
+        total[k] += launches[k]
+    want = round_launches(ops, dataclasses.replace(cfg, aircomp=True), 3)
+    check(launches["aircomp_reduce"] == 6 * want["aircomp_reduce"]
+          and launches["zo_replay"] == want["zo_replay"],
+          f"batched attack sweep launches {launches}: one replay launch per "
+          f"iterate for the 60-row cohort, an aircomp_reduce per scenario "
+          f"and round")
+    rel = dict.fromkeys(("mean_local_loss", "first_loss", "delta_max"), 0.0)
+    for rec, res in zip(recs, seq):
+        check((rec["metrics"]["m_effective"]
+               == res.metrics["m_effective"].cpu().numpy()).all(),
+              "batched sweep: m_effective differs")
+        for k in rel:
+            want_v = res.metrics[k].cpu().numpy()
+            rel[k] = max(rel[k], float((abs(rec["metrics"][k] - want_v)
+                                        / abs(want_v)).max()))
+    check(max(rel["mean_local_loss"], rel["first_loss"]) <= ATTACK_LOSS_RTOL,
+          f"batched sweep vs sequential: relative differences {rel}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    frecs = attack.run_sweep(task, sim.fast_sim_config(cfg), **kw)
+    torch.cuda.synchronize()
+    times["fast"] = time.perf_counter() - t0
+    flaunch = dict(ops.LAUNCHES)
+    for k in total:
+        total[k] += flaunch[k]
+    check(flaunch["philox_bits"] == 3 * cfg.local_iters
+          and flaunch["aircomp_reduce"] == 6 * 3,
+          f"fast attack sweep launches {flaunch}")
+    check(all(math.isfinite(float(r["metrics"]["mean_local_loss"][-1]))
+              for r in frecs), "fast attack sweep diverged")
+    print(f"attack SNR sweep (6 scenarios x 3 rounds, M 10, H 20, b2 20): "
+          f"sequential {times['sequential']:.2f} s, batched (one [60, n] "
+          f"cohort, flat) {times['batched']:.2f} s; one-scenario group "
+          f"bitwise its run; six-scenario records against the sequential "
+          f"runs, max relative difference {json.dumps(rel)}; "
+          f"fast_sim_config (wide, unsafe_rbg) {times['fast']:.2f} s; "
+          f"launches batched {launches}, fast {flaunch} [{smi}]")
+
+
+def run_fast_strategy(torch, ops, neural, FedZOConfig, smi):
+    """Phase "fast strategy and batched sweeps": parts (a) to (d) and the
+    card against the CPU; budget FAST_BUDGET_S. Returns (philox row,
+    launches of the main-path runs)."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    row = check_philox(torch, ops, smi)
+    data = quickstart_data(torch)
+    qs = {}
+    for impl, air in (("unsafe_rbg", False), ("threefry2x32", False),
+                      ("unsafe_rbg", True)):
+        qs[impl, air] = r = run_quickstart(torch, ops, FedZOConfig, data,
+                                           impl, air, total)
+        print(f"quickstart {'fast_sim_config' if impl != 'threefry2x32' else 'wide threefry'}"
+              f"{' + AirComp' if air else ''} (N 50, M 10, H 5, b1 25, b2 "
+              f"20, {QS_ROUNDS} rounds, eval every {QS_EVAL}, FedServer on "
+              f"the store): {r['wall_s']:.2f} s scanned; ms/round after the "
+              f"first (host-driven) mean {r['ms_mean']:.2f}, median "
+              f"{r['ms_median']:.2f}; peak {r['peak_gib']:.3f} GiB; final "
+              f"test accuracy {r['acc']:.4f}; loss {r['loss'][0]:.4f} -> "
+              f"{r['loss'][1]:.4f}; launches {r['launches']} [{smi}]")
+    air = qs["unsafe_rbg", True]["launches"]
+    per_round = {k: air[k] / QS_ROUNDS for k in
+                 ("aircomp_reduce", "zo_walk", "philox_bits")}
+    check(per_round == {"aircomp_reduce": 1, "zo_walk": 1,
+                        "philox_bits": QUICKSTART["local_iters"]},
+          f"fast AirComp launches a round {per_round}")
+    print(f"fast AirComp round launches: {per_round}")
+    check(qs["unsafe_rbg", False]["acc"] >= 0.5,
+          f"quickstart accuracy {qs['unsafe_rbg', False]['acc']}")
+    run_attack_sweeps(torch, ops, smi, total)
+    check_fast_card_vs_cpu(torch, neural)
+    took = time.perf_counter() - t_phase
+    print(f"fast strategy and batched sweeps: {took:.1f} s of the "
+          f"{FAST_BUDGET_S:.0f} s budget")
+    return row, total
 
 
 def profile_call(torch, fn, out_dir, tag, timeline=True):
@@ -3259,6 +3574,11 @@ def main(argv):
                       lambda: run_tiered_hypertune(torch, ops,
                                                    FedZOConfig)).items():
         launches[k] += n
+    rows["philox_bits"], counts = timed(
+        "fast strategy and batched sweeps",
+        lambda: run_fast_strategy(torch, ops, neural, FedZOConfig, smi))
+    for k, n in counts.items():
+        launches[k] += n
     if args.profile:
         timed("profiles", lambda: (
             profile_round(torch, neural, FedZOConfig, args.profile),
@@ -3267,7 +3587,8 @@ def main(argv):
 
     kernels = []
     for name in ("zo_walk", "zo_replay", "zo_dirnorms", "aircomp_reduce",
-                 "zo_axpy2", "zo_axpy", "rmsnorm", "flash_attention"):
+                 "zo_axpy2", "zo_axpy", "rmsnorm", "flash_attention",
+                 "philox_bits"):
         check(launches[name] > 0, f"{name} never launched on the main path")
         kernels.append({"name": name, "route": "cuda", **rows[name],
                         "launches": launches[name]})

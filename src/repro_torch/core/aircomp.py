@@ -37,16 +37,19 @@ P_TX = 1.0
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
-def schedule_by_channel(key, n_devices, h_min):
+def schedule_by_channel(key, n_devices, h_min, impl=None):
     """Rayleigh channel draw + threshold scheduling M_t = {i : |h_i| >= h_min}.
 
-    ``key`` is a raw key (CPU). Returns (h ``[N]`` complex64, mask ``[N]``
-    bool), both on the CPU. The draws are jax's within a few ulp, so the
-    mask is jax's unless some |h_i| lies within ulps of h_min.
+    ``key`` is a raw key (CPU) of ``impl``. Returns (h ``[N]`` complex64,
+    mask ``[N]`` bool), both on the CPU. The draws are jax's within a few
+    ulp, so the mask is jax's unless some |h_i| lies within ulps of h_min.
+    Keys ``[S, words]`` (a batched sweep's scenarios, under the reference's
+    vmap) give ``[S, N]``, with ``h_min`` a scalar or ``[S, 1]``.
     """
-    ks = prng.split(key, 2)
-    h = torch.complex(prng.normal(ks[0], (n_devices,)),
-                      prng.normal(ks[1], (n_devices,))) / _SQRT2
+    ks = prng.split(key, 2, impl)
+    h = torch.complex(prng.normal(ks[..., 0, :], (n_devices,), impl=impl),
+                      prng.normal(ks[..., 1, :], (n_devices,), impl=impl)) \
+        / _SQRT2
     return h, h.abs() >= h_min
 
 
@@ -83,13 +86,14 @@ def _delta_sq_norms(deltas):
 
 
 def aircomp_aggregate(deltas, key, *, snr_db, h_min, mask=None,
-                      weights=None):
+                      weights=None, impl=None):
     """Noisy mean of a stacked delta tree (leaves ``[M, ...]``) per Eq. 17.
 
     ``mask`` marks the rows that transmit (channel scheduling): the others
     are left out of the mean and Δ_max. ``weights`` make the mean the
     size-weighted one; Δ_max keeps the unweighted row norms. ``key`` is the
-    raw channel key (CPU); leaf i's noise is ``normal(fold_in(key, i))``.
+    raw channel key (CPU) of ``impl``; leaf i's noise is
+    ``normal(fold_in(key, i))``.
     Returns (noisy mean tree, stats).
     """
     pairs = _leaves(deltas)
@@ -108,7 +112,8 @@ def aircomp_aggregate(deltas, key, *, snr_db, h_min, mask=None,
     for i, (_, leaf) in enumerate(pairs):
         mean = torch.einsum("m...,m->...", leaf.to(torch.float32),
                             maskf) / m_div
-        g = prng.normal(prng.fold_in(key, i), tuple(mean.shape), device=dev)
+        g = prng.normal(prng.fold_in(key, i, impl), tuple(mean.shape),
+                        device=dev, impl=impl)
         out.append((mean + noise_std * g).to(leaf.dtype))
     stats = {"aircomp_noise_std": noise_std, "delta_max": delta_max,
              "m_effective": m_sched}
@@ -119,7 +124,9 @@ def aircomp_aggregate_flat(deltas, key, *, snr_db, h_min, d=None, mask=None,
                            weights=None, block_rows=None):
     """Eq.-17 aggregation of a flat delta matrix ``[M, n_pad]``.
 
-    ``key``: the raw channel key (CPU) whose words seed the noise field;
+    ``key``: the raw channel key (CPU) whose words 0–1 seed the noise
+    field (``zo_walk`` reads those of any key, as the reference's
+    ``counter_gen`` does);
     ``d``: the valid flat length (pad columns carry walk residue and are
     left out of the norms). Returns (noisy mean ``[n_pad]``, stats).
     """
@@ -135,7 +142,8 @@ def aircomp_aggregate_flat(deltas, key, *, snr_db, h_min, d=None, mask=None,
     noise_var = sigma_w2 * delta_max / (m_div ** 2 * float(d) * P_TX
                                         * h_min ** 2)
     noise_std = torch.sqrt(noise_var)
-    out = kops.zo_walk(mean[None], key.reshape(1, 2).to(dev), (0, 0),
+    out = kops.zo_walk(mean[None], prng.counter_words(key).reshape(1, 2)
+                       .to(dev), (0, 0),
                        torch.stack([noise_std, zero]).reshape(1, 2),
                        kind="normal")[0]
     stats = {"aircomp_noise_std": noise_std, "delta_max": delta_max,
@@ -143,7 +151,8 @@ def aircomp_aggregate_flat(deltas, key, *, snr_db, h_min, d=None, mask=None,
     return out, stats
 
 
-def aircomp_simulate_channel(deltas_flat, key, *, snr_db, h_min, h=None):
+def aircomp_simulate_channel(deltas_flat, key, *, snr_db, h_min, h=None,
+                             impl=None):
     """Explicit complex-channel simulation on ``[M, d]`` deltas.
 
     Only the scheduled devices (|h_i| ≥ h_min) transmit, with the Eq.-15
@@ -157,10 +166,10 @@ def aircomp_simulate_channel(deltas_flat, key, *, snr_db, h_min, h=None):
     M, d = deltas_flat.shape
     dev = deltas_flat.device
     sigma_w2 = P_TX / (10.0 ** (snr_db / 10.0))
-    ks = prng.split(key, 2)
+    ks = prng.split(key, 2, impl)
     k_h, k_n = ks[0], ks[1]
     if h is None:
-        h, mask = schedule_by_channel(k_h, M, h_min)
+        h, mask = schedule_by_channel(k_h, M, h_min, impl)
         h, mask = h.to(dev), mask.to(dev)
     else:
         mask = torch.abs(h) >= h_min
@@ -172,9 +181,9 @@ def aircomp_simulate_channel(deltas_flat, key, *, snr_db, h_min, h=None):
         * torch.sqrt(d * P_TX / torch.clamp_min(delta_max, 1e-30))  # Eq. 15
     tx = alpha[:, None] * deltas_flat.to(torch.complex64)
     energies = torch.sum(torch.abs(tx) ** 2, dim=1)                  # ≤ d·P
-    kn = prng.split(k_n, 2)
-    noise = torch.complex(prng.normal(kn[0], (d,), device=dev),
-                          prng.normal(kn[1], (d,), device=dev)) \
+    kn = prng.split(k_n, 2, impl)
+    noise = torch.complex(prng.normal(kn[0], (d,), device=dev, impl=impl),
+                          prng.normal(kn[1], (d,), device=dev, impl=impl)) \
         * float(np.sqrt(np.float32(sigma_w2 / 2.0)))
     s = torch.sum(h[:, None] * tx, dim=0) + noise                   # Eq. 14/16
     rx_scale = torch.sqrt(delta_max / (d * P_TX * h_min ** 2)) / m_div

@@ -81,7 +81,7 @@ def cohort_phase(loss_fn, server_params, client_batches, cfg: FedZOConfig):
 
 def round_simulated(loss_fn, server_params, client_batches, cfg: FedZOConfig,
                     *, channel_rng=None, weights=None, faults=None,
-                    channel=None):
+                    channel=None, impl=None):
     """One FedAvg round over the M clients of ``client_batches`` (leaves
     ``[M, H, ...]`` on the parameters' device). ``channel_rng`` a raw key
     (CPU); ``weights`` ``[M]`` mean-1 size weights. The aggregation follows
@@ -89,7 +89,8 @@ def round_simulated(loss_fn, server_params, client_batches, cfg: FedZOConfig,
     (``cfg.channel_schedule``; a realized ``channel``'s transmit mask in
     its place), ``faults`` corrupting and scrubbing the stacked deltas in
     place (``sim.faults.RoundFaults``), AirComp on the stacked delta tree,
-    the masked and/or size-weighted mean, else ``(1/M)·Σ_i Δ_i``. Returns
+    the masked and/or size-weighted mean, else ``(1/M)·Σ_i Δ_i``. ``impl``
+    is ``channel_rng``'s ``prng.Impl`` (None: threefry). Returns
     (new_params, metrics)."""
     dev = _device(server_params)
     p_fin, losses = cohort_phase(loss_fn, server_params, client_batches, cfg)
@@ -99,10 +100,10 @@ def round_simulated(loss_fn, server_params, client_batches, cfg: FedZOConfig,
     noise_rng = channel_rng
     stats = {}
     if cfg.channel_schedule and channel_rng is not None:
-        ks = prng.split(channel_rng, 2)
+        ks = prng.split(channel_rng, 2, impl)
         k_sched, noise_rng = ks[0], ks[1]
         if channel is None:
-            _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
+            _, mask = schedule_by_channel(k_sched, M, cfg.h_min, impl)
             mask = mask.to(dev)
     if channel is not None:
         mask = channel.mask.to(dev)
@@ -112,7 +113,7 @@ def round_simulated(loss_fn, server_params, client_batches, cfg: FedZOConfig,
     if cfg.aircomp and channel_rng is not None:
         agg, stats = aircomp_aggregate(deltas, noise_rng, snr_db=cfg.snr_db,
                                        h_min=cfg.h_min, mask=mask,
-                                       weights=weights)
+                                       weights=weights, impl=impl)
     elif mask is not None or weights is not None:
         maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
         agg = tree_map(

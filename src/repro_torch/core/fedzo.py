@@ -25,12 +25,17 @@ Two routes compute one local iterate x ← x − η·∇̃F(x), chosen by
   once.
 - **The wide route** (``batch_directions=True``, the simulation engine's
   plan): per iterate one ``[b2, n_pad]`` direction block per client, drawn
-  by the torch Threefry chain for the whole cohort at once
-  (``estimator.direction_block``; conventions ``block``, ``tree``,
-  ``channel``, and the ``surrogate`` phase); the M·b2 perturbed copies go
-  through the loss as one ``[M·b2]`` cohort, and the update is one batched
-  matvec. No ZO kernel runs on it; with AirComp the aggregation runs
-  ``aircomp_reduce`` and the noise ``zo_walk``.
+  for the whole cohort at once (``estimator.direction_block``; conventions
+  ``block``, ``tree``, ``channel``, and the ``surrogate`` phase): by the
+  torch Threefry chain under threefry keys, by one ``philox_bits`` launch
+  under rbg and unsafe_rbg keys (``sim.fast_sim_config``); the M·b2
+  perturbed copies go through the loss as one ``[M·b2]`` cohort, and the
+  update is one batched matvec. No ZO kernel runs on it; with AirComp the
+  aggregation runs ``aircomp_reduce`` and the noise ``zo_walk``.
+
+Keys carry their ``prng.Impl`` beside them (``impl=``, resolved by the
+engine from ``cfg.prng_impl``; None: threefry), and the cohort's draws are
+the reference's under its client vmap (``utils/prng.py``).
 
 The cross-silo unit, ``local_iterate`` / ``make_train_step``, is one
 iterate on one client on either route; on the flat route it is a row of
@@ -138,39 +143,63 @@ def _wide_losses(loss_fn, xp, spec, batch):
                                  batch).reshape(M, r)
 
 
+class RowHyper(NamedTuple):
+    """The dynamic hyperparameters of a batched sweep, one value per row of
+    a cohort buffer (float64 ``[R]``, each scenario's value repeated over
+    its clients): the local step size and the smoothing radius. None
+    everywhere else, where ``cfg.lr`` and ``cfg.mu`` hold."""
+    lr: np.ndarray
+    mu: np.ndarray
+
+
+def _rows_f32(v, device, cols: bool):
+    """float64 ``[R]`` per-row values as float32 on ``device`` (``[R, 1]``
+    with ``cols``): the rounding a Python scalar takes in a float32
+    operation, so a row of a batched sweep computes as its single run."""
+    t = torch.tensor(np.asarray(v, np.float32), device=device)
+    return t[:, None] if cols else t
+
+
 def flat_local_iterate(loss_fn, buf, spec, batch, keys, cfg: FedZOConfig,
-                       block_rows=None):
+                       block_rows=None, hyper: RowHyper = None):
     """One ZO update of every row of ``buf`` ``[M, n_pad]``: the fused
     walk, then the single-pass replay. ``loss_fn`` is batched (``[M]``
-    losses); ``keys`` ``[M, 2]`` on the buffer's device. The sphere
-    inv-norms are computed once and shared by both ends."""
+    losses); ``keys`` ``[M, 2]`` (the counter words) on the buffer's
+    device. The sphere inv-norms are computed once and shared by both
+    ends."""
+    mu, scale = cfg.mu, -cfg.lr
+    if hyper is not None:
+        mu = _rows_f32(hyper.mu, buf.device, False)
+        scale = _rows_f32(-hyper.lr, buf.device, False)
     inv = estimator.flat_inv_norms(keys, spec, cfg.b2, cfg.estimator,
                                    block_rows=block_rows)
     coeffs, base = estimator.flat_coefficients(
-        loss_fn, buf, spec, batch, keys, mu=cfg.mu, b2=cfg.b2,
+        loss_fn, buf, spec, batch, keys, mu=mu, b2=cfg.b2,
         kind=cfg.estimator, central=cfg.central, block_rows=block_rows,
         inv=inv)
     buf = estimator.flat_apply_coefficients(
-        buf, spec, keys, coeffs, scale=-cfg.lr, kind=cfg.estimator,
+        buf, spec, keys, coeffs, scale=scale, kind=cfg.estimator,
         block_rows=block_rows, inv=inv)
     return buf, coeffs, base
 
 
-def local_iterate(loss_fn, params, batch, rng, cfg: FedZOConfig):
+def local_iterate(loss_fn, params, batch, rng, cfg: FedZOConfig, impl=None):
     """One stochastic zeroth-order update (Eq. 5-6): x ← x − η ∇̃F(x).
 
     ``loss_fn(params, batch) -> scalar``; ``params`` a (nested) dict of
-    tensors on the run's device; ``rng`` a raw key ``[2]`` (CPU). Returns
-    (new_params, coeffs ``[b2]``, base_loss). On the flat route the
-    parameters are flattened once, walked and replayed by the kernels, and
-    unflattened once (leaves are views of the new buffer); on the pytree
-    route every perturbation and update is a ``zo_axpy`` per leaf.
+    tensors on the run's device; ``rng`` a raw key (CPU) of ``impl``
+    (``utils/prng.py``; None: threefry). Returns (new_params, coeffs
+    ``[b2]``, base_loss). On the flat route the parameters are flattened
+    once, walked and replayed by the kernels (with the key's words 0–1),
+    and unflattened once (leaves are views of the new buffer); on the
+    pytree route every perturbation and update is a ``zo_axpy`` per leaf.
     """
     _check_iterate(cfg)
+    prng.impl_of(rng, impl)
     if cfg.flat_params:
         spec, br = flat_geometry(params, cfg.flat_block_rows)
         buf = flatten(params, spec)[None]
-        keys = rng.reshape(1, 2).to(buf.device)
+        keys = prng.counter_words(rng).reshape(1, 2).to(buf.device)
 
         def loss1(p, b):
             return loss_fn(tree_map(lambda v: v[0], p), b).reshape(1)
@@ -181,10 +210,11 @@ def local_iterate(loss_fn, params, batch, rng, cfg: FedZOConfig):
     ddt = _DIRECTION_DTYPES[cfg.direction_dtype]
     coeffs, base = estimator.coefficients(
         loss_fn, params, batch, rng, mu=cfg.mu, b2=cfg.b2, kind=cfg.estimator,
-        direction_dtype=ddt, central=cfg.central, conv=cfg.direction_conv)
+        direction_dtype=ddt, central=cfg.central, conv=cfg.direction_conv,
+        impl=impl)
     new_params = estimator.apply_coefficients(
         params, rng, coeffs, scale=-cfg.lr, kind=cfg.estimator,
-        direction_dtype=ddt, conv=cfg.direction_conv)
+        direction_dtype=ddt, conv=cfg.direction_conv, impl=impl)
     return new_params, coeffs, base
 
 
@@ -203,16 +233,17 @@ def make_train_step(loss_fn, cfg: FedZOConfig):
     return step
 
 
-def _flat_phase_scan(loss_fn, buf0, spec, br, keys, batches, cfg):
+def _flat_phase_scan(loss_fn, buf0, spec, br, keys, batches, cfg,
+                     hyper=None):
     """H flat local iterates over ``buf0`` ``[M, n_pad]``. ``keys``
-    ``[M, H, 2]``; ``batches`` leaves ``[M, H, ...]``. Returns (final buf,
-    coeffs ``[M, H, b2]``, losses ``[M, H]``)."""
+    ``[M, H, 2]`` (counter words); ``batches`` leaves ``[M, H, ...]``.
+    Returns (final buf, coeffs ``[M, H, b2]``, losses ``[M, H]``)."""
     buf, coeffs, losses = buf0, [], []
     for h in range(cfg.local_iters):
         batch = tree_map(lambda v: v[:, h], batches)
         buf, c, base = flat_local_iterate(loss_fn, buf, spec, batch,
                                           keys[:, h].contiguous(), cfg,
-                                          block_rows=br)
+                                          block_rows=br, hyper=hyper)
         coeffs.append(c)
         losses.append(base)
     return buf, torch.stack(coeffs, 1), torch.stack(losses, 1)
@@ -234,12 +265,26 @@ def surrogate_queries(cfg: FedZOConfig) -> int:
     return max(1, int(round(cfg.b2 * cfg.surrogate_fraction)))
 
 
-def _wide_coefficients(loss_fn, buf, spec, batch, V, inv, scale, cfg):
+def _wide_scalars(cfg, hyper, device, step_of):
+    """(μ, ``step_of(lr)``) of the wide route as float32 tensors on
+    ``device``: 0-d from ``cfg``, or ``[R, 1]`` per row from ``hyper``.
+    Tensors in both
+    cases, so a row of a batched sweep divides and multiplies exactly as
+    its single run does (on the card a Python-scalar divisor becomes a
+    multiply by its float32 reciprocal, a tensor divisor does not)."""
+    if hyper is None:
+        return (torch.full((), float(np.float32(cfg.mu)), device=device),
+                torch.full((), step_of(cfg.lr), device=device))
+    return (_rows_f32(hyper.mu, device, True),
+            _rows_f32(step_of(hyper.lr), device, True))
+
+
+def _wide_coefficients(loss_fn, buf, spec, batch, V, inv, scale, cfg, mu):
     """``[M, r]`` coefficients and ``[M]`` base losses of the r directions
     ``V`` ``[M, r, n_pad]`` around every row of ``buf`` ``[M, n_pad]``, in
     the reference's order: the points ``buf + (μ·s)·v``, then
-    ``scale·(lp − base)/μ`` or the central difference."""
-    mu = float(np.float32(cfg.mu))
+    ``scale·(lp − base)/μ`` or the central difference (``mu``: 0-d or
+    ``[M, 1]``)."""
     base = batched_loss(loss_fn)(unflatten(buf, spec), batch)
     step = (mu * inv)[..., None] * V
     lp = _wide_losses(loss_fn, buf[:, None] + step, spec, batch)
@@ -255,7 +300,8 @@ def _combine(coeffs, inv, V):
     return torch.matmul((coeffs * inv)[:, None], V)[:, 0]
 
 
-def _surrogate_phase_scan(loss_fn, buf0, spec, keys, batches, cfg):
+def _surrogate_phase_scan(loss_fn, buf0, spec, keys, batches, cfg,
+                          impl=None, hyper=None):
     """The trajectory-informed surrogate phase (FedZOO-style): per iterate
     ``surrogate_queries(cfg)`` fresh ``block`` directions, their estimate
     blended into a running surrogate g ← β·g + (1−β)·ĝ (ĝ alone on the
@@ -264,82 +310,90 @@ def _surrogate_phase_scan(loss_fn, buf0, spec, keys, batches, cfg):
     scale = estimator._scale_factor(spec.d, cfg.estimator)
     b2q = surrogate_queries(cfg)
     beta = float(np.float32(cfg.surrogate_beta))
+    mu, lr = _wide_scalars(cfg, hyper, buf0.device, lambda v: v)
     buf, g_hat, coeffs, losses = buf0, torch.zeros_like(buf0), [], []
     for h in range(cfg.local_iters):
         V, inv = estimator.direction_block(keys[:, h], spec, b2q,
                                            kind=cfg.estimator, conv="block",
-                                           device=buf.device)
+                                           device=buf.device, impl=impl)
         c, base = _wide_coefficients(
             loss_fn, buf, spec, tree_map(lambda v: v[:, h], batches), V,
-            inv, scale, cfg)
+            inv, scale, cfg, mu)
         g_fresh = _combine(c, inv, V) / b2q
         w = 0.0 if h == 0 else beta
         g_hat = w * g_hat + (1.0 - w) * g_fresh
-        buf = buf - cfg.lr * g_hat
+        buf = buf - lr * g_hat
         coeffs.append(c)
         losses.append(base)
     return buf, torch.stack(coeffs, 1), torch.stack(losses, 1)
 
 
-def _wide_phase_scan(loss_fn, buf0, spec, keys, batches, cfg, like=None):
+def _wide_phase_scan(loss_fn, buf0, spec, keys, batches, cfg, like=None,
+                     impl=None, hyper=None):
     """H batched-direction ("wide") iterates of every row of ``buf0``
     ``[M, n_pad]``: per iterate one direction block per client
-    (``keys[:, h]``, ``[M, 2]`` on the CPU), the M·b2 perturbed forwards as
-    one cohort, and the update ``buf + (−lr/b2)·((coeffs·inv) @ V)``.
-    ``batches`` leaves ``[M, H, ...]``; ``like`` the parameter tree (the
-    ``tree`` convention's leaves). ``channel`` directions are gaussian
-    whatever ``cfg.estimator`` says (scale 1). Returns (buf, coeffs ``[M,
-    H, b2]``, losses ``[M, H]``)."""
+    (``keys[:, h]``, ``[M, words]`` on the CPU, drawn as under the
+    reference's client vmap), the M·b2 perturbed forwards as one cohort,
+    and the update ``buf + (−lr/b2)·((coeffs·inv) @ V)``. ``batches``
+    leaves ``[M, H, ...]``; ``like`` the parameter tree (the ``tree``
+    convention's leaves). ``channel`` directions are gaussian whatever
+    ``cfg.estimator`` says (scale 1). Returns (buf, coeffs ``[M, H, b2]``,
+    losses ``[M, H]``)."""
     if cfg.direction_conv == "surrogate":
-        return _surrogate_phase_scan(loss_fn, buf0, spec, keys, batches, cfg)
+        return _surrogate_phase_scan(loss_fn, buf0, spec, keys, batches, cfg,
+                                     impl, hyper)
     conv = (cfg.direction_conv if cfg.direction_conv in ("tree", "channel")
             else "block")
     scale = (1.0 if conv == "channel"
              else estimator._scale_factor(spec.d, cfg.estimator))
+    mu, step = _wide_scalars(cfg, hyper, buf0.device,
+                             lambda v: -v / cfg.b2)
     buf, coeffs, losses = buf0, [], []
     for h in range(cfg.local_iters):
         V, inv = estimator.direction_block(keys[:, h], spec, cfg.b2,
                                            kind=cfg.estimator, conv=conv,
-                                           like=like, device=buf.device)
+                                           like=like, device=buf.device,
+                                           impl=impl)
         c, base = _wide_coefficients(
             loss_fn, buf, spec, tree_map(lambda v: v[:, h], batches), V,
-            inv, scale, cfg)
-        buf = buf + (-cfg.lr / cfg.b2) * _combine(c, inv, V)
+            inv, scale, cfg, mu)
+        buf = buf + step * _combine(c, inv, V)
         coeffs.append(c)
         losses.append(base)
     return buf, torch.stack(coeffs, 1), torch.stack(losses, 1)
 
 
-def local_phase(loss_fn, params, batches, rng, cfg: FedZOConfig
-                ) -> LocalResult:
+def local_phase(loss_fn, params, batches, rng, cfg: FedZOConfig,
+                impl=None) -> LocalResult:
     """H local iterates (Algorithm 1 inner loop) of one client.
 
     ``batches`` leaves carry a leading ``[H]`` axis; iterate h takes key
-    ``split(rng, H)[h]``. On the flat route the tree is flattened once for
-    the whole phase.
+    ``split(rng, H)[h]`` (``rng`` of ``impl``). On the flat route the tree
+    is flattened once for the whole phase.
     """
     check_route(cfg)
-    keys = prng.split(rng, cfg.local_iters)
+    keys = prng.split(rng, cfg.local_iters, impl)
     if cfg.batch_directions:
         spec, _ = _wide_setup(params, cfg)
         buf0 = flatten(params, spec)[None]
         buf, coeffs, losses = _wide_phase_scan(
             loss_fn, buf0, spec, keys[None],
-            tree_map(lambda v: v[None], batches), cfg, like=params)
+            tree_map(lambda v: v[None], batches), cfg, like=params,
+            impl=impl)
         return LocalResult(unflatten(buf[0], spec), coeffs[0], losses[0])
     if cfg.flat_params:
         spec, br = flat_geometry(params, cfg.flat_block_rows)
         buf0 = flatten(params, spec)[None]
         buf, coeffs, losses = _flat_phase_scan(
             batched_loss(loss_fn), buf0, spec, br,
-            keys[None].to(buf0.device), tree_map(lambda v: v[None], batches),
-            cfg)
+            prng.counter_words(keys)[None].to(buf0.device),
+            tree_map(lambda v: v[None], batches), cfg)
         return LocalResult(unflatten(buf[0], spec), coeffs[0], losses[0])
     p, coeffs, losses = params, [], []
     for h in range(cfg.local_iters):
         p, c, base = local_iterate(loss_fn, p, tree_map(lambda v: v[h],
                                                         batches),
-                                   keys[h], cfg)
+                                   keys[h], cfg, impl)
         coeffs.append(c)
         losses.append(base)
     return LocalResult(p, torch.stack(coeffs), torch.stack(losses))
@@ -349,6 +403,14 @@ def client_delta(loss_fn, params, batches, rng, cfg) -> tuple:
     """Δ_i = x_i^{(t,H)} − x^t plus the local phase's summary."""
     res = local_phase(loss_fn, params, batches, rng, cfg)
     return tree_sub(res.params, params), res
+
+
+class CohortResult(NamedTuple):
+    deltas: object         # [M, n_pad] (flat, wide) or a stacked tree
+    coeffs: torch.Tensor   # [M, H, b2] estimator coefficients
+    losses: torch.Tensor   # [M, H] base losses
+    spec: object           # the flat geometry (None on the pytree route)
+    block_rows: object
 
 
 class CohortResult(NamedTuple):
@@ -376,72 +438,173 @@ def _wrapped(loss_fn, loss_wrap, cst):
     return lf
 
 
+def cohort_geometry(server_params, cfg: FedZOConfig):
+    """(spec, block_rows) of a cohort's flat or wide buffer."""
+    return (_wide_setup(server_params, cfg) if cfg.batch_directions
+            else flat_geometry(server_params, cfg.flat_block_rows))
+
+
+def cohort_rows(loss_fn, bufs, spec, br, client_batches, client_rngs,
+                cfg: FedZOConfig, *, like, impl=None, hyper=None):
+    """The local phases of a cohort on the flat or wide route, each row of
+    ``bufs`` ``[R, n_pad]`` from its own start: row r runs H iterates with
+    key ``split(client_rngs[r], H)[h]`` on ``client_batches[r]``. The R
+    rows are one cohort under the reference's vmap (a batched sweep's
+    ``[S, M]`` scenarios × clients flattened row-major), and ``hyper``
+    gives each row its own lr and μ. Returns (final bufs, coeffs ``[R, H,
+    b2]``, losses ``[R, H]``)."""
+    keys = prng.split(client_rngs, cfg.local_iters, impl)  # [R, H, words]
+    if cfg.batch_directions:
+        return _wide_phase_scan(loss_fn, bufs, spec, keys, client_batches,
+                                cfg, like=like, impl=impl, hyper=hyper)
+    return _flat_phase_scan(batched_loss(loss_fn), bufs, spec, br,
+                            prng.counter_words(keys).to(bufs.device),
+                            client_batches, cfg, hyper=hyper)
+
+
+def tree_rows(loss_fns, params, client_batches, client_rngs, cfgs,
+              impl=None):
+    """The pytree route's local phases of R clients, one after another:
+    client r runs H iterates from ``params[r]`` with ``cfgs[r]`` and
+    ``loss_fns[r]`` on its batches ``client_batches[r]`` (leaves ``[R, H,
+    ...]``), iterate h with key ``split(client_rngs[r], H)[h]``. The R
+    rows stand for the reference's client vmap (a batched sweep's
+    scenarios × clients flattened): the keys split as one batch and each
+    iterate's key is a ``prng.lanes`` row, so under rbg keys every
+    per-leaf draw is the client's slice of one draw from the first
+    client's key, as in the reference. Returns (the R delta trees, coeffs
+    ``[R, H, b2]``, losses ``[R, H]``)."""
+    H = cfgs[0].local_iters
+    keys = prng.split(client_rngs, H, impl)               # [R, H, words]
+    rows = [prng.lanes(keys[:, h], impl) for h in range(H)]
+    deltas, coeffs, losses = [], [], []
+    for r in range(client_rngs.shape[0]):
+        p, cs, ls = params[r], [], []
+        for h in range(H):
+            p, c, base = local_iterate(
+                loss_fns[r], p, tree_map(lambda v: v[r, h], client_batches),
+                rows[h][r], cfgs[r], impl)
+            cs.append(c)
+            ls.append(base)
+        deltas.append(tree_sub(p, params[r]))
+        coeffs.append(torch.stack(cs))
+        losses.append(torch.stack(ls))
+    return deltas, torch.stack(coeffs), torch.stack(losses)
+
+
 def cohort_phase(loss_fn, server_params, client_batches, client_rngs,
-                 cfg: FedZOConfig, *, cstate=None, loss_wrap=None
-                 ) -> CohortResult:
+                 cfg: FedZOConfig, *, cstate=None, loss_wrap=None,
+                 impl=None) -> CohortResult:
     """The local phases of the M sampled clients, all from
     ``server_params``: client i runs H iterates with key
     ``split(client_rngs[i], H)[h]`` on its batches ``client_batches[i]``.
 
     On the flat and wide routes the cohort runs side by side on one ``[M,
-    n_pad]`` buffer, and the deltas come back as that matrix; on the pytree
-    route the clients run one after another and the deltas come back as a
-    stacked ``[M, ...]`` tree. ``loss_wrap`` (a strategy's hook) wraps the
-    loss: per client with its row of ``cstate`` on the pytree route, once
-    for the cohort with the whole ``cstate`` on the others (``_wrapped``).
+    n_pad]`` buffer (``cohort_rows``), and the deltas come back as that
+    matrix; on the pytree route the clients run one after another
+    (``tree_rows``) and the deltas come back as a stacked ``[M, ...]``
+    tree. ``loss_wrap`` (a
+    strategy's hook) wraps the loss: per client with its row of ``cstate``
+    on the pytree route, once for the cohort with the whole ``cstate`` on
+    the others (``_wrapped``). ``impl``: the keys' (None: threefry).
     """
     check_route(cfg)
     M = client_rngs.shape[0]
     if cfg.flat_params or cfg.batch_directions:
         lf = _wrapped(loss_fn, loss_wrap, cstate)
-        spec, br = (_wide_setup(server_params, cfg) if cfg.batch_directions
-                    else flat_geometry(server_params, cfg.flat_block_rows))
+        spec, br = cohort_geometry(server_params, cfg)
         buf0 = flatten(server_params, spec)
         bufs = buf0.expand(M, spec.n_pad).contiguous()
-        keys = prng.split(client_rngs, cfg.local_iters)  # [M, H, 2]
-        if cfg.batch_directions:
-            buf, coeffs, losses = _wide_phase_scan(
-                lf, bufs, spec, keys, client_batches, cfg,
-                like=server_params)
-        else:
-            buf, coeffs, losses = _flat_phase_scan(
-                batched_loss(lf), bufs, spec, br, keys.to(buf0.device),
-                client_batches, cfg)
+        buf, coeffs, losses = cohort_rows(
+            lf, bufs, spec, br, client_batches, client_rngs, cfg,
+            like=server_params, impl=impl)
         return CohortResult(buf - buf0, coeffs, losses, spec, br)
-    deltas, coeffs, losses = [], [], []
-    for i in range(M):
-        lf = loss_fn
-        if loss_wrap is not None:
-            lf = loss_wrap(loss_fn, None if cstate is None
-                           else tree_map(lambda v: v[i], cstate))
-        delta, res = client_delta(
-            lf, server_params, tree_map(lambda v: v[i], client_batches),
-            client_rngs[i], cfg)
-        deltas.append(delta)
-        coeffs.append(res.coeffs)
-        losses.append(res.losses)
-    return CohortResult(tree_stack(deltas), torch.stack(coeffs),
-                        torch.stack(losses), None, None)
+    lfs = [loss_fn if loss_wrap is None else loss_wrap(
+        loss_fn, None if cstate is None else tree_map(lambda v: v[i], cstate))
+        for i in range(M)]
+    deltas, coeffs, losses = tree_rows(lfs, [server_params] * M,
+                                       client_batches, client_rngs,
+                                       [cfg] * M, impl)
+    return CohortResult(tree_stack(deltas), coeffs, losses, None, None)
+
+
+def round_schedule(cfg: FedZOConfig, channel_rng, channel, M, dev,
+                   impl=None, h_min=None):
+    """The round's transmit mask and AirComp noise key: ``(mask | None,
+    noise_rng)``. With ``cfg.channel_schedule`` the channel key splits
+    into the scheduling draw's key and the noise key, and the i.i.d.
+    Rayleigh draw sets the mask unless a realized ``channel`` supplies it.
+    Keys ``[S, words]`` (a batched sweep) give ``[S, M]`` masks and ``[S,
+    words]`` noise keys, with ``h_min`` ``[S, 1]``."""
+    mask, noise_rng = None, channel_rng
+    if cfg.channel_schedule and channel_rng is not None:
+        ks = prng.split(channel_rng, 2, impl)
+        k_sched, noise_rng = ks[..., 0, :], ks[..., 1, :]
+        if channel is None:
+            _, mask = schedule_by_channel(
+                k_sched, M, cfg.h_min if h_min is None else h_min, impl)
+            mask = mask.to(dev)
+    if channel is not None:
+        # the scenario's realized channel (sim/channel.py): correlated-
+        # fading scheduling ∧ battery gating replaces the i.i.d. draw
+        mask = channel.mask.to(dev)
+    return mask, noise_rng
+
+
+def aggregate(deltas, spec, block_rows, cfg: FedZOConfig, *, noise_rng,
+              mask=None, weights=None, impl=None, dev=None):
+    """The server's aggregate of one cohort's deltas, as a parameter tree,
+    and the aggregation's stats: AirComp (Eq. 17) when ``cfg.aircomp`` and
+    a noise key is given; else the masked (channel scheduling) and/or
+    size-weighted mean; else the plain mean, which the pytree route takes
+    as ``(1/M)·Σ_i Δ_i``. ``deltas``: the ``[M, n_pad]`` matrix (``spec``
+    set) or a stacked ``[M, ...]`` tree."""
+    M = (deltas.shape[0] if spec is not None
+         else _leaves(deltas)[0][1].shape[0])
+    if spec is not None:
+        if cfg.aircomp and noise_rng is not None:
+            agg_flat, air_stats = aircomp_aggregate_flat(
+                deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min,
+                d=spec.d, mask=mask, weights=weights, block_rows=block_rows)
+        elif mask is not None or weights is not None:
+            maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
+            agg_flat = torch.einsum("mn,m->n", deltas, maskf) / m_div
+            air_stats = {"m_effective": m_sched}
+        else:
+            agg_flat, air_stats = torch.mean(deltas, dim=0), {}
+        return unflatten(agg_flat, spec), air_stats
+    if cfg.aircomp and noise_rng is not None:
+        return aircomp_aggregate(deltas, noise_rng, snr_db=cfg.snr_db,
+                                 h_min=cfg.h_min, mask=mask, weights=weights,
+                                 impl=impl)
+    if mask is not None or weights is not None:
+        maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
+        agg = tree_map(
+            lambda x: (torch.einsum("m...,m->...", x.to(torch.float32),
+                                    maskf) / m_div).to(x.dtype), deltas)
+        return agg, {"m_effective": m_sched}
+    return tree_scale(1.0 / M,
+                      tree_map(lambda x: torch.sum(x, 0), deltas)), {}
 
 
 def round_simulated(loss_fn, server_params, client_batches, client_rngs,
                     cfg: FedZOConfig, *, channel_rng=None, momentum=None,
                     weights=None, faults=None, channel=None, cstate=None,
-                    loss_wrap=None, state_fn=None):
+                    loss_wrap=None, state_fn=None, impl=None):
     """One communication round over the M sampled clients.
 
     ``loss_fn(params, batch) -> scalar`` for one client; ``server_params``
     a (nested) dict of tensors on the run's device; ``client_batches``
-    leaves ``[M, H, b1, ...]`` on that device; ``client_rngs`` ``[M, 2]``
-    raw keys and ``channel_rng`` a raw key (both CPU). ``weights`` ``[M]``:
+    leaves ``[M, H, b1, ...]`` on that device; ``client_rngs`` ``[M,
+    words]`` raw keys and ``channel_rng`` a raw key (both CPU), of
+    ``impl`` (``utils/prng.py``; None: threefry). ``weights`` ``[M]``:
     mean-1 size weights. ``momentum`` a tree like the parameters (with
     ``cfg.server_momentum > 0``). Returns (new_params, metrics[,
     new_momentum][, new_cstate]).
 
-    The aggregation follows the reference on every route: AirComp (Eq. 17)
-    when ``cfg.aircomp``; else the masked (channel scheduling) and/or
-    size-weighted mean; else the plain mean, which the pytree route takes
-    as ``(1/M)·Σ_i Δ_i``.
+    The aggregation follows the reference on every route (``aggregate``):
+    AirComp (Eq. 17) when ``cfg.aircomp``; else the masked (channel
+    scheduling) and/or size-weighted mean; else the plain mean.
 
     Strategy hooks (``core/strategy.py``), all None by default, when every
     route is the plain FedZO round:
@@ -469,22 +632,10 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
     M = client_rngs.shape[0]
     dev = estimator._device(server_params)
     new_cstate = cstate
-    mask = None
-    noise_rng = channel_rng
-    air_stats = {}
-    if cfg.channel_schedule and channel_rng is not None:
-        ks = prng.split(channel_rng, 2)
-        k_sched, noise_rng = ks[0], ks[1]
-        if channel is None:
-            _, mask = schedule_by_channel(k_sched, M, cfg.h_min)
-            mask = mask.to(dev)
-    if channel is not None:
-        # the scenario's realized channel (sim/channel.py): correlated-
-        # fading scheduling ∧ battery gating replaces the i.i.d. draw
-        mask = channel.mask.to(dev)
-
+    mask, noise_rng = round_schedule(cfg, channel_rng, channel, M, dev,
+                                     impl)
     res = cohort_phase(loss_fn, server_params, client_batches, client_rngs,
-                       cfg, cstate=cstate, loss_wrap=loss_wrap)
+                       cfg, cstate=cstate, loss_wrap=loss_wrap, impl=impl)
     deltas, losses, spec = res.deltas, res.losses, res.spec
     if state_fn is not None:
         deltas, new_cstate = state_fn(deltas, cstate, spec)
@@ -494,33 +645,10 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
         deltas, fmask = (faults.apply_flat(deltas) if spec is not None
                          else faults.apply_tree(deltas))
         mask = fmask if mask is None else mask & fmask
-
-    if spec is not None:
-        if cfg.aircomp and channel_rng is not None:
-            agg_flat, air_stats = aircomp_aggregate_flat(
-                deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min,
-                d=spec.d, mask=mask, weights=weights,
-                block_rows=res.block_rows)
-        elif mask is not None or weights is not None:
-            maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
-            agg_flat = torch.einsum("mn,m->n", deltas, maskf) / m_div
-            air_stats = {"m_effective": m_sched}
-        else:
-            agg_flat = torch.mean(deltas, dim=0)
-        agg = unflatten(agg_flat, spec)
-    elif cfg.aircomp and channel_rng is not None:
-        agg, air_stats = aircomp_aggregate(
-            deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min,
-            mask=mask, weights=weights)
-    elif mask is not None or weights is not None:
-        maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
-        agg = tree_map(
-            lambda x: (torch.einsum("m...,m->...", x.to(torch.float32),
-                                    maskf) / m_div).to(x.dtype), deltas)
-        air_stats = {"m_effective": m_sched}
-    else:
-        agg = tree_scale(1.0 / M,
-                         tree_map(lambda x: torch.sum(x, 0), deltas))
+    agg, air_stats = aggregate(
+        deltas, spec, res.block_rows, cfg,
+        noise_rng=noise_rng if channel_rng is not None else None,
+        mask=mask, weights=weights, impl=impl, dev=dev)
 
     if momentum is not None and cfg.server_momentum > 0:
         momentum = tree_map(

@@ -111,11 +111,12 @@ class AlgoStrategy:
 
         params', metrics, momentum', zstate' = strat.run_round(
             loss_fn, params, batches, k_zo, cfg, channel_rng=..,
-            momentum=.., zstate=.., idx=.., round_fn=.., **wkw)
+            momentum=.., zstate=.., idx=.., round_fn=.., impl=.., **wkw)
 
     ``zstate`` is None for stateless strategies, else ``{"client": [N,
     ...] stacked tree, "server": tree}``; ``idx`` the round's sampled
-    client ids (``[M]`` int64, CPU); ``k_zo`` a raw key (CPU).
+    client ids (``[M]`` int64, CPU); ``k_zo`` a raw key (CPU) and ``impl``
+    its ``prng.Impl`` (None: threefry).
     """
     name = "fedzo"
     stateful = False
@@ -135,16 +136,16 @@ class AlgoStrategy:
 
     def run_round(self, loss_fn, params, batches, k_zo, cfg: FedZOConfig, *,
                   channel_rng=None, momentum=None, zstate=None, idx=None,
-                  round_fn=None, **wkw):
+                  round_fn=None, impl=None, **wkw):
         fz = round_fn if round_fn is not None else fedzo.round_simulated
-        rngs = prng.split(k_zo, cfg.n_participating)
+        rngs = prng.split(k_zo, cfg.n_participating, impl)
         if self.has_momentum(cfg):
             params, metrics, momentum = fz(
-                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng,
+                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
                 momentum=momentum, **wkw)
         else:
             params, metrics = fz(loss_fn, params, batches, rngs, cfg,
-                                 channel_rng=channel_rng, **wkw)
+                                 channel_rng=channel_rng, impl=impl, **wkw)
         return params, metrics, momentum, zstate
 
 
@@ -157,9 +158,9 @@ class FedAvgStrategy(AlgoStrategy):
 
     def run_round(self, loss_fn, params, batches, k_zo, cfg, *,
                   channel_rng=None, momentum=None, zstate=None, idx=None,
-                  round_fn=None, **wkw):
+                  round_fn=None, impl=None, **wkw):
         params, metrics = fedavg.round_simulated(
-            loss_fn, params, batches, cfg, channel_rng=channel_rng, **wkw)
+            loss_fn, params, batches, cfg, channel_rng=channel_rng, impl=impl, **wkw)
         return params, metrics, momentum, zstate
 
 
@@ -172,10 +173,10 @@ class ZOFedProx(AlgoStrategy):
 
     def run_round(self, loss_fn, params, batches, k_zo, cfg, *,
                   channel_rng=None, momentum=None, zstate=None, idx=None,
-                  round_fn=None, **wkw):
+                  round_fn=None, impl=None, **wkw):
         if cfg.prox_mu <= 0:
             return super().run_round(
-                loss_fn, params, batches, k_zo, cfg, channel_rng=channel_rng,
+                loss_fn, params, batches, k_zo, cfg, channel_rng=channel_rng, impl=impl,
                 momentum=momentum, zstate=zstate, idx=idx, round_fn=round_fn,
                 **wkw)
         half_mu = 0.5 * cfg.prox_mu
@@ -186,14 +187,14 @@ class ZOFedProx(AlgoStrategy):
                 lf, lambda l, p: l + half_mu * _sq_diff(p, params),
                 lambda l, p: l + half_mu * _sq_diff_rows(p, params))
 
-        rngs = prng.split(k_zo, cfg.n_participating)
+        rngs = prng.split(k_zo, cfg.n_participating, impl)
         if self.has_momentum(cfg):
             params_new, metrics, momentum = fedzo.round_simulated(
-                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng,
+                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
                 momentum=momentum, loss_wrap=loss_wrap, **wkw)
         else:
             params_new, metrics = fedzo.round_simulated(
-                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng,
+                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
                 loss_wrap=loss_wrap, **wkw)
         return params_new, metrics, momentum, zstate
 
@@ -240,14 +241,14 @@ class ZOFedDyn(_StatefulZO):
 
     def run_round(self, loss_fn, params, batches, k_zo, cfg, *,
                   channel_rng=None, momentum=None, zstate=None, idx=None,
-                  round_fn=None, **wkw):
+                  round_fn=None, impl=None, **wkw):
         a = cfg.dyn_alpha
         if a <= 0:
             return super().run_round(
-                loss_fn, params, batches, k_zo, cfg, channel_rng=channel_rng,
+                loss_fn, params, batches, k_zo, cfg, channel_rng=channel_rng, impl=impl,
                 momentum=momentum, zstate=zstate, idx=idx, round_fn=round_fn,
                 **wkw)
-        rngs = prng.split(k_zo, cfg.n_participating)
+        rngs = prng.split(k_zo, cfg.n_participating, impl)
         cohort = self._gather(zstate, idx)
 
         def loss_wrap(lf, h):
@@ -265,7 +266,7 @@ class ZOFedDyn(_StatefulZO):
             return deltas, new_h
 
         params_new, metrics, new_cohort = fedzo.round_simulated(
-            loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng,
+            loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
             cstate=cohort, loss_wrap=loss_wrap, state_fn=state_fn, **wkw)
         # the server step from the aggregate Δ̄ = x' − x_t, whatever the
         # aggregation (AirComp noise, masking, weighting) made of it
@@ -294,8 +295,8 @@ class ZOScaffold(_StatefulZO):
 
     def run_round(self, loss_fn, params, batches, k_zo, cfg, *,
                   channel_rng=None, momentum=None, zstate=None, idx=None,
-                  round_fn=None, **wkw):
-        rngs = prng.split(k_zo, cfg.n_participating)
+                  round_fn=None, impl=None, **wkw):
+        rngs = prng.split(k_zo, cfg.n_participating, impl)
         cohort = self._gather(zstate, idx)
         c = zstate["server"]
         eta = cfg.lr * cfg.local_iters  # total local step length lr·H
@@ -317,7 +318,7 @@ class ZOScaffold(_StatefulZO):
             return new_deltas, new_ci
 
         params_new, metrics, new_cohort = fedzo.round_simulated(
-            loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng,
+            loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
             cstate=cohort, state_fn=state_fn, **wkw)
         frac = cfg.n_participating / cfg.n_devices
         dmean = tree_map(

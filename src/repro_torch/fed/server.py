@@ -11,9 +11,9 @@ and runs the round of its strategy. Two drivers share the class:
 - **Store path** (``store=ClientStore``): every round is the engine's round
   step (``sim/engine.make_round_step``), so ``run_round`` and ``run`` walk
   the engine's key chain and trajectory; all five strategies run there.
-  ``run(driver="scan")`` maps to the engine's round loop
-  (``sim.run_experiment``), the counterpart of the reference's one
-  compiled scan.
+  ``run(driver="scan")`` runs the engine's experiment function
+  (``sim.make_experiment_fn``, cached per round count), the counterpart of
+  the reference's one compiled scan.
 
 On the store path the server also carries the engine's fault chain
 (``faults=FaultModel``) and wireless chain (``cfg.channel_model``), as the
@@ -144,7 +144,9 @@ class FedServer:
         # the wireless chain starts from the fold-in key, as run_experiment
         # does, so the host-driven and engine trajectories share it
         cm = self.cfg.channel_model
-        self._cstate = (cm.init_state(n, channel_lib.init_key(self._key))
+        impl = prng.resolve(self.cfg.prng_impl)
+        self._cstate = (cm.init_state(n, channel_lib.init_key(self._key, impl),
+                                      impl)
                         if cm is not None else None)
         self._build_round_fns()
 
@@ -152,6 +154,7 @@ class FedServer:
         """(Re)build the store path's round step for the current
         ``self.cfg``: at init and after a rollback bakes a backed-off lr
         into the config (the host loop reads ``self.cfg`` each round)."""
+        self._exp_cache = {}
         if self.store is not None:
             self._sim_step = sim_engine.make_round_step(
                 self.loss_fn, self.cfg, strategy=self._strategy,
@@ -287,17 +290,36 @@ class FedServer:
         return self.history
 
     def _run_scanned(self, rounds: int):
-        res = sim_engine.run_experiment(
-            self.loss_fn, self.params, self.store, self.cfg, rounds,
-            strategy=self._strategy, eval_fn=self.jit_eval,
-            eval_every=self.eval_every if self.jit_eval is not None else 0,
-            key=self._key, momentum=self._momentum, zstate=self._zstate,
-            faults=self.faults, fault_state=self._fstate,
-            channel_state=self._cstate, tracer=self.tracer)
+        """``rounds`` rounds through the engine's experiment function
+        (``sim_engine.make_experiment_fn``, built once per round count and
+        config, as the reference caches its compiled program)."""
+        fn = self._exp_cache.get(rounds)
+        if fn is None:
+            fn = sim_engine.make_experiment_fn(
+                self.loss_fn, self.cfg, rounds, strategy=self._strategy,
+                eval_fn=self.jit_eval, eval_every=self.eval_every,
+                faults=self.faults, donate=False)
+            self._exp_cache[rounds] = fn
+        args = (self.params, self._momentum, self._key, self._fstate,
+                self._cstate, self._zstate, self.store)
+        if self.tracer is not None:
+            with self.tracer.profile():
+                sim_engine._compile_span(self.tracer, self.params)
+                with self.tracer.span("execute", rounds=rounds):
+                    out = fn(*args)
+        else:
+            out = fn(*args)
         (self.params, self._momentum, self._key, self._fstate, self._cstate,
-         self._zstate) = (res.params, res.momentum, res.key,
-                          res.fault_state, res.channel_state,
-                          res.strategy_state)
+         self._zstate, ring, ebuf) = out
+        do_eval = self.jit_eval is not None and self.eval_every > 0
+        res = sim_engine.ExperimentResult(
+            params=self.params, momentum=self._momentum, key=self._key,
+            metrics=ring, evals=ebuf, rounds=rounds, ring_size=rounds,
+            eval_rounds=(np.arange(0, rounds, self.eval_every) if do_eval
+                         else np.arange(0)),
+            fault_state=self._fstate, channel_state=self._cstate,
+            strategy=self._strategy.name, strategy_state=self._zstate,
+            ledger=self._ledger)
         if self.divergence_guard and self._diverged(
                 {k: float(v[-1]) for k, v in res.metrics.items()}):
             raise DivergenceError(

@@ -1,7 +1,7 @@
 """Build the CUDA kernels with ``nvcc`` on first use and load them.
 
 Each source in ``kernels/csrc/`` (the ZO kernels, the axpys, RMSNorm,
-flash attention) is compiled on its own into a shared library with a plain C
+flash attention, the Philox bit generator) is compiled on its own into a shared library with a plain C
 interface, and the libraries are loaded with ``ctypes``: no PyTorch
 headers are involved, so a build takes seconds. All sources compile in
 parallel, one ``nvcc`` each. The libraries go to
@@ -32,13 +32,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 SOURCES = ("zo_axpy.cu", "zo_aircomp.cu", "axpy.cu", "rmsnorm.cu",
-           "flash_attention.cu")
-HEADERS = ("threefry.cuh",)
+           "flash_attention.cu", "philox.cu")
+HEADERS = ("threefry.cuh", "philox.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_L = ctypes.c_longlong
+_L, _UL = ctypes.c_longlong, ctypes.c_ulonglong
 _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the launchers (every pointer and the stream as c_void_p)
 SIGNATURES = {
@@ -68,6 +68,9 @@ SIGNATURES = {
         "flash_head_dim_ok": [_I, _I],
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _P],
+    },
+    "philox": {
+        "philox_bits_launch": [_P, _U, _U, _U, _U, _UL, _UL, _P],
     },
 }
 

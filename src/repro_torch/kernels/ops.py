@@ -1,12 +1,13 @@
 """Kernel wrappers: dispatch by device, launch counters.
 
-The four ZO kernels of the flat FedZO round, the two axpys of the pytree
+The four ZO kernels of the flat FedZO round, the Philox bit generator of
+the rbg and unsafe_rbg keys (``philox_bits``, ``utils/prng.py``), the two axpys of the pytree
 route (``axpy`` per leaf in ``utils/tree.tree_axpy``; ``axpy2`` and
 ``tree_axpy2``, the reference's public entry points for ``zo_axpy2``) and
 the two of the dense transformer forward (RMSNorm, flash attention). A
 tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/zo_axpy.py``,
-``kernels/zo_aircomp.py``, ``kernels/rmsnorm.py``,
+``kernels/zo_aircomp.py``, ``kernels/philox.py``, ``kernels/rmsnorm.py``,
 ``kernels/flash_attention.py``). A tensor on a CUDA
 device goes to the hand-written kernel (``kernels/csrc/*.cu``), built on
 first use, or the call raises: there is no fallback. After every launch the
@@ -36,6 +37,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.philox import MASK32, philox_bits_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.kernels.zo_aircomp import aircomp_reduce_plain
 from repro_torch.kernels.zo_axpy import (dirnorm_geometry, zo_axpy2_plain,
@@ -44,7 +46,7 @@ from repro_torch.kernels.zo_axpy import (dirnorm_geometry, zo_axpy2_plain,
 
 LAUNCHES = {"zo_walk": 0, "zo_replay": 0, "zo_dirnorms": 0,
             "aircomp_reduce": 0, "zo_axpy": 0, "zo_axpy2": 0, "rmsnorm": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "philox_bits": 0}
 _KIND_CODE = {"normal": 0, "sign": 1}
 _TICKETS: dict = {}
 _AIR_GEOMETRY: dict = {}
@@ -161,6 +163,30 @@ def tree_axpy2(x_tree, u_tree, v_tree, a, b):
     return {k: tree_axpy2(x, u_tree[k], v_tree[k], a, b)
             if isinstance(x, dict) else axpy2(x, u_tree[k], v_tree[k], a, b)
             for k, x in x_tree.items()}
+
+
+def philox_bits(words, n: int, *, device="cpu", start: int = 0):
+    """int32 ``[n]`` (uint32 bit patterns): words ``[start, start + n)`` of
+    XLA's RngBitGenerator stream (Philox-4x32-10) of the 4-word key
+    ``words`` (ints or a ``[4]`` tensor), on ``device``. The key's words
+    are kernel arguments, so a host key costs no copy."""
+    words = tuple(int(w) & MASK32 for w in (
+        words.tolist() if isinstance(words, torch.Tensor) else words))
+    if len(words) != 4:
+        raise ValueError(f"philox_bits takes a 4-word key, got {words}")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return philox_bits_plain(words, n, start=start)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    b0 = start // 4
+    off = start - 4 * b0
+    out = torch.empty(n + off, dtype=torch.int32, device=device)
+    lib = build.load()["philox"]
+    _check(lib.philox_bits_launch(out.data_ptr(), *words, b0, n + off,
+                                  _stream()), "philox_bits")
+    LAUNCHES["philox_bits"] += 1
+    return out[off:] if off else out
 
 
 def zo_walk(x, keys, nn, ab, *, kind="normal"):

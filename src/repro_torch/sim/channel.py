@@ -44,9 +44,10 @@ _CLT_DRAWS = 24     # Irwin–Hall terms per component (variance 1/2 exactly)
 _H_CLIP = (1 << (_FRAC_H + 4)) - 1   # |h| < 16: int32 overflow guard
 
 
-def init_key(key):
-    """The chain's round-0 key, folded off the experiment key."""
-    return prng.fold_in(key, INIT_SALT)
+def init_key(key, impl=None):
+    """The chain's round-0 key, folded off the experiment key (``impl``
+    the key's, ``utils/prng.py``, as for every draw of the chain)."""
+    return prng.fold_in(key, INIT_SALT, impl)
 
 
 def fading(state):
@@ -121,30 +122,30 @@ class ChannelModel:
         return d
 
     # -- carry state ---------------------------------------------------------
-    def init_state(self, n_clients: int, key) -> tuple:
+    def init_state(self, n_clients: int, key, impl=None) -> tuple:
         """Round-0 state ``(h [N, 2] int32 Q.14, battery [N] int32 Q.16)``
         on the CPU; ``h`` from the stationary law. ``key`` should be
         ``init_key(experiment_key)``."""
-        h0 = self._innovation(key, n_clients)
+        h0 = self._innovation(key, n_clients, impl)
         batt = torch.full(
             (n_clients,), int(round(max(self.battery, 0.0) * (1 << _FRAC_B))),
             dtype=torch.int32)
         return h0, batt
 
-    def _innovation(self, key, n: int):
+    def _innovation(self, key, n: int, impl=None):
         """One CN(0, 1) draw as int32 ``[n, 2]`` Q.14 from integer ops: per
         component the sum of 24 22-bit words, centred, shifted to Q.14
         (``jax.random.bits(key, (n, 2, 24), uint32)`` underneath)."""
-        u = prng.random_bits(key, (n, 2, _CLT_DRAWS))
+        u = prng.random_bits(key, (n, 2, _CLT_DRAWS), impl=impl)
         s = torch.sum((u >> 10).to(torch.int32), dim=-1, dtype=torch.int32)
         s = s - _CLT_DRAWS // 2 * (1 << 22)
         return (s + 256) >> 9
 
-    def advance(self, key, h):
+    def advance(self, key, h, impl=None):
         """One AR(1) transition of all N clients; ρ = 0 returns the fresh
         draw itself. The Q.12 × Q.14 mul-add stays below 2³¹, the shift
         back rounds half up, the result is clipped to the guard."""
-        w = self._innovation(key, h.shape[0])
+        w = self._innovation(key, h.shape[0], impl)
         if self.rho == 0.0:
             return w
         rho_q, sigma_q = self._coeffs()
@@ -152,14 +153,14 @@ class ChannelModel:
         return torch.clamp(nxt, -_H_CLIP, _H_CLIP)
 
     def step(self, key, state, idx, *, h_min: float,
-             schedule: bool) -> tuple:
+             schedule: bool, impl=None) -> tuple:
         """Advance the chain one round and realize the channel of the
         sampled cohort ``idx`` (``[M]`` client ids): ``(new_state,
         RoundChannel)``. A sampled client transmits iff it is scheduled
         (``schedule``: |h| ≥ h_min on the post-advance fading) and its
         battery covers ``tx_cost``; transmitting clients are debited."""
         h, batt = state
-        h = self.advance(key, h)
+        h = self.advance(key, h, impl)
         h_coh = h[idx]
         mask = torch.ones(tuple(idx.shape), dtype=torch.bool)
         if schedule:

@@ -15,7 +15,8 @@ realization. A ``FaultModel`` widens the split to 6 (``k_fault``: the
 availability, straggler and corruption draws) and a ``cfg.channel_model``
 once more (``k_chanm``, last: the wireless chain), exactly as the reference
 (``split_round_keys``); runs without either keep the 5-way chain. The
-chain starts at ``key(cfg.seed)``, so a run draws the reference's clients,
+chain starts at ``key(cfg.seed, cfg.prng_impl)`` (threefry, rbg or
+unsafe_rbg), so a run draws the reference's clients,
 rows, directions and faults. The algorithm comes from the strategy
 registry (``core/strategy.py``); the carry is ``(params, momentum, key,
 fstate, cstate, zstate)``: the fault chain's ``[N]`` states, the channel's
@@ -70,31 +71,32 @@ from repro_torch.utils.flatparams import _leaves
 from repro_torch.utils.tree import tree_zeros_like
 
 
-def round_keys(key):
+def round_keys(key, impl=None):
     """(next_carry_key, k_participation, k_batches, k_zo, k_channel)."""
-    ks = prng.split(key, 5)
+    ks = prng.split(key, 5, impl)
     return ks[0], ks[1], ks[2], ks[3], ks[4]
 
 
-def split_round_keys(key, *, faults: bool = False, channel: bool = False):
+def split_round_keys(key, *, faults: bool = False, channel: bool = False,
+                     impl=None):
     """The per-round split, widened by the optional processes: ``(key',
     k_part, k_batch, k_zo, k_chan, k_fault, k_chanm)``, ``k_fault`` /
     ``k_chanm`` None when faults / the channel model are off. The fault
     stream comes first, the channel stream last; a run without either keeps
-    the 5-way chain, a faults-only run the 6-way one."""
+    the 5-way chain, a faults-only run the 6-way one. Keys ``[S, words]``
+    (the scenarios of a batched sweep) split to ``[S, ...]`` streams."""
     n = 5 + int(faults) + int(channel)
-    ks = prng.split(key, n)
-    k_fault = ks[5] if faults else None
-    k_chanm = ks[5 + int(faults)] if channel else None
-    return ks[0], ks[1], ks[2], ks[3], ks[4], k_fault, k_chanm
+    ks = prng.split(key, n, impl)
+    k_fault = ks[..., 5, :] if faults else None
+    k_chanm = ks[..., 5 + int(faults), :] if channel else None
+    return (ks[..., 0, :], ks[..., 1, :], ks[..., 2, :], ks[..., 3, :],
+            ks[..., 4, :], k_fault, k_chanm)
 
 
 def experiment_key(cfg: FedZOConfig):
-    """Round-0 carry key of an experiment (threefry only)."""
-    if cfg.prng_impl != "threefry2x32":
-        raise NotImplementedError(f"prng_impl={cfg.prng_impl!r} is not "
-                                  f"ported; only threefry2x32")
-    return prng.key(cfg.seed)
+    """Round-0 carry key of an experiment, ``jax.random.key(cfg.seed,
+    impl=cfg.prng_impl)``: threefry ``[2]``, rbg or unsafe_rbg ``[4]``."""
+    return prng.key(cfg.seed, cfg.prng_impl)
 
 
 def _step_strategy(strategy, algo, cfg: FedZOConfig, round_fn):
@@ -124,28 +126,29 @@ def make_round_step(loss_fn, cfg: FedZOConfig, *, algo: Optional[str] = None,
     ``fedzo.round_simulated`` (only for strategies without hooks)."""
     strat = _step_strategy(strategy, algo, cfg, round_fn)
     channel = cfg.channel_model
+    impl = prng.resolve(cfg.prng_impl)
 
     def step(state, store: ClientStore):
         params, momentum, key, fstate, cstate, zstate = state
         key, k_part, k_batch, k_zo, k_chan, k_fault, k_chanm = \
             split_round_keys(key, faults=faults is not None,
-                             channel=channel is not None)
+                             channel=channel is not None, impl=impl)
         idx = sample_participants(k_part, store.n_clients,
-                                  cfg.n_participating)
+                                  cfg.n_participating, impl)
         batches = sample_batches(store, idx, k_batch, cfg.local_iters,
-                                 cfg.b1)
+                                 cfg.b1, impl)
         wkw = ({"weights": aircomp.size_weights(store.sizes[idx])}
                if cfg.weight_by_size else {})
         if faults is not None:
-            fstate, wkw["faults"] = faults.step(k_fault, fstate, idx)
+            fstate, wkw["faults"] = faults.step(k_fault, fstate, idx, impl)
         if channel is not None:
             cstate, wkw["channel"] = channel.step(
                 k_chanm, cstate, idx, h_min=cfg.h_min,
-                schedule=cfg.channel_schedule)
+                schedule=cfg.channel_schedule, impl=impl)
         params, metrics, momentum, zstate = strat.run_round(
             loss_fn, params, batches, k_zo, cfg, channel_rng=k_chan,
             momentum=momentum, zstate=zstate, idx=idx, round_fn=round_fn,
-            **wkw)
+            impl=impl, **wkw)
         return (params, momentum, key, fstate, cstate, zstate), metrics
 
     return step
@@ -174,18 +177,19 @@ def make_cohort_round_step(loss_fn, cfg: FedZOConfig, *,
     """
     strat = _step_strategy(strategy, algo, cfg, round_fn)
     channel = cfg.channel_model
+    impl = prng.resolve(cfg.prng_impl)
 
     def step(state, cohort: CohortBatch):
         params, momentum, key, zstate = state
         key, _k_part, k_batch, k_zo, k_chan, k_fault, _k_chanm = \
             split_round_keys(key, faults=faults is not None,
-                             channel=channel is not None)
+                             channel=channel is not None, impl=impl)
         batches = sample_cohort_batches(cohort.data, cohort.sizes, k_batch,
-                                        cfg.local_iters, cfg.b1)
+                                        cfg.local_iters, cfg.b1, impl)
         wkw = ({"weights": aircomp.size_weights(cohort.sizes)}
                if cfg.weight_by_size else {})
         if faults is not None:
-            wkw["faults"] = faults.realize(k_fault, cohort.avail)
+            wkw["faults"] = faults.realize(k_fault, cohort.avail, impl)
         if channel is not None:
             wkw["channel"] = RoundChannel(model=channel, h=cohort.chan_h,
                                           mask=cohort.chan_mask)
@@ -193,7 +197,7 @@ def make_cohort_round_step(loss_fn, cfg: FedZOConfig, *,
         params, metrics, momentum, zstate = strat.run_round(
             loss_fn, params, batches, k_zo, cfg, channel_rng=k_chan,
             momentum=momentum, zstate=zstate, idx=idx, round_fn=round_fn,
-            **wkw)
+            impl=impl, **wkw)
         return (params, momentum, key, zstate), metrics
 
     return step
@@ -322,6 +326,42 @@ def stream_core(loss_fn, params, cfg: FedZOConfig, key, momentum, *,
     return params, momentum, key, zstate, ring, ebuf
 
 
+def make_experiment_fn(loss_fn, cfg: FedZOConfig, rounds: int, *,
+                       algo: Optional[str] = None, strategy=None,
+                       eval_fn=None, eval_every: int = 0,
+                       ring_size: int = 0, round_fn=None,
+                       faults: Optional[FaultModel] = None,
+                       donate: bool = True, tap=None) -> Callable:
+    """The whole experiment as one function, built once (the reference's
+    ``make_experiment_fn``, ``repro/sim/engine.py:451``):
+    ``fn(params, momentum, key, fstate, cstate, zstate, store) ->
+    (params', momentum', key', fstate', cstate', zstate', metrics_ring,
+    evals)``, ``rounds`` round steps of the resolved strategy with the
+    metrics ring-buffered and ``eval_fn`` every ``eval_every`` rounds. Pass
+    ``momentum=None`` when ``cfg.server_momentum`` is 0, ``fstate=None``
+    without ``faults``, ``cstate=None`` without ``cfg.channel_model`` and
+    ``zstate=None`` for the stateless strategies. ``tap`` attaches an
+    ``obs.RoundTap``. Nothing is compiled, so ``donate`` changes nothing:
+    the rounds build new tensors and never write the caller's."""
+    del donate
+    strat = strategy_mod.resolve(strategy, algo, cfg)
+    step = make_round_step(loss_fn, cfg, strategy=strat, round_fn=round_fn,
+                           faults=faults)
+    do_eval = eval_fn is not None and eval_every > 0
+    kw = dict(ring_alloc=min(rounds, ring_size) if ring_size else rounds,
+              n_evals=(rounds + eval_every - 1) // eval_every if do_eval
+              else 0, eval_fn=eval_fn, eval_every=eval_every, tap=tap)
+
+    def fn(params, momentum, key, fstate, cstate, zstate, store):
+        ring, ebuf = {}, {}
+        state = _run_rounds(step, (params, momentum, key, fstate, cstate,
+                                   zstate), ring, ebuf, 0, rounds, store,
+                            **kw)
+        return (*state, ring, ebuf)
+
+    return fn
+
+
 def run_experiment(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
                    rounds: int, *, algo: Optional[str] = None, strategy=None,
                    eval_fn=None, eval_every: int = 0, ring_size: int = 0,
@@ -401,8 +441,9 @@ def run_experiment(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
     # split of the round chain), so channel-off runs keep their key usage
     cstate = channel_state
     if cstate is None and channel is not None:
+        impl = prng.resolve(cfg.prng_impl)
         cstate = channel.init_state(store.n_clients,
-                                    channel_lib.init_key(key))
+                                    channel_lib.init_key(key, impl), impl)
     tap = None
     if tap_every is not None:
         if sink is None:
@@ -420,24 +461,21 @@ def run_experiment(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
             max_segments=max_segments, segment_callback=segment_callback,
             max_retries=max_retries, lr_backoff=lr_backoff, tap=tap,
             tracer=tracer, ledger=ledger)
-    step = make_round_step(loss_fn, cfg, strategy=strat, round_fn=round_fn,
-                           faults=faults)
+    fn = make_experiment_fn(loss_fn, cfg, rounds, strategy=strat,
+                            eval_fn=eval_fn, eval_every=eval_every,
+                            ring_size=ring_size, round_fn=round_fn,
+                            faults=faults, tap=tap)
     do_eval = eval_fn is not None and eval_every > 0
     ring_alloc = min(rounds, ring_size) if ring_size else rounds
-    n_evals = (rounds + eval_every - 1) // eval_every if do_eval else 0
-    ring, ebuf = {}, {}
-    state = (params, momentum, key, fstate, cstate, zstate)
-    kw = dict(ring_alloc=ring_alloc, n_evals=n_evals, eval_fn=eval_fn,
-              eval_every=eval_every, tap=tap)
+    args = (params, momentum, key, fstate, cstate, zstate, store)
     if tracer is not None:
         with tracer.profile():
             _compile_span(tracer, params)
             with tracer.span("execute", rounds=rounds):
-                state = _run_rounds(step, state, ring, ebuf, 0, rounds,
-                                    store, **kw)
+                out = fn(*args)
     else:
-        state = _run_rounds(step, state, ring, ebuf, 0, rounds, store, **kw)
-    params, momentum, key, fstate, cstate, zstate = state
+        out = fn(*args)
+    params, momentum, key, fstate, cstate, zstate, ring, ebuf = out
     result = ExperimentResult(
         params=params, momentum=momentum, key=key, metrics=ring, evals=ebuf,
         rounds=rounds, ring_size=ring_alloc,

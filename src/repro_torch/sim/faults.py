@@ -131,40 +131,42 @@ class FaultModel:
         """Round-0 availability: every client up (``[N]`` bool, CPU)."""
         return torch.ones((n_clients,), dtype=torch.bool)
 
-    def advance(self, k_avail, state):
+    def advance(self, k_avail, state, impl=None):
         """One Gilbert–Elliott transition of all N clients: ``[N]`` bool →
-        next round's ``[N]`` bool. Pure in (key, state)."""
-        u = prng.uniform(k_avail, tuple(state.shape))
+        next round's ``[N]`` bool. Pure in (key, state); ``impl`` the key's
+        (``utils/prng.py``), as for every draw below."""
+        u = prng.uniform(k_avail, tuple(state.shape), impl=impl)
         return torch.where(state, u >= self.p_fail, u < self.p_recover)
 
-    def _realize(self, k_lat, k_corr, mask) -> "RoundFaults":
+    def _realize(self, k_lat, k_corr, mask, impl=None) -> "RoundFaults":
         """Straggler and corruption draws for a cohort whose availability
         ``mask`` ``[M]`` is known: the tail shared by ``step`` and
         ``realize``."""
         m = mask.shape[0]
         if self.deadline > 0:
-            lat = prng.exponential(k_lat, (m,)) * self.straggler_mean
+            lat = prng.exponential(k_lat, (m,), impl=impl) \
+                * self.straggler_mean
             mask = mask & (lat <= self.deadline)
         if self.p_corrupt > 0:
-            corrupt = prng.uniform(k_corr, (m,)) < self.p_corrupt
+            corrupt = prng.uniform(k_corr, (m,), impl=impl) < self.p_corrupt
         else:
             corrupt = torch.zeros((m,), dtype=torch.bool)
         return RoundFaults(model=self, mask=mask, corrupt=corrupt)
 
-    def step(self, key, state, idx) -> tuple:
+    def step(self, key, state, idx, impl=None) -> tuple:
         """Advance the chain one round and realize the faults of the
         sampled cohort ``idx`` (``[M]`` client ids): ``(new_state,
         RoundFaults)``."""
-        ks = prng.split(key, 3)
-        up = self.advance(ks[0], state)
-        return up, self._realize(ks[1], ks[2], up[idx])
+        ks = prng.split(key, 3, impl)
+        up = self.advance(ks[0], state, impl)
+        return up, self._realize(ks[1], ks[2], up[idx], impl)
 
-    def realize(self, key, avail) -> "RoundFaults":
+    def realize(self, key, avail, impl=None) -> "RoundFaults":
         """One round's faults from a known availability slice ``avail``
         ``[M]``: the same 3-way split as ``step``, the availability stream
         left unused."""
-        ks = prng.split(key, 3)
-        return self._realize(ks[1], ks[2], avail)
+        ks = prng.split(key, 3, impl)
+        return self._realize(ks[1], ks[2], avail, impl)
 
     # -- delta scrubbing (every aggregation path) ----------------------------
     def _poison_(self, row):

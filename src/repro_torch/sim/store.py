@@ -105,31 +105,49 @@ def build_store(clients, *, device="cuda") -> ClientStore:
                                                       dtype=torch.int32))
 
 
-def sample_participants(key, n_clients: int, m: int) -> torch.Tensor:
-    """Uniform M-of-N draw without replacement: ``[m]`` int64 client ids."""
-    return prng.permutation(key, n_clients)[:m]
+def sample_participants(key, n_clients: int, m: int, impl=None
+                        ) -> torch.Tensor:
+    """Uniform M-of-N draw without replacement: ``[..., m]`` int64 client
+    ids (a batch of keys ``[S, words]`` draws ``[S, m]``, as under the
+    reference sweep's vmap)."""
+    return prng.permutation(key, n_clients, impl=impl)[..., :m]
 
 
-def sample_cohort_batches(data, sizes, key, h: int, b1: int):
+def sample_cohort_batches(data, sizes, key, h: int, b1: int, impl=None):
     """``[M, H, b1, ...]`` minibatches from an already gathered cohort:
     ``data`` leaves ``[M, cap, ...]`` on the device, ``sizes`` ``[M]`` true
     row counts. Client i's rows are ``randint(split(key, M)[i], (h, b1), 0,
     sizes[i])``: the draw depends only on the key and the true size, never
     on the padded capacity, so a bucket-padded staged cohort samples the
-    rows the resident store would."""
+    rows the resident store would. The per-client draws are the
+    reference's under its client ``vmap`` (``impl``: the key's; a batched
+    rbg draw runs from the first client's key)."""
     m = sizes.shape[0]
-    keys = prng.split(key, m)
+    keys = prng.split(key, m, impl)
     rows = prng.randint(keys, (h, b1), 0,
-                        sizes.to(torch.int64).reshape(m, 1, 1))
+                        sizes.to(torch.int64).reshape(m, 1, 1), impl=impl)
     dev = next(iter(data.values())).device
     ci = torch.arange(m, device=dev).reshape(m, 1, 1)
     ri = rows.to(device=dev, dtype=torch.int64)
     return {k: v[ci, ri] for k, v in data.items()}
 
 
-def sample_batches(store: ClientStore, idx, key, h: int, b1: int):
+def sample_batches(store: ClientStore, idx, key, h: int, b1: int,
+                   impl=None):
     """``[M, H, b1, ...]`` minibatches of the sampled clients ``idx``: the
-    cohort gathered from the store, then ``sample_cohort_batches``."""
+    cohort gathered from the store, then ``sample_cohort_batches``.
+
+    A scenario batch (``idx`` ``[S, M]``, ``key`` ``[S, words]``, the
+    reference sweep's vmap over scenarios) gives ``[S, M, H, b1, ...]``:
+    the keys split to ``[S, M]`` and the rows drawn as one batch."""
+    if idx.dim() == 2:
+        s, m = idx.shape
+        keys = prng.split(key, m, impl)                   # [S, M, words]
+        sizes = store.sizes[idx].to(torch.int64).reshape(s, m, 1, 1)
+        rows = prng.randint(keys, (h, b1), 0, sizes, impl=impl)
+        ci = idx.to(store.device).reshape(s, m, 1, 1)
+        ri = rows.to(device=store.device, dtype=torch.int64)
+        return {k: v[ci, ri] for k, v in store.data.items()}
     ci = idx.to(store.device)
     cohort = {k: v[ci] for k, v in store.data.items()}
-    return sample_cohort_batches(cohort, store.sizes[idx], key, h, b1)
+    return sample_cohort_batches(cohort, store.sizes[idx], key, h, b1, impl)

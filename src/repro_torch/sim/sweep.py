@@ -1,4 +1,5 @@
-"""Scenario sweeps: the paper's experiment grids.
+"""Scenario sweeps: the paper's experiment grids, one batched round loop
+per static group.
 
 Counterpart of ``repro/sim/sweep.py``. Sec. V sweeps {H, M, b2, SNR} over
 many rounds. The fields of a scenario fall in two kinds, as in the
@@ -10,14 +11,37 @@ reference:
 - **dynamic** fields (``snr_db``, ``lr``, ``mu``, ``h_min``, and the seed)
   change only numbers (``DYNAMIC_FIELDS``).
 
-``run_sweep`` groups the scenarios by their static signature, as the
-reference does; where the reference then runs a group as one vmapped
-compiled program, the port runs each of the group's scenarios as its own
-``engine.run_experiment`` in one loop, so a scenario's record is bitwise
-its own single run. The records and the long-format CSV (scenario, round,
-metric, value) are the reference's. ``store`` takes either tier: a
-tiered ``HostStore`` materializes as a resident store, bitwise
-``build_store``.
+``run_sweep`` groups the scenarios by their static signature and runs each
+group as ONE round loop over an ``[S, M]`` cohort, the counterpart of the
+reference's ``jax.jit(jax.vmap(one))`` over the group's S scenarios:
+
+- the carry keys are ``[S, words]`` and every draw of the round is the
+  reference's draw under its scenario vmap (``utils/prng.py``: per key for
+  threefry; for rbg and unsafe_rbg one batched draw from the first
+  scenario's key, which is why a scenario's rbg record is not its single
+  run's, in the reference and here alike);
+- the dynamic fields are ``[S]`` values: lr and μ per row of the cohort
+  buffer (``fedzo.RowHyper``), ``h_min`` per row of the scheduling draw,
+  the SNR per scenario's aggregation;
+- on the flat and wide routes the S·M clients' local phases run as one
+  ``[S·M, n_pad]`` cohort (``fedzo.cohort_rows``: one batched loss forward
+  per iterate over S·M·b2 points on the wide route); the pytree route runs
+  its S·M clients one after another (``fedzo.tree_rows``), each drawing
+  as its row of the vmap;
+- each scenario aggregates its own M deltas (``fedzo.aggregate``): with
+  AirComp that is one ``aircomp_reduce`` and one ``zo_walk`` launch per
+  scenario and round;
+- a ``channel_model`` (a static field) keeps one wireless chain per
+  scenario, advanced per scenario from its row of the round's channel
+  keys (``prng.lanes``).
+
+The batched loop runs the FedZO strategy; the strategies with hooks or
+state run scenario by scenario through ``engine.run_experiment`` under
+threefry keys, where per-key draws make that the vmapped program's
+records, and raise under rbg keys. Momentum is rejected, as in the reference. The
+records and the long-format CSV (scenario, round, metric, value) are the
+reference's. ``store`` takes either tier: a tiered ``HostStore``
+materializes as a resident store, bitwise ``build_store``.
 """
 from __future__ import annotations
 
@@ -26,11 +50,20 @@ import itertools
 from contextlib import nullcontext
 from typing import Optional, Sequence
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import FedZOConfig
-from repro_torch.core import estimator
+from repro_torch.core import aircomp, estimator, fedzo
 from repro_torch.core import strategy as strategy_mod
+from repro_torch.sim import channel as channel_lib
 from repro_torch.sim import engine, tiered
-from repro_torch.sim.store import ClientStore
+from repro_torch.sim.channel import RoundChannel
+from repro_torch.sim.store import (ClientStore, sample_batches,
+                                   sample_participants)
+from repro_torch.utils import prng
+from repro_torch.utils.flatparams import flatten
+from repro_torch.utils.tree import tree_add, tree_map, tree_stack
 
 # fields that only change numbers (everything else is static; the strategy
 # selectors cfg.strategy, prox_mu and dyn_alpha change the round and are
@@ -77,7 +110,8 @@ def run_sweep(loss_fn, params, store: ClientStore, base_cfg: FedZOConfig,
               eval_every: int = 0, ring_size: int = 0,
               out_csv: Optional[str] = None, tracer=None) -> list:
     """Run every scenario (dicts of ``FedZOConfig`` overrides) for
-    ``rounds`` rounds from ``params``, grouped by static signature.
+    ``rounds`` rounds from ``params``, one batched round loop per static
+    group (``batched_group``).
 
     The algorithm resolves per group: an explicit ``strategy=`` (or the
     deprecated ``algo=``) applies to every scenario, else each group's
@@ -98,6 +132,9 @@ def run_sweep(loss_fn, params, store: ClientStore, base_cfg: FedZOConfig,
         groups.setdefault(static, []).append((s, dyn))
 
     records = []
+    eval_rounds = (np.arange(0, rounds, eval_every)
+                   if (eval_fn is not None and eval_every > 0)
+                   else np.arange(0))
     for static, members in groups.items():
         cfg = dataclasses.replace(base_cfg, **dict(static))
         strat = strategy_mod.resolve(strategy, algo, cfg)
@@ -106,29 +143,156 @@ def run_sweep(loss_fn, params, store: ClientStore, base_cfg: FedZOConfig,
                              "momentum configs through run_experiment")
         if tracer is not None:
             engine._compile_span(tracer, params)
+        dyns = [{**{f: getattr(base_cfg, f) for f in DYNAMIC_FIELDS},
+                 "seed": base_cfg.seed, **d} for _, d in members]
         with (tracer.span("execute", group=str(dict(static)),
                           scenarios=len(members))
               if tracer is not None else nullcontext()):
-            for scenario, dyn in members:
-                res = engine.run_experiment(
-                    loss_fn, params, store,
-                    dataclasses.replace(cfg, **dyn), rounds, strategy=strat,
+            if batchable(cfg, strat):
+                runs = batched_group(loss_fn, params, store, cfg, dyns,
+                                     rounds, eval_fn=eval_fn,
+                                     eval_every=eval_every,
+                                     ring_size=ring_size)
+            else:
+                runs = _scenario_by_scenario(
+                    loss_fn, params, store, cfg, strat, dyns, rounds,
                     eval_fn=eval_fn, eval_every=eval_every,
                     ring_size=ring_size)
-                # names in sorted order, as jax hands back a dict
-                records.append({
-                    "scenario": dict(scenario),
-                    "strategy": strat.name,
-                    "metrics": {k: res.metrics[k].cpu().numpy()
-                                for k in sorted(res.metrics)},
-                    "evals": {k: res.evals[k].cpu().numpy()
-                              for k in sorted(res.evals)},
-                    "eval_rounds": res.eval_rounds,
-                })
+        for (scenario, _), (ring, ebuf) in zip(members, runs):
+            # names in sorted order, as jax hands back a dict
+            records.append({
+                "scenario": dict(scenario),
+                "strategy": strat.name,
+                "metrics": {k: ring[k].cpu().numpy() for k in sorted(ring)},
+                "evals": {k: ebuf[k].cpu().numpy() for k in sorted(ebuf)},
+                "eval_rounds": eval_rounds,
+            })
 
     if out_csv:
         save_csv(records, out_csv, rounds=rounds, ring_size=ring_size)
     return records
+
+
+def batchable(cfg: FedZOConfig, strat) -> bool:
+    """Whether a group runs as one batched round loop: the FedZO strategy
+    (stateless, no loss or delta hooks)."""
+    return strat.name == "fedzo"
+
+
+def _scenario_by_scenario(loss_fn, params, store, cfg, strat, dyns, rounds,
+                          **kw) -> list:
+    """A group the batched loop does not cover, one ``run_experiment`` per
+    scenario: the vmapped program's records under threefry keys (drawn per
+    key), not under rbg keys (drawn from the first scenario's key)."""
+    if prng.resolve(cfg.prng_impl) is not prng.THREEFRY:
+        raise NotImplementedError(
+            f"a sweep group with strategy {strat.name!r} under "
+            f"prng_impl={cfg.prng_impl!r} is not ported: the batched loop "
+            f"runs the fedzo strategy")
+    out = []
+    for dyn in dyns:
+        res = engine.run_experiment(
+            loss_fn, params, store, dataclasses.replace(cfg, **dyn), rounds,
+            strategy=strat, **kw)
+        out.append((res.metrics, res.evals))
+    return out
+
+
+def _record(buf: dict, k, v, size: int, slot: int):
+    v = torch.as_tensor(v)
+    if k not in buf:
+        buf[k] = torch.zeros((size,), dtype=v.dtype, device=v.device)
+    buf[k][slot] = v
+
+
+def batched_group(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
+                  dyns: Sequence[dict], rounds: int, *, eval_fn=None,
+                  eval_every: int = 0, ring_size: int = 0) -> list:
+    """S scenarios of one static group as one round loop over an ``[S,
+    M]`` cohort. ``dyns`` holds each scenario's dynamic fields and seed.
+    Returns ``[(metrics ring, evals)]``, one per scenario, as
+    ``engine.run_experiment`` fills them."""
+    impl = prng.resolve(cfg.prng_impl)
+    S, M = len(dyns), cfg.n_participating
+    H, b1 = cfg.local_iters, cfg.b1
+    dev = estimator._device(params)
+    cfgs = [dataclasses.replace(cfg, **d) for d in dyns]
+    vals = {f: np.array([d[f] for d in dyns], np.float64)
+            for f in DYNAMIC_FIELDS}
+    h_min = torch.tensor(vals["h_min"].astype(np.float32))[:, None]
+    hyper = fedzo.RowHyper(lr=np.repeat(vals["lr"], M),
+                           mu=np.repeat(vals["mu"], M))
+    key = torch.stack([prng.key(d["seed"], impl) for d in dyns])  # [S, w]
+    cm = cfg.channel_model
+    if cm is not None:
+        # each scenario's chain from its fold-in key, as run_experiment;
+        # the stationary draw is the scenario vmap's batched draw
+        cstates = [cm.init_state(store.n_clients, k, impl) for k in
+                   prng.lanes(channel_lib.init_key(key, impl), impl)]
+    wide = cfg.flat_params or cfg.batch_directions
+    spec, br = (fedzo.cohort_geometry(params, cfg) if wide
+                else (None, None))
+    ps = [params] * S
+    ring_alloc = min(rounds, ring_size) if ring_size else rounds
+    do_eval = eval_fn is not None and eval_every > 0
+    n_evals = (rounds + eval_every - 1) // eval_every if do_eval else 0
+    rings, ebufs = [{} for _ in range(S)], [{} for _ in range(S)]
+    for t in range(rounds):
+        key, k_part, k_batch, k_zo, k_chan, _, k_chanm = \
+            engine.split_round_keys(key, channel=cm is not None, impl=impl)
+        idx = sample_participants(k_part, store.n_clients, M, impl)  # [S, M]
+        batches = sample_batches(store, idx, k_batch, H, b1, impl)
+        client_rngs = prng.split(k_zo, M, impl)               # [S, M, w]
+        channel = None
+        if cm is not None:
+            chans = []
+            for s, k in enumerate(prng.lanes(k_chanm, impl)):
+                cstates[s], rc = cm.step(
+                    k, cstates[s], idx[s], h_min=cfgs[s].h_min,
+                    schedule=cfg.channel_schedule, impl=impl)
+                chans.append(rc)
+            channel = RoundChannel(model=cm,
+                                   h=torch.stack([c.h for c in chans]),
+                                   mask=torch.stack([c.mask for c in chans]))
+        mask, noise = fedzo.round_schedule(cfg, k_chan, channel, M, dev,
+                                           impl, h_min=h_min)
+        noise = prng.lanes(noise, impl)                       # per scenario
+        if wide:
+            buf0 = torch.stack([flatten(p, spec) for p in ps])
+            bufs = buf0.repeat_interleave(M, dim=0)           # [S·M, n]
+            buf, _, losses = fedzo.cohort_rows(
+                loss_fn, bufs, spec, br,
+                tree_map(lambda v: v.reshape((S * M,) + v.shape[2:]),
+                         batches),
+                client_rngs.reshape(S * M, -1), cfg, like=params,
+                impl=impl, hyper=hyper)
+            deltas = (buf - bufs).reshape(S, M, -1)
+            losses = losses.reshape(S, M, H)
+        else:
+            rows, _, losses = fedzo.tree_rows(
+                [loss_fn] * (S * M), [ps[r // M] for r in range(S * M)],
+                tree_map(lambda v: v.reshape((S * M,) + v.shape[2:]),
+                         batches),
+                client_rngs.reshape(S * M, -1),
+                [cfgs[r // M] for r in range(S * M)], impl)
+            deltas = [tree_stack(rows[s * M:(s + 1) * M]) for s in range(S)]
+            losses = losses.reshape(S, M, H)
+        for s in range(S):
+            w = (aircomp.size_weights(store.sizes[idx[s]])
+                 if cfg.weight_by_size else None)
+            agg, stats = fedzo.aggregate(
+                deltas[s], spec, br, cfgs[s], noise_rng=noise[s],
+                mask=None if mask is None else mask[s], weights=w,
+                impl=impl, dev=dev)
+            ps[s] = tree_add(ps[s], agg)
+            metrics = {"mean_local_loss": torch.mean(losses[s]),
+                       "first_loss": torch.mean(losses[s][:, 0]), **stats}
+            for k, v in metrics.items():
+                _record(rings[s], k, v, ring_alloc, t % ring_alloc)
+            if do_eval and t % eval_every == 0:
+                for k, v in eval_fn(ps[s]).items():
+                    _record(ebufs[s], k, v, n_evals, t // eval_every)
+    return list(zip(rings, ebufs))
 
 
 def save_csv(records, path, *, rounds: int, ring_size: int = 0) -> None:

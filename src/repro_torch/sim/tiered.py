@@ -300,21 +300,23 @@ class CohortStream:
         """Advance one round: ``(idx [M] int64 numpy, avail [M] bool |
         None, chan_h [M] complex64 | None, chan_mask [M] bool | None)``,
         the last three CPU tensors."""
+        impl = prng.resolve(self.cfg.prng_impl)
         self.key, k_part, _kb, _kz, _kc, k_fault, k_chanm = \
             engine.split_round_keys(self.key,
                                     faults=self.faults is not None,
-                                    channel=self.channel is not None)
+                                    channel=self.channel is not None,
+                                    impl=impl)
         idx = sample_participants(k_part, self.store.n_clients,
-                                  self.cfg.n_participating)
+                                  self.cfg.n_participating, impl)
         avail = chan_h = chan_mask = None
         if self.faults is not None:
-            k_avail = prng.split(k_fault, 3)[0]
-            self.fstate = self.faults.advance(k_avail, self.fstate)
+            k_avail = prng.split(k_fault, 3, impl)[0]
+            self.fstate = self.faults.advance(k_avail, self.fstate, impl)
             avail = self.fstate[idx]
         if self.channel is not None:
             self.cstate, rchan = self.channel.step(
                 k_chanm, self.cstate, idx, h_min=self.cfg.h_min,
-                schedule=self.cfg.channel_schedule)
+                schedule=self.cfg.channel_schedule, impl=impl)
             chan_h, chan_mask = rchan.h, rchan.mask
         return idx.numpy(), avail, chan_h, chan_mask
 
@@ -480,7 +482,9 @@ def run_tiered_experiment(loss_fn, params, store: HostStore,
 
     # the host-resident [N] halves of the carry
     fstate = faults.init_state(n_clients) if faults is not None else None
-    cstate = (channel.init_state(n_clients, channel_lib.init_key(key))
+    impl = prng.resolve(cfg.prng_impl)
+    cstate = (channel.init_state(n_clients, channel_lib.init_key(key, impl),
+                                 impl)
               if channel is not None else None)
     z_template = strat.init_state(params, cfg, 1)
     stateful = z_template is not None

@@ -1,24 +1,60 @@
-"""jax-compatible raw Threefry-2x32 keys in PyTorch.
+"""jax-compatible raw PRNG keys in PyTorch: Threefry-2x32, rbg and
+unsafe_rbg.
 
-The reference draws every random quantity of a run from one key chain of
-raw Threefry keys under ``jax_threefry_partitionable=True``: the per-round
-split, the participation permutation, the minibatch rows, the channel draw
-and the per-client ZO keys whose words seed the in-kernel directions. This
-module reproduces that chain, so a port run from a seed draws the same
-integers as the reference:
+The reference draws every random quantity of a run from one key chain:
+the per-round split, the participation permutation, the minibatch rows, the
+channel draw and the per-client ZO keys whose words seed the in-kernel
+directions. This module reproduces that chain for the three key
+implementations the reference's ``cfg.prng_impl`` names
+(``jax/_src/prng.py``), so a port run from a seed draws the same integers
+as the reference:
 
-- ``key(seed)``             -> ``[0, seed]``
-- ``split(key, num)``       -> ``[..., num, 2]`` (fold-like split)
-- ``fold_in(key, data)``
-- ``random_bits(key, shape)`` (32-bit: ``bits1 ^ bits2``)
+- ``key(seed, impl)``       -> ``[0, seed]`` (threefry); ``[0, seed, 0,
+  seed]`` (rbg, unsafe_rbg: the threefry seed, repeated)
+- ``split(key, num, impl)`` -> ``[..., num, words]``
+- ``fold_in(key, data, impl)`` and ``fold_in_range(key, n, impl)`` (the
+  fold-in vmapped over ``data = 0..n-1``)
+- ``random_bits(key, shape, impl)``
 - ``randint``, ``permutation``, ``uniform``, ``normal``, ``rademacher``,
-  ``exponential``
+  ``exponential`` (the same transforms over either generator's bits)
 
-A key is an int64 tensor of shape ``[..., 2]`` holding the two uint32 words
-(torch has no uint32 add or shift on the CPU, so every uint32 operation is
-an int64 one masked with ``& 0xFFFFFFFF``). Leading dimensions batch keys:
-``split`` of ``[M, 2]`` keys gives ``[M, num, 2]``, ``random_bits`` of
-``[M, 2]`` keys and ``shape`` gives ``[M, *shape]``.
+A key is an int64 tensor of shape ``[..., 2]`` (threefry) or ``[..., 4]``
+(rbg, unsafe_rbg) holding uint32 words (torch has no uint32 add or shift
+on the CPU, so every uint32 operation is an int64 one masked with
+``& 0xFFFFFFFF``). The two 4-word impls have keys of one shape, so the impl
+is never guessed from a key: every function takes ``impl=`` (an ``Impl``,
+its name, or None for threefry; a 4-word key without an impl raises), and
+callers resolve it once from ``cfg.prng_impl`` (``resolve``).
+
+**Leading dimensions are vmap axes.** A batch of keys ``[*B, words]``
+stands for the reference's key under ``jax.vmap`` (the port writes the
+client and scenario axes out as leading dimensions), and the draws follow
+jax's batching rules:
+
+- threefry: every draw, split and fold-in is per key;
+- rbg and unsafe_rbg bits: ``lax.rng_bit_generator`` under vmap makes ONE
+  draw of ``(*B, *shape)`` from the first key of the flattened batch
+  (``jax/_src/lax/control_flow/loops.py``, its batching rule; nesting
+  composes to this), so row b is the b-th slice of one Philox stream;
+- rbg split and fold-in: threefry on each half of the key, per key;
+- unsafe_rbg split: every 10th row of ``rbg_bits(key, (10·num, 4))``, a
+  bit draw, so a batch of keys splits as one batched draw;
+- unsafe_rbg fold-in: the key XOR the last row of ``rbg_bits(
+  rbg_seed(data), (10, 4))``; per key for a scalar ``data``, one batched
+  draw over the data for ``fold_in_range``.
+
+A key with no leading dimensions is one key. A code path that loops over
+rows where the reference vmaps them (the pytree route's clients, a
+sweep's per-scenario AirComp noise) takes the rows as ``lanes(keys)``: a
+threefry row is its key; an rbg row is a ``Lane``, which draws its bits
+as its slice of the batch's one draw.
+
+The rbg bits are XLA's RngBitGenerator (Philox-4x32-10,
+``kernels/philox.py``): ``philox_bits`` launches the CUDA kernel for a
+draw on the card and runs its plain version on the CPU. Threefry draws are
+the torch Threefry chain below (``jax_threefry_partitionable=True``: the
+counter of flat index i is ``(i >> 32, i & 0xFFFFFFFF)``, so draws of 2**32
+elements or more agree too).
 
 Integer outputs are bitwise jax's. ``normal`` evaluates XLA's float32
 erfinv polynomial, but log1p and the rounding order differ, so a float32
@@ -33,6 +69,7 @@ millions of normals on the card; integer results do not depend on the device.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +77,87 @@ import torch
 MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+class Impl(NamedTuple):
+    """A key implementation: the reference's ``cfg.prng_impl`` name and the
+    words of its key."""
+    name: str
+    words: int
+
+
+THREEFRY = Impl("threefry2x32", 2)
+RBG = Impl("rbg", 4)
+UNSAFE_RBG = Impl("unsafe_rbg", 4)
+IMPLS = {i.name: i for i in (THREEFRY, RBG, UNSAFE_RBG)}
+
+
+def resolve(impl=None) -> Impl:
+    """The ``Impl`` of a name (``cfg.prng_impl``), an ``Impl`` itself, or
+    threefry for None."""
+    if impl is None:
+        return THREEFRY
+    if isinstance(impl, Impl):
+        return impl
+    try:
+        return IMPLS[impl]
+    except KeyError:
+        raise ValueError(f"unknown prng_impl {impl!r}; known: "
+                         f"{sorted(IMPLS)}") from None
+
+
+class Lane(NamedTuple):
+    """Row ``row`` of a batch of ``rows`` rbg keys under the reference's
+    vmap, for a loop over the rows. ``key`` is the row's own key and
+    ``first`` the batch's first key, each derived alike (per-key work:
+    fold-in, the counter words); a bit draw of ``shape`` is words
+    ``[row·n, (row+1)·n)`` of ONE draw from ``first`` (n = the shape's
+    size), jax's batching rule."""
+    key: torch.Tensor
+    first: torch.Tensor
+    row: int
+    rows: int
+
+
+def lanes(keys: torch.Tensor, impl=None) -> list:
+    """The rows of a key batch ``[R, words]`` for a loop that stands for
+    the reference's vmap: the keys themselves under threefry (every draw
+    is per key), ``Lane`` s under rbg and unsafe_rbg."""
+    impl = impl_of(keys, impl)
+    flat = keys.reshape(-1, keys.shape[-1])
+    if impl is THREEFRY:
+        return list(flat)
+    return [Lane(flat[r], flat[0], r, flat.shape[0])
+            for r in range(flat.shape[0])]
+
+
+def impl_of(k, impl=None) -> Impl:
+    """The impl of keys ``k`` (or a ``Lane``), checked against their word
+    count: None means threefry, and a 4-word key must name its impl."""
+    if isinstance(k, Lane):
+        k = k.key
+    if impl is None:
+        if k.shape[-1] != 2:
+            raise ValueError(
+                f"a {k.shape[-1]}-word key needs impl= ('rbg' or "
+                f"'unsafe_rbg' keys have the same shape and are never "
+                f"told apart by guessing)")
+        return THREEFRY
+    impl = resolve(impl)
+    if k.shape[-1] != impl.words:
+        raise ValueError(f"{impl.name} keys have {impl.words} words, got a "
+                         f"key of shape {tuple(k.shape)}")
+    return impl
+
+
+def counter_words(k) -> torch.Tensor:
+    """Words 0–1 of keys ``[..., 2|4]`` (a ``Lane``: its own key's): what
+    the counter-convention kernels (``zo_walk``, ``zo_replay``,
+    ``zo_dirnorms``) take of any key, as the reference's ``counter_gen``
+    reads ``key_data[..., :2]`` (per key under a vmap)."""
+    if isinstance(k, Lane):
+        k = k.key
+    return k[..., :2].contiguous() if k.shape[-1] != 2 else k
 
 
 def _u32(x):
@@ -75,17 +193,19 @@ def _one_host_key(k: torch.Tensor) -> bool:
     return k.dim() == 1 and k.device.type == "cpu"
 
 
-def key(seed: int) -> torch.Tensor:
-    """Raw key of ``jax.random.key(seed)`` (threefry): ``[0, seed]``."""
+def key(seed: int, impl=None) -> torch.Tensor:
+    """Raw key of ``jax.random.key(seed, impl=impl)``: ``[0, seed]`` for
+    threefry, the same pair twice for rbg and unsafe_rbg."""
     seed = int(seed)
     if not 0 <= seed <= MASK32:
         raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
-    return torch.tensor([0, seed], dtype=torch.int64)
+    half = [0, seed]
+    return torch.tensor(half * (resolve(impl).words // 2), dtype=torch.int64)
 
 
 def as_key(k) -> torch.Tensor:
     """A key from raw uint32 words (an array, e.g. jax's ``key_data``), as
-    int64 ``[..., 2]``."""
+    int64 ``[..., words]``."""
     return torch.from_numpy(np.asarray(k).astype(np.uint32).astype(np.int64))
 
 
@@ -96,9 +216,9 @@ def _words(k, extra_dims: int):
     return k[..., 0].reshape(shp), k[..., 1].reshape(shp)
 
 
-def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(k, num)`` under the partitionable (fold-like)
-    split: word pair i is ``threefry(k, hi=0, lo=i)``."""
+def _tf_split(k: torch.Tensor, num: int) -> torch.Tensor:
+    """Threefry fold-like split of keys ``[..., 2]``: word pair i is
+    ``threefry(k, hi=0, lo=i)``, per key."""
     if _one_host_key(k):
         k0, k1 = k.tolist()
         return torch.tensor([threefry2x32(k0, k1, 0, i) for i in range(num)],
@@ -109,8 +229,7 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(x0, x1), dim=-1)
 
 
-def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(k, data)``: ``threefry(k, [0, data])``."""
+def _tf_fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     if _one_host_key(k):
         k0, k1 = k.tolist()
         return torch.tensor(threefry2x32(k0, k1, 0, int(data) & MASK32),
@@ -119,22 +238,151 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([x0, x1], dim=-1)
 
 
-def random_bits(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
-    """32-bit ``jax.random.bits``: counters are the row-major iota of
-    ``shape`` (high words 0 below 2**32 elements), output ``bits1 ^ bits2``.
-    Computed on ``device`` (default: the key's)."""
-    shape = tuple(shape)
+def _halves(fn, k):
+    """``fn`` applied to each threefry half of rbg keys ``[..., 4]``, the
+    halves' outputs joined back into 4-word keys."""
+    a, b = fn(k[..., :2].contiguous()), fn(k[..., 2:].contiguous())
+    return torch.cat([a, b], dim=-1)
+
+
+def _first_key(k: torch.Tensor):
+    """The four words of the first key of a batch, as Python ints: the key
+    a batched rbg draw runs from."""
+    return tuple(k.reshape(-1, 4)[0].tolist())
+
+
+def _rbg_stream(k: torch.Tensor, n: int, device) -> torch.Tensor:
+    """int32 ``[n]``: the first n words of the Philox stream of the batch's
+    first key (the kernel on a card, its plain version on the CPU)."""
+    from repro_torch.kernels import ops as kops
+    return kops.philox_bits(_first_key(k), n, device=device)
+
+
+def _rbg_seed_words(data: int):
+    return (0, int(data) & MASK32) * 2
+
+
+def split(k: torch.Tensor, num: int = 2, impl=None) -> torch.Tensor:
+    """``jax.random.split(k, num)``: ``[..., num, words]``.
+
+    threefry: the partitionable (fold-like) split, word pair i is
+    ``threefry(k, hi=0, lo=i)``; rbg: that split of each half; unsafe_rbg:
+    every 10th row of ``rbg_bits(k, (10·num, 4))``, one batched draw for a
+    batch of keys."""
+    if isinstance(k, Lane):
+        raise NotImplementedError("a Lane does not split: split the batch "
+                                  "of keys, then take its lanes")
+    impl = impl_of(k, impl)
+    if impl is THREEFRY:
+        return _tf_split(k, num)
+    if impl is RBG:
+        return _halves(lambda h: _tf_split(h, num), k)
+    lead = tuple(k.shape[:-1])
+    rows = _rbg_stream(k, math.prod(lead) * 10 * num * 4, "cpu")
+    rows = rows.to(torch.int64) & MASK32
+    return rows.reshape(lead + (10 * num, 4))[..., ::10, :].contiguous()
+
+
+def fold_in(k: torch.Tensor, data: int, impl=None) -> torch.Tensor:
+    """``jax.random.fold_in(k, data)`` for a scalar ``data``, per key:
+    threefry ``threefry(k, [0, data])``; rbg that of each half; unsafe_rbg
+    the key XOR the last row of ``rbg_bits(rbg_seed(data), (10, 4))``. A
+    ``Lane`` folds its own and its first key alike."""
+    if isinstance(k, Lane):
+        return k._replace(key=fold_in(k.key, data, impl),
+                          first=fold_in(k.first, data, impl))
+    impl = impl_of(k, impl)
+    if impl is THREEFRY:
+        return _tf_fold_in(k, data)
+    if impl is RBG:
+        return _halves(lambda h: _tf_fold_in(h, data), k)
+    from repro_torch.kernels import ops as kops
+    row = kops.philox_bits(_rbg_seed_words(data), 40, device="cpu")[-4:]
+    return k ^ (row.to(torch.int64) & MASK32)
+
+
+def fold_in_range(k: torch.Tensor, n: int, impl=None) -> torch.Tensor:
+    """``jax.vmap(lambda i: fold_in(k, i))(arange(n))`` as ``[..., n,
+    words]`` for keys ``[..., words]``: the fold-in vmapped over its data.
+    threefry and rbg fold per key and equal ``split(k, n)`` (both are
+    ``threefry(k, (0, i))`` per half); unsafe_rbg's data-batched draw runs
+    from ``rbg_seed(0)``: datum i XORs row ``10·i + 9`` of that stream."""
+    impl = impl_of(k, impl)
+    if impl is not UNSAFE_RBG:
+        return split(k, n, impl)
+    from repro_torch.kernels import ops as kops
+    rows = kops.philox_bits(_rbg_seed_words(0), 40 * n, device="cpu")
+    rows = (rows.to(torch.int64) & MASK32).reshape(n, 10, 4)[:, 9]
+    return k[..., None, :] ^ rows
+
+
+def _tf_bits(k: torch.Tensor, shape, dev) -> torch.Tensor:
     size = math.prod(shape)
-    if size >= 2 ** 32:
-        raise NotImplementedError("random bits of 2**32 elements or more")
-    dev = k.device if device is None else torch.device(device)
     if _one_host_key(k):
         k0, k1 = k.tolist()     # words as ints: no copy to the device
     else:
         k0, k1 = _words(k.to(dev), len(shape))
-    lo = torch.arange(size, dtype=torch.int64, device=dev).reshape(shape)
-    x0, x1 = threefry2x32(k0, k1, 0, lo)
+    idx = torch.arange(size, dtype=torch.int64, device=dev).reshape(shape)
+    hi = 0 if size <= 2 ** 32 else idx >> 32
+    x0, x1 = threefry2x32(k0, k1, hi, idx & MASK32)
     return x0 ^ x1
+
+
+def _bits(k: torch.Tensor, shape, impl, device) -> torch.Tensor:
+    """The 32-bit words of a draw of ``shape`` (with the keys' leading
+    dimensions in front): int64 for threefry, int32 bit patterns for rbg
+    (the uniform and normal transforms take either)."""
+    shape = tuple(shape)
+    impl = impl_of(k, impl)
+    if isinstance(k, Lane):
+        from repro_torch.kernels import ops as kops
+        n = math.prod(shape)
+        dev = k.key.device if device is None else torch.device(device)
+        return kops.philox_bits(_first_key(k.first), n, device=dev,
+                                start=k.row * n).reshape(shape)
+    dev = k.device if device is None else torch.device(device)
+    if impl is THREEFRY:
+        return _tf_bits(k, shape, dev)
+    lead = tuple(k.shape[:-1])
+    return _rbg_stream(k, math.prod(lead + shape), dev).reshape(lead + shape)
+
+
+def random_bits(k: torch.Tensor, shape, *, impl=None,
+                device=None) -> torch.Tensor:
+    """32-bit ``jax.random.bits`` as int64 uint32 values ``[*lead, *shape]``
+    on ``device`` (default: the key's). threefry: ``bits1 ^ bits2`` of the
+    counters ``(i >> 32, i & 0xFFFFFFFF)`` of the row-major flat index i,
+    per key; rbg and unsafe_rbg: the Philox words, one batched draw for a
+    batch of keys. The 8- and 16-bit widths are the low bits of these
+    words (``& 0xFF``, ``& 0xFFFF``) for every impl."""
+    b = _bits(k, shape, impl, device)
+    return b if b.dtype == torch.int64 else b.to(torch.int64) & MASK32
+
+
+def threefry_counters(idx):
+    """The ``(hi, lo)`` counter words of flat indices ``idx`` (int64): jax's
+    ``iota_2x32_shape`` under the partitionable Threefry."""
+    return idx >> 32, idx & MASK32
+
+
+def random_bits_range(k: torch.Tensor, start: int, stop: int, *,
+                      impl=None, device=None) -> torch.Tensor:
+    """Flat elements ``[start, stop)`` of ``random_bits(k, shape)`` for one
+    key and any shape of at least ``stop`` elements (a draw does not
+    depend on its shape beyond its flat size), without the elements before
+    ``start``: int64 ``[stop - start]``."""
+    impl = impl_of(k, impl)
+    dev = k.device if device is None else torch.device(device)
+    if impl is THREEFRY:
+        k0, k1 = k.tolist()
+        hi, lo = threefry_counters(
+            torch.arange(start, stop, dtype=torch.int64, device=dev))
+        x0, x1 = threefry2x32(k0, k1, hi, lo)
+        return x0 ^ x1
+    from repro_torch.kernels import ops as kops
+    b = kops.philox_bits(_first_key(k), stop - start, device=dev,
+                         start=start)
+    return b.to(torch.int64) & MASK32
 
 
 def _mul32(a, b):
@@ -143,7 +391,8 @@ def _mul32(a, b):
     return _u32(a_lo * b + (((a_hi * b) & 0xFFFF) << 16))
 
 
-def randint(k: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+def randint(k: torch.Tensor, shape, minval, maxval, *,
+            impl=None) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval)`` for int32 output.
 
     ``minval``/``maxval`` are ints or int tensors broadcastable to the
@@ -151,9 +400,9 @@ def randint(k: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     two bit draws from ``split(k)``, combined under ``2**32 mod span``.
     """
     shape = tuple(shape)
-    ks = split(k, 2)
-    higher = random_bits(ks[..., 0, :], shape)
-    lower = random_bits(ks[..., 1, :], shape)
+    ks = split(k, 2, impl)
+    higher = random_bits(ks[..., 0, :], shape, impl=impl)
+    lower = random_bits(ks[..., 1, :], shape, impl=impl)
     minval = torch.as_tensor(minval, dtype=torch.int64)
     maxval = torch.as_tensor(maxval, dtype=torch.int64)
     span = _u32(maxval - minval)
@@ -164,25 +413,28 @@ def randint(k: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     return (minval + off).to(torch.int32)
 
 
-def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+def permutation(k: torch.Tensor, n: int, *, impl=None) -> torch.Tensor:
     """``jax.random.permutation(k, n)``: ``ceil(3 ln n / ln(2**32 - 1))``
-    stable sorts of ``arange(n)`` on fresh 32-bit keys."""
+    stable sorts of ``arange(n)`` on fresh 32-bit keys; ``[*lead, n]`` for
+    keys ``[*lead, words]``."""
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK32)))
-    x = torch.arange(n, dtype=torch.int64)
+    lead = tuple(k.shape[:-1])
+    x = torch.arange(n, dtype=torch.int64).expand(lead + (n,))
     for _ in range(rounds):
-        ks = split(k, 2)
-        k, sub = ks[0], ks[1]
-        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
-        x = x[order]
+        ks = split(k, 2, impl)
+        k, sub = ks[..., 0, :], ks[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,), impl=impl), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
     return x
 
 
-def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0, *,
+def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0, *, impl=None,
             device=None) -> torch.Tensor:
     """float32 ``jax.random.uniform``: 23 mantissa bits under exponent 0,
     shifted and scaled in float32."""
-    bits = random_bits(k, shape, device=device)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    bits = _bits(k, shape, impl, device)
+    fbits = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     # the bounds as float32 scalars (a Python scalar reaches the device as
     # a kernel argument; a 0-d tensor would be a copy and a host wait)
@@ -220,7 +472,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(k: torch.Tensor, shape, *, dtype=torch.float32,
+def normal(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
            device=None) -> torch.Tensor:
     """``jax.random.normal(k, shape, dtype)``: ``sqrt(2)·erfinv(u)`` with u
     uniform on ``(nextafter(-1, 0), 1)`` in ``dtype``.
@@ -234,12 +486,12 @@ def normal(k: torch.Tensor, shape, *, dtype=torch.float32,
     bfloat16 (XLA upcasts it), then the bfloat16 product with bf16(√2). All
     128 values of u agree with jax 0.9.0 (``tests/test_torch_wide.py``)."""
     if dtype == torch.float32:
-        u = uniform(k, shape, _NORMAL_LO, 1.0, device=device)
+        u = uniform(k, shape, _NORMAL_LO, 1.0, impl=impl, device=device)
         return erfinv(u) * _SQRT2
     if dtype != torch.bfloat16:
         raise NotImplementedError(f"normal draws in {dtype}: float32 and "
                                   f"bfloat16 are ported")
-    bits = random_bits(k, shape, device=device) & 0xFF
+    bits = _bits(k, shape, impl, device) & 0xFF
     fbits = ((bits >> 1) | 0x3F80).to(torch.int16)
     floats = fbits.view(torch.bfloat16) - 1.0
     # bfloat16 arithmetic with exact bfloat16 scalars (torch rounds each
@@ -248,16 +500,17 @@ def normal(k: torch.Tensor, shape, *, dtype=torch.float32,
     return erfinv(u.float()).to(torch.bfloat16) * _SQRT2_BF16
 
 
-def exponential(k: torch.Tensor, shape, *, device=None) -> torch.Tensor:
+def exponential(k: torch.Tensor, shape, *, impl=None,
+                device=None) -> torch.Tensor:
     """float32 ``jax.random.exponential``: ``-log1p(-u)`` of a uniform draw.
     ``torch.log1p`` and XLA's may differ by an ulp, so a draw agrees with
     jax's within an ulp (the uniform itself is bitwise)."""
-    return -torch.log1p(-uniform(k, shape, device=device))
+    return -torch.log1p(-uniform(k, shape, impl=impl, device=device))
 
 
-def rademacher(k: torch.Tensor, shape, *, dtype=torch.float32,
+def rademacher(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
                device=None) -> torch.Tensor:
     """``jax.random.rademacher``: ±1 from ``bernoulli(k, 0.5)``, i.e.
     ``uniform(k, shape) < 0.5`` mapped to ``2·b − 1``. Bitwise jax's."""
-    b = (uniform(k, shape, device=device) < 0.5).to(dtype)
+    b = (uniform(k, shape, impl=impl, device=device) < 0.5).to(dtype)
     return (2 * b - 1).to(dtype)

@@ -116,59 +116,64 @@ def tree_cast(tree, dtype):
     return tree_map(lambda x: x.to(dtype), tree)
 
 
-def leaf_normal(key, shape, dtype=torch.float32, *, device=None):
+def leaf_normal(key, shape, dtype=torch.float32, *, device=None,
+                impl=None):
     """N(0,1) of ``shape`` from ``key`` in ``dtype``, drawn on ``device``:
-    ``jax.random.normal`` (float32 within a few ulp, bfloat16 bitwise)."""
-    return prng.normal(key, shape, dtype=dtype, device=device)
+    ``jax.random.normal`` (float32 within a few ulp, bfloat16 bitwise).
+    ``impl``: the key's (``utils/prng.py``), here and below."""
+    return prng.normal(key, shape, dtype=dtype, device=device, impl=impl)
 
 
-def add_leaf_normal(x, key, coef, dtype=torch.float32):
+def add_leaf_normal(x, key, coef, dtype=torch.float32, impl=None):
     """x + coef·N(0,1)(key), cast to x's dtype."""
-    g = leaf_normal(key, x.shape, dtype, device=x.device)
+    g = leaf_normal(key, x.shape, dtype, device=x.device, impl=impl)
     return (x + coef * g).to(x.dtype)
 
 
-def leaf_normal_sq_norm(key, shape, dtype=torch.float32, *, device=None):
+def leaf_normal_sq_norm(key, shape, dtype=torch.float32, *, device=None,
+                        impl=None):
     """‖N(0,1)(key)‖² in float32."""
-    g = leaf_normal(key, shape, dtype, device=device)
+    g = leaf_normal(key, shape, dtype, device=device, impl=impl)
     return torch.sum(torch.square(g.float()))
 
 
-def normal_like_tree(rng, tree, dtype=None):
+def normal_like_tree(rng, tree, dtype=None, impl=None):
     """One i.i.d. N(0,1) sample per parameter, leaf i from
     ``fold_in(rng, i)``, each on its leaf's device."""
     pairs = _leaves(tree)
     return tree_unflatten(
         [p for p, _ in pairs],
-        [leaf_normal(prng.fold_in(rng, i), leaf.shape, dtype or leaf.dtype,
-                     device=leaf.device)
+        [leaf_normal(prng.fold_in(rng, i, impl), leaf.shape,
+                     dtype or leaf.dtype, device=leaf.device, impl=impl)
          for i, (_, leaf) in enumerate(pairs)])
 
 
-def tree_random_sq_norm(rng, tree, dtype=torch.float32):
+def tree_random_sq_norm(rng, tree, dtype=torch.float32, impl=None):
     """‖normal_like_tree(rng, tree)‖², summed leaf by leaf in order,
     without keeping the tree."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for i, leaf in enumerate(leaves):
-        total = total + leaf_normal_sq_norm(prng.fold_in(rng, i), leaf.shape,
-                                            dtype, device=leaf.device)
+        total = total + leaf_normal_sq_norm(
+            prng.fold_in(rng, i, impl), leaf.shape, dtype,
+            device=leaf.device, impl=impl)
     return total
 
 
-def tree_add_normal(tree, rng, coef, dtype=torch.float32):
+def tree_add_normal(tree, rng, coef, dtype=torch.float32, impl=None):
     """tree + coef·g(rng), leaf by leaf (g never whole)."""
     pairs = _leaves(tree)
     return tree_unflatten(
         [p for p, _ in pairs],
-        [add_leaf_normal(leaf, prng.fold_in(rng, i), coef, dtype)
+        [add_leaf_normal(leaf, prng.fold_in(rng, i, impl), coef, dtype,
+                         impl)
          for i, (_, leaf) in enumerate(pairs)])
 
 
-def sphere_like_tree(rng, tree, dtype=torch.float32):
+def sphere_like_tree(rng, tree, dtype=torch.float32, impl=None):
     """v ~ U(S^{d-1}) over the whole flattened parameter vector (paper
     Eq. 2): g/‖g‖ with g ~ N(0, I_d) and the norm taken across all
     leaves."""
-    g = normal_like_tree(rng, tree, dtype=dtype)
+    g = normal_like_tree(rng, tree, dtype=dtype, impl=impl)
     inv = 1.0 / (tree_norm(g) + 1e-30)
     return tree_scale(inv, g)

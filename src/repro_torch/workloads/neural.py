@@ -165,3 +165,15 @@ def run(task: NeuralTask, cfg: FedZOConfig, rounds: int, *, eval_every=2,
     return engine.run_experiment(task.loss, params, task.store, cfg, rounds,
                                  eval_fn=task_eval(task, eval_rows),
                                  eval_every=eval_every, **kw)
+
+
+def run_sweep(task: NeuralTask, base_cfg: FedZOConfig, scenarios, rounds, *,
+              eval_every=2, eval_rows=1024, out_csv=None) -> list:
+    """A scenario grid over the task (``sim.run_sweep``): one batched round
+    loop per static group, the {snr_db, lr, mu, h_min, seed} axes per row;
+    the per-round metrics and the eval curve land as long-format CSV."""
+    from repro_torch.sim import sweep
+    return sweep.run_sweep(task.loss, params_init(task, base_cfg.seed),
+                           task.store, base_cfg, scenarios, rounds,
+                           eval_fn=task_eval(task, eval_rows),
+                           eval_every=eval_every, out_csv=out_csv)

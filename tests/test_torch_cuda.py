@@ -183,10 +183,12 @@ def test_wrappers_count_their_launches(gen):
     ops.attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
     ops.axpy(x, x, 0.5)
     ops.axpy2(x, x, x, 0.5, 0.25)
+    ops.philox_bits((1, 2, 3, 4), 8, device="cuda")
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"zo_walk": 1, "zo_replay": 1, "zo_dirnorms": 1,
                             "aircomp_reduce": 1, "zo_axpy": 1, "zo_axpy2": 1,
-                            "rmsnorm": 1, "flash_attention": 1}
+                            "rmsnorm": 1, "flash_attention": 1,
+                            "philox_bits": 1}
 
 
 # x, u and v each float32 or bfloat16: a bfloat16 tree-convention direction
@@ -929,3 +931,78 @@ def test_kernel_report_on_card(gen):
         assert r.model_us == pytest.approx(r.hbm_bytes / 3.35e12 * 1e6)
     for k in ("zo_walk", "zo_replay", "aircomp_reduce"):
         assert ops.LAUNCHES[k] > before[k]
+
+
+# ---------------------------------------------------------------------------
+# philox_bits and the fast execution strategy
+
+
+@pytest.mark.parametrize("words,n,start", [
+    ((1, 2, 3, 4), 10 * 20 * 65536, 0), ((1, 2, 3, 4), 1_000_003, 0),
+    ((5, 7, 0xFFFFFFFE, 0xFFFFFFFF), 4 * 4096 + 5, 0),
+    ((9, 8, 7, 6), 65537, 13), ((0, 0, 0, 0), 4, 0), ((3, 1, 4, 1), 1, 2)])
+def test_philox_bits_bitwise_plain_on_card(gen, words, n, start):
+    """The kernel's words are the plain version's: full blocks, a ragged
+    tail, the 128-bit counter's carry, an odd start word."""
+    from repro_torch.kernels.philox import philox_bits_plain
+    before = ops.LAUNCHES["philox_bits"]
+    got = ops.philox_bits(words, n, device="cuda", start=start)
+    assert ops.LAUNCHES["philox_bits"] == before + 1
+    assert torch.equal(got.cpu(), philox_bits_plain(words, n, start=start))
+
+
+@pytest.mark.parametrize("impl", ["rbg", "unsafe_rbg"])
+def test_rbg_draws_bitwise_cpu_on_card(gen, impl):
+    """A batched rbg draw on the card is the CPU's, bits and uniforms
+    bitwise (one ``philox_bits`` launch each)."""
+    keys = prng.split(prng.key(5, impl), 3, impl)
+    for fn in (lambda d: prng.random_bits(keys, (7, 33), impl=impl,
+                                          device=d),
+               lambda d: prng.uniform(keys, (7, 33), impl=impl, device=d)):
+        assert torch.equal(fn("cuda").cpu(), fn("cpu"))
+
+
+def test_pytree_route_under_unsafe_rbg_card_matches_cpu(gen):
+    """The pytree route under unsafe_rbg keys on the card: each client's
+    per-leaf draws are its slice of one Philox stream (a launch from a
+    word offset), within the trajectory tolerance of the CPU's."""
+    from repro_torch.workloads import neural
+    kw = dict(n_train=320, n_test=96, n_clients=8, n_features=24,
+              n_classes=4, alpha=0.5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = neural.make_task("softmax", device=dev, **kw)
+        cfg = neural.default_config(task, n_participating=4, local_iters=2,
+                                    b1=8, b2=4, lr=5e-2, mu=1e-3, seed=11,
+                                    prng_impl="unsafe_rbg")
+        out[dev] = neural.run(task, cfg, 2, eval_every=0)
+    for k in out["cpu"].params:
+        assert float((out["cuda"].params[k].cpu()
+                      - out["cpu"].params[k]).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("aircomp", [False, True])
+def test_fast_sim_config_card_matches_cpu(gen, aircomp):
+    """A ``fast_sim_config`` run on the card against the CPU: the key
+    chain and m_effective bitwise, the weights within the trajectory
+    tolerance; the launches are one ``philox_bits`` per iterate and, with
+    AirComp, one ``aircomp_reduce`` and one ``zo_walk`` per round."""
+    from repro_torch import sim
+    from repro_torch.workloads import neural
+    kw = dict(n_train=320, n_test=96, n_clients=8, n_features=24,
+              n_classes=4, alpha=0.5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = neural.make_task("softmax", device=dev, **kw)
+        cfg = sim.fast_sim_config(neural.default_config(
+            task, n_participating=4, local_iters=2, b1=8, b2=4, lr=5e-2,
+            mu=1e-3, seed=11, aircomp=aircomp))
+        ops.reset_launches()
+        out[dev] = (neural.run(task, cfg, 3, eval_every=0),
+                    dict(ops.LAUNCHES))
+    (a, la), (b, _) = out["cuda"], out["cpu"]
+    assert la["philox_bits"] == 3 * 2
+    assert la["aircomp_reduce"] == la["zo_walk"] == (3 if aircomp else 0)
+    assert torch.equal(a.key, b.key)
+    for k in b.params:
+        assert float((a.params[k].cpu() - b.params[k]).abs().max()) <= 2e-3

@@ -199,7 +199,8 @@ def test_unported_routes_raise():
     reference's ValueError. Every registered strategy, a seed-compressed
     config and a wireless channel model (with and without faults) build a
     round step (they are ported); an unknown strategy raises the
-    reference's ValueError."""
+    reference's ValueError. The rbg and unsafe_rbg experiment keys are
+    ported: their words are jax's ``key_data``."""
     from repro_torch.configs.base import FedZOConfig
     from repro_torch.sim import ChannelModel, FaultModel
     for kw in (dict(direction_conv="surrogate"),
@@ -224,8 +225,12 @@ def test_unported_routes_raise():
         tengine.make_round_step(lambda p, b: 0.0, FedZOConfig(
             flat_params=True, strategy="fedsgd"))
     for impl in ("rbg", "unsafe_rbg"):
-        with pytest.raises(NotImplementedError, match="prng_impl"):
-            tengine.experiment_key(FedZOConfig(prng_impl=impl))
+        for seed in (0, 7):
+            np.testing.assert_array_equal(
+                tengine.experiment_key(
+                    FedZOConfig(prng_impl=impl, seed=seed)).numpy(),
+                np.asarray(jax.random.key_data(
+                    jax.random.key(seed, impl=impl))).astype(np.int64))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
