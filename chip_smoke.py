@@ -36,8 +36,8 @@ each of which raises on a failure (the script then exits non-zero):
      the torch twin of its summation order (``rmsnorm_kernel_order``), also
      at an odd element offset and with a ``[G, D]`` scale (G = 1 and 4, the
      client-batched forward), timed with G = 4 beside G = 1. Attention
-     again at head dims 16 and 256 (causal, window, GQA, ragged), timed
-     against SDPA at [4, 128, 14 or 8, D]; and at the transformer track's
+     again at head dims 16, 128 and 256 (causal, window, GQA, ragged),
+     timed against SDPA at [4, 128, 14, 32 or 8, D]; and at the transformer track's
      shapes (q [250 or 5,000, 8, 2, 16 or 8], float32), timed against
      SDPA, with RMSNorm over 10 and 200 groups of 200 rows of D = 32.
    - zo_axpy and zo_axpy2, bitwise, for x, u and v each float32 or
@@ -165,6 +165,53 @@ each of which raises on a failure (the script then exits non-zero):
    (d) ``obs.kernel_report`` at the softmax pad and at the Qwen2-0.5B flat
        pad: measured us beside the 3.35 TB/s model, the full-width times
        within 10 % of the kernel table's.
+8. Phase "fast strategy and batched sweeps" (budget 60 s):
+   (a) philox_bits (XLA's RngBitGenerator layout) bitwise its plain
+       version at [10, 20, 65,536], ragged, across the 128-bit carry and
+       from an odd start, timed against its bound;
+   (b) the reference's quickstart through ``FedServer`` under
+       ``sim.fast_sim_config`` (unsafe_rbg keys on the wide route) and
+       under threefry, 20 rounds, test accuracy at least 0.5; (c) with
+       AirComp, exactly 1 aircomp_reduce, 1 zo_walk and H philox_bits a
+       round;
+   (d) the attack's SNR sweep batched (one [60, n] cohort) against the
+       sequential loop, a one-scenario group bitwise its single run; then
+       the card against the CPU under unsafe_rbg on the wide and pytree
+       routes.
+9. Phase "serve and sharded rounds" (budget 90 s), each part's seconds and
+   peak memory printed, each number with the card's name and power limit.
+   Before each served model runs, its kernels are held against their
+   plain versions at the shapes it gives them (phase 2's tolerances, both
+   dtypes: rmsnorm over the d_model rows of prefill and decode and the qk
+   norms' head_dim rows, attention at [B, S, Hq/Hkv, D]).
+   (a) ``launch/serve.py``'s ``main`` on qwen2-0.5b at full width in
+       bfloat16 (batch 4 x prompt 32, 16 greedy steps), then the same
+       prefill and decode loop warm: tokens per second of each, the
+       launches exact (per layer two RMSNorms and one attention in
+       prefill, two RMSNorms in decode, the final norm per forward), the
+       warm tokens the CLI's; one decode step at position S against a
+       prefill of S + 1 tokens within SERVE_BF16_TOL of the largest logit
+       (bfloat16: the reasoning stands beside the constant); a ring
+       narrower than the prompt decodes finite logits.
+   (b) qwen3-4b (head dim 128, qk_norm) and gemma-2b (head dim 256, one kv
+       head, GeGLU, the tied 256,000-row embedding) at full width in
+       bfloat16: init, one prefill of batch 2 x 64 and 4 decode steps,
+       exact launches, the same consistency check, the unembedding's
+       device time against a decode step; qwen1.5-32b's full-width count
+       on the ``meta`` device and its ``-smoke`` config on the card
+       (float32, the reference's bound).
+   (c) the sharded round: a one-rank nccl group, ``neural.run(mesh=)`` of
+       softmax_flat, softmax_aircomp and phase 6(b)'s faulted AirComp
+       config, 3 rounds each, bitwise the unsharded runs with equal
+       launches; two gloo ranks spawned on the card (joined with a
+       timeout), one round of softmax_flat and of softmax_aircomp each,
+       within GLOO_REL of the one-rank round's largest parameter (the
+       round's update at least 10x that bound).
+   (d) ``fedzo.make_pod_round_step`` on Qwen2-0.5B at full width in float32,
+       2 pods of batch 2 x seq 128 (the grouped loss), flat route, b2 = 8,
+       2 steps with exact launches and ms a step;
+       ``make_delta_agg_step`` on two per-pod delta trees at smoke size,
+       with and without AirComp.
 
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
@@ -552,6 +599,56 @@ def bf16_ulp_err(torch, got, want, floor):
     return float(((got.float() - want.float()).abs() / spacing).max())
 
 
+def hold_rmsnorm(torch, ops, plain_rms, x, sc):
+    """``ops.rmsnorm(x, sc)`` on rows ``x`` ``[R, D]`` against its plain
+    version. float32: elementwise relative 1e-5 (another summation order
+    of the mean square); bf16: 1 ulp of the output. Returns (the kernel's
+    output, its max abs error, the printed note)."""
+    got = ops.rmsnorm(x, sc, eps=1e-6)
+    want = plain_rms.rmsnorm_plain(x, sc, eps=1e-6)
+    tag = (f"rmsnorm {'fp32' if x.dtype == torch.float32 else 'bf16'} "
+           f"{list(x.shape)}")
+    check(got.dtype == x.dtype and got.shape == x.shape,
+          f"{tag}: output {got.dtype} {tuple(got.shape)}")
+    if x.dtype == torch.float32:
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        check(rel <= 1e-5, f"{tag}: rel {rel}")
+        note = f"{tag}: max rel {rel:.2e}"
+    else:
+        u = bf16_ulp_err(torch, got, want, 1e-30)
+        check(u <= 1, f"{tag}: {u} bf16 ulp")
+        note = f"{tag}: {u:.0f} bf16 ulp, bitwise {torch.equal(got, want)}"
+    return got, float((got.float() - want.float()).abs().max()), note
+
+
+def hold_attention(torch, ops, plain_flash, q, k, v, causal, window):
+    """``ops.attention`` on ``[B, S, H, D]`` against its plain version.
+    float32: max |err| within 1e-5 of max |out|; bf16: the rule of
+    ``bf16_attention_errs``. Returns (max abs error, the printed note)."""
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = plain_flash.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+    tag = (f"attention {'fp32' if q.dtype == torch.float32 else 'bf16'} "
+           f"{list(q.shape[:2])} "
+           f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]}"
+           f"{'' if causal else ' non-causal'}"
+           f"{f' window {window}' if window else ''}")
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"{tag}: output {got.dtype} {tuple(got.shape)}")
+    if q.dtype == torch.float32:
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        check(rel <= 1e-5, f"{tag}: rel {rel}")
+        note = f"{tag}: max err / max |out| {rel:.2e}"
+    else:
+        u, r, t = bf16_attention_errs(torch, q, k, v, got, want, causal,
+                                      window)
+        check(u <= (1 if r <= 1 else 1 + r), f"{tag}: {u} bf16 ulp from the "
+              f"plain version, which is {r} from float64")
+        note = (f"{tag}: {u:.2f} bf16 ulp from the plain version ({r:.2f} "
+                f"from float64; the kernel {t:.2f})")
+    return float((got.float() - want.float()).abs().max()), note
+
+
 def check_lm_kernels(torch, ops, plain_rms, plain_flash):
     """Phase 2, transformer kernels. Returns {kernel: row of the JSON
     table, without launches}."""
@@ -570,21 +667,9 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
     for r, d in ((LM_B * LM_S, LM_DM), (LM_B * LM_S * LM_HQ, LM_HD)):
         for dt in (torch.float32, torch.bfloat16):
             x, sc = rnd(r, d, dtype=dt), (1.0 + 0.1 * rnd(d)).to(dt)
-            got = ops.rmsnorm(x, sc, eps=1e-6)
-            want = plain_rms.rmsnorm_plain(x, sc, eps=1e-6)
-            check(got.dtype == dt and got.shape == x.shape,
-                  f"rmsnorm {dt}: output {got.dtype} {tuple(got.shape)}")
-            if dt == torch.float32:
-                rel = float(((got - want).abs()
-                             / want.abs().clamp_min(1e-30)).max())
-                check(rel <= 1e-5, f"rmsnorm fp32 [{r}, {d}]: rel {rel}")
-                lines.append(f"rmsnorm fp32 [{r}, {d}]: max rel {rel:.2e}")
-            else:
-                u = bf16_ulp_err(torch, got, want, 1e-30)
-                check(u <= 1, f"rmsnorm bf16 [{r}, {d}]: {u} bf16 ulp")
-                lines.append(f"rmsnorm bf16 [{r}, {d}]: {u:.0f} bf16 ulp, "
-                             f"bitwise {torch.equal(got, want)}")
-            errs.append(float((got.float() - want.float()).abs().max()))
+            got, err, note = hold_rmsnorm(torch, ops, plain_rms, x, sc)
+            lines.append(note)
+            errs.append(err)
             check(torch.equal(got, plain_rms.rmsnorm_kernel_order(
                 x, sc, eps=1e-6)), f"rmsnorm {dt} [{r}, {d}]: not its twin")
             # a view one element past a 16-byte boundary: scalar loads
@@ -744,9 +829,10 @@ def check_lm_kernels(torch, ops, plain_rms, plain_flash):
 
 
 # head dims beyond the main shape's: 16 (the neural transformer track's
-# d_model 32 over 2 heads; here with Qwen2-0.5B's 14 q over 2 kv heads) and
-# 256 (Gemma-2B: 8 q heads over 1 kv head)
-EXTRA_HEAD_DIMS = {16: (14, 2), 256: (8, 1)}
+# d_model 32 over 2 heads; here with Qwen2-0.5B's 14 q over 2 kv heads),
+# 128 (Qwen3-4B: 32 q heads over 8 kv heads) and 256 (Gemma-2B: 8 q heads
+# over 1 kv head)
+EXTRA_HEAD_DIMS = {16: (14, 2), 128: (32, 8), 256: (8, 1)}
 
 
 def attention_f64(torch, q, k, v, causal, window):
@@ -784,9 +870,9 @@ def bf16_attention_errs(torch, q, k, v, got, want, causal, window):
 
 
 def check_attention_head_dims(torch, ops, plain_flash, rnd, rows):
-    """Phase 2: flash attention at head dims 16 and 256, both dtypes, under
-    the main shape's tolerances (causal, sliding window, GQA, ragged S), and
-    timed against SDPA at [4, 128, Hq, D]. Returns the printed lines; the
+    """Phase 2: flash attention at head dims 16, 128 and 256, both dtypes,
+    under ``hold_attention``'s tolerances (causal, sliding window, GQA,
+    ragged S), and timed against SDPA at [4, 128, Hq, D]. Returns the printed lines; the
     times go to the attention row's ``head_dims`` entry."""
     import torch.nn.functional as F
     lines, out = [], {}
@@ -800,24 +886,8 @@ def check_attention_head_dims(torch, ops, plain_flash, rnd, rows):
                 q = rnd(b, sq, hq, hd, dtype=dt)
                 k = rnd(b, sq, hkv, hd, dtype=dt)
                 v = rnd(b, sq, hkv, hd, dtype=dt)
-                got = ops.attention(q, k, v, causal=causal, window=window)
-                want = plain_flash.flash_attention_plain(
-                    q, k, v, causal=causal, window=window)
-                top = float(want.float().abs().max())
-                tag = f"attention D={hd} {name} {str(dt)[6:]}"
-                if dt == torch.float32:
-                    rel = float((got - want).abs().max()) / top
-                    check(rel <= 1e-5, f"{tag}: rel {rel}")
-                    lines.append(f"{tag}: max err / max |out| {rel:.2e}")
-                else:
-                    u, r, t = bf16_attention_errs(torch, q, k, v, got, want,
-                                                  causal, window)
-                    check(u <= (1 if r <= 1 else 1 + r),
-                          f"{tag}: {u} bf16 ulp from the plain version, "
-                          f"which is {r} from float64")
-                    lines.append(f"{tag}: {u:.2f} bf16 ulp from the plain "
-                                 f"version ({r:.2f} from float64; the kernel "
-                                 f"{t:.2f})")
+                lines.append(hold_attention(torch, ops, plain_flash, q, k, v,
+                                            causal, window)[1])
         q = rnd(LM_B, LM_S, hq, hd)
         k, v = rnd(LM_B, LM_S, hkv, hd), rnd(LM_B, LM_S, hkv, hd)
         pairs = LM_S * (LM_S + 1) // 2
@@ -3411,6 +3481,521 @@ def run_fast_strategy(torch, ops, neural, FedZOConfig, smi):
     return row, total
 
 
+# ---------------------------------------------------------------------------
+# phase "serve and sharded rounds"
+
+SERVE_BUDGET_S = 90.0
+# qwen2-0.5b through the serve CLI: batch 4 x prompt 32, 16 greedy steps
+SERVE_B, SERVE_S, SERVE_GEN = 4, 32, 16
+# qwen3-4b and gemma-2b: one prefill of batch 2 x 64 and 4 decode steps
+BIG_B, BIG_S, BIG_GEN = 2, 64, 4
+# Decode against prefill in bfloat16. The decode step at position S and
+# the prefill of S + 1 tokens compute that token's logits by two routes:
+# the prefill's flash kernel against the decode's float32 attention over
+# the cache, and bfloat16 GEMMs of B.(S + 1) rows against B rows (cuBLAS
+# picks other algorithms). Each of the L layers rounds the residual
+# stream and each product to bfloat16 (unit roundoff 2^-9 of a value; one
+# ulp 2^-8 relative to 2^-7), at other points on each route, so the two
+# routes' hidden states drift apart by a few bfloat16 ulps a layer, as a
+# random walk over L = 18-36 layers: about sqrt(L) x 2 ulps of 2^-8, 5 %
+# of a logit's scale at L = 36. SERVE_BF16_TOL bounds |dec - ref| by that
+# share of max |ref| (the float32 reference check, tests/test_arch_smoke
+# .py, holds 2e-4 absolute; a decode that read a wrong slot or position
+# misses the bound by a logit's whole scale).
+SERVE_BF16_TOL = 0.08
+# two gloo ranks sharing the card against the one-rank round. Each rank
+# computes its rows' losses and deltas as the one rank does (the batched
+# forward is per row), so what differs is the order of the float32 sum of
+# the two [n_pad] partials against the one rank's sum of M = 10 rows, and
+# one rounding into the parameters: a few float32 ulps (1.2e-7 relative
+# each) of the largest parameter. GLOO_REL bounds |two ranks - one rank| by
+# 1e-6 of max |params| (8 ulps); on an H100 the reading was 1 ulp. The
+# round's own update must be at least 10x the bound, so that a rank's
+# partial left out, or a sum divided by m where M belongs (errors of the
+# update's own size), cannot pass.
+GLOO_REL = 1e-6
+# the pod step: Qwen2-0.5B in float32, 2 pods of batch 2 x seq 128, b2 8
+POD_N, POD_B, POD_S, POD_STEPS = 2, 2, 128, 2
+
+
+def serve_launches(cfg, prefills, decodes):
+    """rmsnorm and flash_attention launches of ``prefills`` prefills and
+    ``decodes`` decode steps of a dense model: per layer two RMSNorms (and
+    the q and k norms under qk_norm) and, in prefill, one attention; the
+    final norm once per forward. Decode's one-token attention is plain
+    torch."""
+    norms = 2 + 2 * cfg.qk_norm
+    per = norms * cfg.n_layers + 1
+    return {"rmsnorm": per * (prefills + decodes),
+            "flash_attention": cfg.n_layers * prefills}
+
+
+def dense_param_count(cfg):
+    """A dense config's parameter count from its fields (the reference's
+    tree: padded embedding, untied unembedding, final norm, L blocks)."""
+    vp = cfg.vocab + (-cfg.vocab) % 32
+    d, hq, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.d_ff)
+    attn = d * hq * hd * 2 + 2 * d * hkv * hd
+    attn += (hq + 2 * hkv) * hd if cfg.qkv_bias else 0
+    attn += 2 * hd if cfg.qk_norm else 0
+    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * ff
+    return (vp * d * (1 if cfg.tie_embeddings else 2) + d
+            + cfg.n_layers * (2 * d + attn + mlp))
+
+
+def decode_vs_prefill(torch, model, params, batch, tol_rel):
+    """The reference's consistency check: one decode step at position S
+    after a prefill of S tokens against the last logits of a prefill of
+    S + 1 tokens. Returns max |dec - ref| / max |ref|."""
+    from repro_torch.utils import prng
+    S = batch["tokens"].shape[1]
+    _, cache = model.prefill(params, batch, S + 4)
+    nxt = prng.randint(prng.key(5), (batch["tokens"].shape[0], 1), 0,
+                       model.cfg.vocab).to("cuda")
+    dec, _ = model.decode(params, {"tokens": nxt}, cache,
+                          torch.tensor(S, device="cuda"))
+    ref, _ = model.prefill(params, {"tokens": torch.cat(
+        [batch["tokens"], nxt], 1)}, S + 5)
+    dec, ref = dec.float(), ref.float()
+    rel = float((dec - ref).abs().max() / ref.abs().max())
+    check(rel <= tol_rel, f"{model.cfg.name}: decode vs prefill rel {rel} "
+          f"> {tol_rel}")
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    return rel, agree
+
+
+def hold_served_kernels(torch, ops, cfg, b, s, rows):
+    """A served model's kernels at the shapes its prefill and decode give
+    them, against their plain versions under phase 2's tolerances, in
+    float32 and bfloat16: rmsnorm over the block norms' ``[b.s, d_model]``
+    and ``[b, d_model]`` rows and, under qk_norm, the q and k norms'
+    ``[rows.heads, head_dim]``; attention at ``[b, s, n_heads /
+    n_kv_heads, head_dim]``, causal under the config's window. The largest
+    errors join the kernels' ``max_abs_err``. Not counted: run before the
+    served path's counts are set to 0."""
+    from repro_torch.kernels import flash_attention as plain_flash
+    from repro_torch.kernels import rmsnorm as plain_rms
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    hq, hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    widths = [(b * s, d), (b, d)]
+    if cfg.qk_norm:
+        widths += [(r * h, hd) for r in (b * s, b) for h in (hq, hkv)]
+    notes, err = [], dict.fromkeys(("rmsnorm", "flash_attention"), 0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        for r, w in widths:
+            _, e, note = hold_rmsnorm(torch, ops, plain_rms, rnd(
+                r, w, dtype=dt), (1.0 + 0.1 * rnd(w)).to(dt))
+            err["rmsnorm"] = max(err["rmsnorm"], e)
+            notes.append(note)
+        e, note = hold_attention(torch, ops, plain_flash,
+                                 rnd(b, s, hq, hd, dtype=dt),
+                                 rnd(b, s, hkv, hd, dtype=dt),
+                                 rnd(b, s, hkv, hd, dtype=dt), True,
+                                 cfg.sliding_window)
+        err["flash_attention"] = max(err["flash_attention"], e)
+        notes.append(note)
+    for k, e in err.items():
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
+    print(f"{cfg.name} served shapes against the plain versions: "
+          + "; ".join(notes))
+
+
+def serve_qwen2(torch, ops, smi, total, rows):
+    """Part (a): ``launch/serve.py``'s ``main`` on qwen2-0.5b at full width
+    in bfloat16, then a steady-state prefill and decode loop on its
+    weights, the consistency check and a ring-width run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    hold_served_kernels(torch, ops, get_config("qwen2-0.5b"), SERVE_B,
+                        SERVE_S, rows)
+    argv = ["--arch", "qwen2-0.5b", "--batch", str(SERVE_B),
+            "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    cli_s = time.perf_counter() - t0
+    model, params, batch = res.model, res.params, res.batch
+    cfg = model.cfg
+    for got, want in ((res.prefill_launches, serve_launches(cfg, 1, 0)),
+                      (res.decode_launches,
+                       serve_launches(cfg, 0, SERVE_GEN))):
+        want = {**dict.fromkeys(ops.LAUNCHES, 0), **want}
+        check(got == want, f"serve qwen2-0.5b: launches {got} != {want}")
+        for k in total:
+            total[k] += got[k]
+    # the same prefill and decode loop again, warm: the steady rates
+    width = SERVE_S + SERVE_GEN
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, width)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    pos = torch.tensor(SERVE_S, device="cuda")
+    toks = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SERVE_GEN):
+        logits, cache = model.decode(params, {"tokens": tok}, cache, pos + i)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0),
+            **serve_launches(cfg, 1, SERVE_GEN)}
+    check(counts == want, f"serve qwen2-0.5b warm: {counts} != {want}")
+    for k in total:
+        total[k] += counts[k]
+    again = torch.cat(toks, 1).cpu().numpy()
+    check((again == res.tokens).all(), "serve qwen2-0.5b: the warm loop's "
+          "tokens are not the CLI's")
+    # one decode step and one prefill under the profiler (the last slot is
+    # written again): device busy share and kernel time by kind
+    prof = {name: kernel_time_by_kind(torch, fn) for name, fn in (
+        ("decode step", lambda: model.decode(params, {"tokens": tok}, cache,
+                                             pos + SERVE_GEN - 1)),
+        ("prefill", lambda: model.prefill(params, batch, width)))}
+    rel, agree = decode_vs_prefill(torch, model, params, batch,
+                                   SERVE_BF16_TOL)
+    # a ring narrower than the prompt: slots pos % 16, finite logits
+    lg, ring = model.prefill(params, batch, 16)
+    for i in range(4):
+        tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+        lg, ring = model.decode(params, {"tokens": tok}, ring, pos + i)
+    check(bool(torch.isfinite(lg).all()), "serve qwen2-0.5b ring: logits")
+    print(f"qwen2_0_5b_serve (bfloat16, batch {SERVE_B} x prompt {SERVE_S},"
+          f" {SERVE_GEN} greedy steps): CLI {cli_s:.2f} s with the init; "
+          f"CLI prefill {SERVE_B * SERVE_S / res.prefill_s:.1f} tok/s "
+          f"({1e3 * res.prefill_s:.2f} ms), decode "
+          f"{SERVE_B * SERVE_GEN / res.decode_s:.1f} tok/s "
+          f"({1e3 * res.decode_s / SERVE_GEN:.2f} ms a step); warm prefill "
+          f"{SERVE_B * SERVE_S / pre_s:.1f} tok/s ({1e3 * pre_s:.2f} ms), "
+          f"decode {SERVE_B * SERVE_GEN / dec_s:.1f} tok/s "
+          f"({1e3 * dec_s / SERVE_GEN:.3f} ms a step); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; decode vs "
+          f"prefill rel {rel:.3e} (bound {SERVE_BF16_TOL}), argmax agree "
+          f"{agree:.2f}; ring width 16 finite; launches prefill "
+          f"{res.prefill_launches['rmsnorm']} rmsnorm "
+          f"{res.prefill_launches['flash_attention']} attention, decode "
+          f"{res.decode_launches['rmsnorm']} rmsnorm [{smi}]")
+    for name, (wall, busy, kinds) in prof.items():
+        print(f"qwen2_0_5b_serve {name}, profiled: wall {wall:.2f} ms, "
+              f"kernel time {sum(kinds.values()):.3f} ms, busy share "
+              f"{busy:.3f}; by kind (ms) "
+              f"{json.dumps({k: round(v, 4) for k, v in kinds.items()})}")
+    del params, cache, ring, res
+    torch.cuda.empty_cache()
+
+
+def serve_big(torch, ops, arch, smi, total, rows):
+    """Part (b): one prefill of batch 2 x 64 and 4 greedy decode steps of
+    ``arch`` at full width in bfloat16, exact launches, the consistency
+    check; the tied unembedding's share of a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.models.layers import unembed_fwd
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_size
+    model = api.build(get_config(arch))
+    cfg = model.cfg
+    hold_served_kernels(torch, ops, cfg, BIG_B, BIG_S, rows)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = tree_size(params)
+    check(n == dense_param_count(cfg), f"{arch}: {n} parameters")
+    batch = api.make_batch(model, ShapeConfig("serve", BIG_S, BIG_B,
+                                              "prefill"), prng.key(1),
+                           device="cuda")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, BIG_S + BIG_GEN)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pos = torch.tensor(BIG_S, device="cuda")
+    step_s = []
+    for i in range(BIG_GEN):
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, {"tokens": tok}, cache, pos + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(ops.LAUNCHES)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0),
+            **serve_launches(cfg, 1, BIG_GEN)}
+    check(counts == want, f"{arch}: launches {counts} != {want}")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: logits not finite")
+    for k in total:
+        total[k] += counts[k]
+    rel, agree = decode_vs_prefill(torch, model, params, batch,
+                                   SERVE_BF16_TOL)
+    # the unembedding GEMM of one decode step alone, on the device
+    hf = torch.randn((BIG_B, 1, cfg.d_model), device="cuda").to(
+        torch.bfloat16)
+    un_ms = median_ms(torch, lambda: unembed_fwd(
+        params["embed"], hf, cfg.tie_embeddings, cfg.vocab), 20)
+    step_ms = 1e3 * sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(f"{arch.replace('-', '_').replace('.', '_')}_serve (bfloat16, "
+          f"{n} parameters, init {init_s:.2f} s): prefill batch {BIG_B} x "
+          f"{BIG_S} {1e3 * pre_s:.2f} ms ({BIG_B * BIG_S / pre_s:.1f} "
+          f"tok/s); decode ms a step {[round(1e3 * s, 3) for s in step_s]} "
+          f"({BIG_B / (step_ms / 1e3):.1f} tok/s after the first); the "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} [{cfg.d_model}, "
+          f"{cfg.vocab}] unembedding {un_ms:.4f} ms on the device, "
+          f"{un_ms / step_ms:.3f} of a decode step's host-clock time; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; decode vs "
+          f"prefill rel {rel:.3e} (bound {SERVE_BF16_TOL}), argmax agree "
+          f"{agree:.2f}; launches {counts['rmsnorm']} rmsnorm "
+          f"{counts['flash_attention']} attention [{smi}]")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def serve_qwen15_smoke(torch, ops, total):
+    """Part (b), qwen1.5-32b: its full-width count on ``meta``, and the
+    ``-smoke`` config on the card (float32, the reference's tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api, transformer
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec
+    full = get_config("qwen1.5-32b")
+    n = flat_spec(transformer.init_params(prng.key(0), full,
+                                          device="meta")).d
+    check(n == dense_param_count(full) == 35_197_096_960,
+          f"qwen1.5-32b: {n} parameters on meta")
+    model = api.build(get_config("qwen1.5-32b-smoke"))
+    params = model.init(prng.key(0), device="cuda")
+    batch = api.make_batch(model, ShapeConfig("serve", BIG_S, BIG_B,
+                                              "prefill"), prng.key(1),
+                           device="cuda")
+    ops.reset_launches()
+    logits, cache = model.prefill(params, batch, BIG_S + BIG_GEN)
+    for i in range(BIG_GEN):
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        logits, cache = model.decode(params, {"tokens": tok}, cache,
+                                     torch.tensor(BIG_S + i, device="cuda"))
+    counts = dict(ops.LAUNCHES)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0),
+            **serve_launches(model.cfg, 1, BIG_GEN)}
+    check(counts == want, f"qwen1.5-32b-smoke: {counts} != {want}")
+    for k in total:
+        total[k] += counts[k]
+    # float32: the reference's own bound (atol 2e-4, rtol 2e-3), as a share
+    rel, agree = decode_vs_prefill(torch, model, params, batch, 2e-3)
+    print(f"qwen1_5_32b: {n} parameters on meta; -smoke on the card "
+          f"(float32): decode vs prefill rel {rel:.3e}, argmax agree "
+          f"{agree:.2f}; launches {counts['rmsnorm']} rmsnorm "
+          f"{counts['flash_attention']} attention")
+
+
+def _gloo_rank(rank, world, out, src, cfgs):
+    """A spawned rank of part (c): one round of each config over the
+    ``world``-rank clients mesh, every rank on the one card."""
+    sys.path.insert(0, src)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import sim
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.workloads import neural
+    task = neural.make_task("softmax", n_features=784, n_classes=10,
+                            n_clients=50)
+    mesh = sim.make_clients_mesh(world)
+    res = [neural.run(task, FedZOConfig(**kw), 1, eval_every=0, mesh=mesh)
+           for kw in cfgs]
+    if rank == 0:
+        torch.save([{k: v.cpu() for k, v in r.params.items()} for r in res],
+                   out)
+
+
+def sharded_rounds(torch, ops, neural, FedZOConfig, tmp, total):
+    """Part (c): the sharded round on one card. A one-rank nccl group:
+    ``neural.run(mesh=)`` bitwise the unsharded run with equal launches,
+    3 rounds each of softmax_flat, softmax_aircomp and the faulted AirComp
+    config of phase 6(b); then two gloo ranks spawned on the card, one
+    round of softmax_flat and softmax_aircomp each, within GLOO_REL of the
+    one-rank round's max |params|."""
+    import torch.distributed as dist
+    from repro_torch import sim
+    from repro_torch.launch.mesh import run_ranks
+    task = neural.make_task("softmax", n_features=784, n_classes=10,
+                            n_clients=50)
+    base = dict(flat_params=True, weight_by_size=True)
+    air = dict(aircomp=True, channel_schedule=True, snr_db=5.0)
+    ftask, fcfg, faults = faulted_softmax(neural, FedZOConfig, "cuda")
+    runs = [("softmax_flat_sharded", task, FedZOConfig(**base), None),
+            ("softmax_aircomp_sharded", task, FedZOConfig(**base, **air),
+             None),
+            ("softmax_faulted_sharded", ftask, fcfg, faults)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_init",
+                            world_size=1, rank=0)
+    try:
+        mesh = sim.make_clients_mesh()
+        for name, tk, cfg, fm in runs:
+            out, counts, ms = [], [], []
+            for m in (None, mesh):
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out.append(neural.run(tk, cfg, 3, eval_every=0, faults=fm,
+                                      mesh=m))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0) / 3)
+                counts.append(dict(ops.LAUNCHES))
+            check(_same_run(torch, out[0], out[1]),
+                  f"{name}: the one-rank sharded run is not the unsharded "
+                  f"run bitwise")
+            check(counts[0] == counts[1], f"{name}: launches {counts}")
+            for k in total:
+                total[k] += counts[1][k]
+            print(f"{name} (one-rank nccl group, 3 rounds): bitwise the "
+                  f"unsharded run; ms/round {ms[1]:.2f} sharded, {ms[0]:.2f} "
+                  f"unsharded (first rounds included); launches {counts[1]}")
+    finally:
+        dist.destroy_process_group()
+    cfgs = [base, {**base, **air}]
+    out = os.path.join(tmp, "gloo.pt")
+    t0 = time.perf_counter()
+    run_ranks(_gloo_rank, 2, backend="gloo", init_dir=tmp,
+              args=(out, SRC, cfgs), timeout=240)
+    spawn_s = time.perf_counter() - t0
+    got = torch.load(out)
+    p0 = neural.params_init(task)
+    for kw, g in zip(cfgs, got):
+        one = neural.run(task, FedZOConfig(**kw), 1, eval_every=0)
+        err = max(float((g[k] - one.params[k].cpu()).abs().max())
+                  for k in g)
+        top = max(float(v.abs().max()) for v in one.params.values())
+        upd = max(float((one.params[k] - p0[k]).abs().max()) for k in p0)
+        tol = GLOO_REL * top
+        name = "softmax_aircomp" if kw.get("aircomp") else "softmax_flat"
+        check(upd >= 10 * tol, f"two gloo ranks {name}: the round's update "
+              f"{upd} is not 10x the bound {tol}")
+        check(err <= tol, f"two gloo ranks {name}: {err} > {tol}")
+        print(f"two gloo ranks on the card, one round of {name}: max |two "
+              f"ranks - one rank| {err:.3e} (bound {tol:.3e} = {GLOO_REL} x "
+              f"max |params| {top:.4e}; the round's update {upd:.4e})")
+    print(f"two gloo ranks: {spawn_s:.1f} s spawned, joined")
+
+
+def pod_step(torch, ops, FedZOConfig, smi, total):
+    """Part (d): ``make_pod_round_step`` on Qwen2-0.5B at full width in
+    float32, 2 pods of batch 2 x seq 128 (the grouped loss), flat route,
+    b2 = 8, 2 steps with exact launches; ``make_delta_agg_step`` on two
+    per-pod delta trees at smoke size."""
+    import numpy as np
+    from repro_torch.core import fedzo
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import api
+    from repro_torch.configs import get_config
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    model, toks = lm_setup("qwen2-0.5b", "float32")
+    L = model.cfg.n_layers
+    params = model.init(prng.key(0), device="cuda")
+    cfg = FedZOConfig(lr=1e-4, mu=1e-3, b2=QWEN_B2, flat_params=True)
+    step = fedzo.make_pod_round_step(
+        lambda p, b: model.loss(p, b, n_groups=POD_N), cfg,
+        make_pod_mesh(POD_N))
+    want = {**dict.fromkeys(ops.LAUNCHES, 0), "zo_walk": cfg.b2,
+            "zo_replay": 1, "zo_dirnorms": 1,
+            "rmsnorm": (1 + cfg.b2) * (2 * L + 1),
+            "flash_attention": (1 + cfg.b2) * L}
+    rng, key = np.random.default_rng(3), prng.key(6)
+    torch.cuda.reset_peak_memory_stats()
+    ms, mets = [], []
+    for _ in range(POD_STEPS):
+        batch = lm_batch(torch, toks, rng, POD_N * POD_B, POD_S, "cuda")
+        ks = prng.split(key, 2)
+        key, sub = ks[0], ks[1]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, met = step(params, batch, sub)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        counts = dict(ops.LAUNCHES)
+        check(counts == want, f"pod step: launches {counts} != {want}")
+        for k in total:
+            total[k] += counts[k]
+        mets.append({k: v.tolist() for k, v in met.items()})
+    check(all(math.isfinite(x) for m in mets for x in m["per_pod_loss"]),
+          f"pod step: {mets}")
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)),
+          "pod step: parameters not finite")
+    print(f"qwen2_0_5b_pod_step (float32, {POD_N} pods of batch {POD_B} x "
+          f"{POD_S}, flat, b2 {cfg.b2}): ms a step "
+          f"{[round(t, 2) for t in ms]}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; metrics "
+          f"{json.dumps(mets)}; launches a step {want} [{smi}]")
+    del params
+    torch.cuda.empty_cache()
+    # the dense-uplink aggregation of two per-pod delta trees (smoke size)
+    sm = api.build(get_config("qwen2-0.5b-smoke"))
+    trees = [sm.init(prng.key(s), device="cuda") for s in (1, 2)]
+    deltas = tree_map(lambda a, b: torch.stack([a, b]), *trees)
+    mean = fedzo.make_delta_agg_step(FedZOConfig(), POD_N)(deltas,
+                                                           prng.key(0))
+    noisy = fedzo.make_delta_agg_step(FedZOConfig(aircomp=True, snr_db=30.0),
+                                      POD_N)(deltas, prng.key(0))
+    for a, b, m in zip(tree_leaves(trees[0]), tree_leaves(trees[1]),
+                       tree_leaves(mean)):
+        check(torch.equal(m, (a + b) / 2), "delta agg: not the mean")
+    dev = max(float((n - m).abs().max()) for n, m in
+              zip(tree_leaves(noisy), tree_leaves(mean)))
+    check(math.isfinite(dev) and dev > 0, f"delta agg aircomp: {dev}")
+    print(f"make_delta_agg_step (2 pods, qwen2-0.5b-smoke trees): mean "
+          f"exact; AirComp at 30 dB within {dev:.3e} of it")
+
+
+def run_serve_sharded(torch, ops, neural, FedZOConfig, smi, rows):
+    """Phase "serve and sharded rounds": parts (a) to (d), each part's
+    seconds and peak memory printed; budget SERVE_BUDGET_S. The served
+    shapes' kernel checks fold their errors into ``rows``. Returns the
+    launches of its main-path runs."""
+    import tempfile
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, part in (
+                ("(a) serve qwen2-0.5b", lambda: serve_qwen2(
+                    torch, ops, smi, total, rows)),
+                ("(b) serve qwen3-4b", lambda: serve_big(
+                    torch, ops, "qwen3-4b", smi, total, rows)),
+                ("(b) serve gemma-2b", lambda: serve_big(
+                    torch, ops, "gemma-2b", smi, total, rows)),
+                ("(b) qwen1.5-32b", lambda: serve_qwen15_smoke(
+                    torch, ops, total)),
+                ("(c) sharded rounds", lambda: sharded_rounds(
+                    torch, ops, neural, FedZOConfig, tmp, total)),
+                ("(d) pod step", lambda: pod_step(
+                    torch, ops, FedZOConfig, smi, total))):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            part()
+            print(f"part {name}: {time.perf_counter() - t0:.1f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"serve and sharded rounds: {took:.1f} s of the "
+          f"{SERVE_BUDGET_S:.0f} s budget [{smi}]")
+    return total
+
+
 def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
@@ -3578,6 +4163,9 @@ def main(argv):
         "fast strategy and batched sweeps",
         lambda: run_fast_strategy(torch, ops, neural, FedZOConfig, smi))
     for k, n in counts.items():
+        launches[k] += n
+    for k, n in timed("serve and sharded rounds", lambda: run_serve_sharded(
+            torch, ops, neural, FedZOConfig, smi, rows)).items():
         launches[k] += n
     if args.profile:
         timed("profiles", lambda: (

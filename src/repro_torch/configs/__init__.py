@@ -1,31 +1,48 @@
-"""Architecture registry: ``get_config("<arch-id>")``, as in
-``repro/configs/__init__.py``. The ``-smoke`` suffix gives the reduced
-variant (``ModelConfig.reduced``).
+"""Architecture and input-shape registry: ``get_config("<arch-id>")`` and
+``get_shape("<shape-id>")``, as in ``repro/configs/__init__.py``. The
+``-smoke`` suffix gives the reduced variant (``ModelConfig.reduced``).
 
-Only the dense architectures the port runs are registered; any other id
-raises ``NotImplementedError``.
+The dense architectures are registered; the other families' ids (MoE,
+MLA/MTP, ssm, hybrid, enc-dec, VLM) and any unknown id raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import FedZOConfig, ModelConfig
+from repro_torch.configs.base import (FedZOConfig, INPUT_SHAPES, ModelConfig,
+                                      ShapeConfig)
 
 _ARCH_MODULES = {
+    "qwen3-4b": "qwen3_4b",
+    "qwen1.5-32b": "qwen15_32b",
+    "gemma-2b": "gemma_2b",
     "qwen2-0.5b": "qwen2_0_5b",
 }
+# the reference's other architectures: families the port does not build
+_UNPORTED = ("rwkv6-7b", "llama-3.2-vision-90b", "deepseek-v3-671b",
+             "seamless-m4t-large-v2", "hymba-1.5b", "qwen3-moe-30b-a3b")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
+SHAPE_IDS = tuple(INPUT_SHAPES)
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch.endswith("-smoke"):
         return get_config(arch[: -len("-smoke")]).reduced()
     if arch not in _ARCH_MODULES:
-        raise NotImplementedError(f"arch {arch!r} is not ported; the port "
-                                  f"has {ARCH_IDS}")
+        what = "is not ported" if arch in _UNPORTED else "is unknown"
+        raise NotImplementedError(f"arch {arch!r} {what}; the port has "
+                                  f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
 
 
-__all__ = ["FedZOConfig", "ModelConfig", "ARCH_IDS", "get_config"]
+def get_shape(shape: str) -> ShapeConfig:
+    if shape not in INPUT_SHAPES:
+        raise KeyError(f"unknown shape {shape!r}; choose from {SHAPE_IDS}")
+    return INPUT_SHAPES[shape]
+
+
+__all__ = ["FedZOConfig", "ModelConfig", "ShapeConfig", "INPUT_SHAPES",
+           "ARCH_IDS", "SHAPE_IDS", "get_config", "get_shape"]

@@ -1,5 +1,6 @@
-"""Configs: a jax-free copy of the reference's ``FedZOConfig`` and
-``ModelConfig`` (``repro/configs/base.py``).
+"""Configs: a jax-free copy of the reference's ``FedZOConfig``,
+``ModelConfig``, ``ShapeConfig`` and ``INPUT_SHAPES``
+(``repro/configs/base.py``).
 
 The field sets and defaults are the reference's, so a config built for one
 package means the same run in the other. The port implements the flat-buffer
@@ -139,3 +140,19 @@ class ModelConfig:
         if self.sliding_window:
             kw["sliding_window"] = 32
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -132,11 +132,22 @@ def aircomp_aggregate_flat(deltas, key, *, snr_db, h_min, d=None, mask=None,
     """
     M, n = deltas.shape
     d = n if d is None else d
-    dev = deltas.device
-    sigma_w2 = P_TX / (10.0 ** (snr_db / 10.0))
-    maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
+    maskf, m_div, m_sched = mask_stats(mask, M, weights, device=deltas.device)
     mean, sq = kops.aircomp_reduce(deltas, maskf / m_div, d,
                                    block_rows=block_rows)
+    return aircomp_noise_flat(mean, sq, maskf, m_div, m_sched, key,
+                              snr_db=snr_db, h_min=h_min, d=d)
+
+
+def aircomp_noise_flat(mean, sq, maskf, m_div, m_sched, key, *, snr_db,
+                       h_min, d):
+    """The tail of ``aircomp_aggregate_flat`` after the reduction, on the
+    scaled mean ``[n_pad]`` and the ``[M]`` row norms: Δ_max over the
+    transmitting rows, the Eq.-17 noise scale, and one ``zo_walk`` that
+    adds the noise. The sharded round (``sim/shard.py``) runs it on its
+    all-reduced partial means. Returns (noisy mean, stats)."""
+    dev = mean.device
+    sigma_w2 = P_TX / (10.0 ** (snr_db / 10.0))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     delta_max = torch.max(torch.where(maskf > 0, sq, zero))
     noise_var = sigma_w2 * delta_max / (m_div ** 2 * float(d) * P_TX

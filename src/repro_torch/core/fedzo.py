@@ -1,6 +1,6 @@
 """FedZO (paper Algorithm 1): the pytree and flat-buffer routes.
 
-Counterpart of ``repro/core/fedzo.py:51-116, 201-276, 339-449, 554-563``.
+Counterpart of ``repro/core/fedzo.py:51-116, 201-276, 339-563``.
 Two routes compute one local iterate x ← x − η·∇̃F(x), chosen by
 ``cfg.flat_params`` as in the reference:
 
@@ -51,8 +51,14 @@ scheduling draw); a ``delta_compression="seed"`` config runs the same dense
 round, as in the reference (the seed-compressed uplink itself is
 ``fed/server.run_seed_compressed_round``, ``core/seedcomm.py``). The
 tiered store's cohort round (``sim/engine.make_cohort_round_step``) runs
-this round on staged cohorts; the sharded round (``sim/shard.py``) is not
-ported.
+this round on staged cohorts; the sharded round (``sim/shard.py``) runs
+each rank's rows through ``cohort_phase`` and ``flat_partial`` and ends
+with this round's own tail (``flat_finish``, ``finish_round``).
+
+``make_pod_round_step`` is the cross-silo round over a ``pod`` axis (one
+iterate, directions shared by the pods, the mean of the per-pod
+coefficients as the only uplink), and ``make_delta_agg_step`` the
+dense-uplink aggregation of per-pod deltas.
 """
 from __future__ import annotations
 
@@ -64,8 +70,10 @@ import torch
 from repro_torch.configs.base import FedZOConfig
 from repro_torch.core import estimator
 from repro_torch.core.aircomp import (aircomp_aggregate,
-                                      aircomp_aggregate_flat, mask_stats,
+                                      aircomp_aggregate_flat,
+                                      aircomp_noise_flat, mask_stats,
                                       schedule_by_channel)
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.zo_axpy import LANES
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import (_leaves, flat_geometry, flat_spec,
@@ -413,14 +421,6 @@ class CohortResult(NamedTuple):
     block_rows: object
 
 
-class CohortResult(NamedTuple):
-    deltas: object         # [M, n_pad] (flat, wide) or a stacked tree
-    coeffs: torch.Tensor   # [M, H, b2] estimator coefficients
-    losses: torch.Tensor   # [M, H] base losses
-    spec: object           # the flat geometry (None on the pytree route)
-    block_rows: object
-
-
 def _wrapped(loss_fn, loss_wrap, cst):
     """The cohort's loss under a strategy's wrap on the flat and wide
     routes: ``loss_wrap`` is called once with the cohort's ``[M, ...]``
@@ -551,29 +551,68 @@ def round_schedule(cfg: FedZOConfig, channel_rng, channel, M, dev,
     return mask, noise_rng
 
 
+def flat_partial(deltas, coef, m_div, d, block_rows, *, use_air):
+    """The reduction of a flat aggregate over the rows of ``deltas`` ``[m,
+    n_pad]``, before any division by the cohort's size: ``(part [n_pad],
+    sq [m] | None)``. AirComp: one ``aircomp_reduce`` with the row
+    coefficients ``coef / m_div`` (the scaled mean and the row norms); a
+    mask or weights: the ``coef``-weighted row sum; otherwise the plain
+    row sum. The unsharded round reduces all M rows (its AirComp route
+    through ``aircomp_aggregate_flat``, the same reduction and noise); a
+    rank of the sharded round (``sim/shard.py``) its own and all-reduces
+    ``part``."""
+    if use_air:
+        return kops.aircomp_reduce(deltas, coef / m_div, d,
+                                   block_rows=block_rows)
+    if coef is not None:
+        return torch.einsum("mn,m->n", deltas, coef), None
+    return torch.sum(deltas, dim=0), None
+
+
+def flat_finish(part, sq, spec, cfg: FedZOConfig, *, M, noise_rng=None,
+                maskf=None, m_div=None, m_sched=None):
+    """The flat aggregate from its reduced ``part`` (``flat_partial`` over
+    all M rows, or its all-reduce across ranks), as a parameter tree, and
+    the stats: the Eq.-17 noise when ``noise_rng`` is given
+    (``aircomp_noise_flat``, ``sq`` the ``[M]`` row norms), else the
+    division by ``m_div`` (a mask or weights, ``maskf`` set) or by M."""
+    if noise_rng is not None:
+        agg_flat, stats = aircomp_noise_flat(
+            part, sq, maskf, m_div, m_sched, noise_rng, snr_db=cfg.snr_db,
+            h_min=cfg.h_min, d=spec.d)
+    elif maskf is not None:
+        agg_flat, stats = part / m_div, {"m_effective": m_sched}
+    else:
+        agg_flat, stats = part / M, {}
+    return unflatten(agg_flat, spec), stats
+
+
 def aggregate(deltas, spec, block_rows, cfg: FedZOConfig, *, noise_rng,
               mask=None, weights=None, impl=None, dev=None):
     """The server's aggregate of one cohort's deltas, as a parameter tree,
     and the aggregation's stats: AirComp (Eq. 17) when ``cfg.aircomp`` and
     a noise key is given; else the masked (channel scheduling) and/or
-    size-weighted mean; else the plain mean, which the pytree route takes
-    as ``(1/M)·Σ_i Δ_i``. ``deltas``: the ``[M, n_pad]`` matrix (``spec``
-    set) or a stacked ``[M, ...]`` tree."""
+    size-weighted mean; else the plain mean (``(1/M)·Σ_i Δ_i``).
+    ``deltas``: the ``[M, n_pad]`` matrix (``spec`` set) or a stacked
+    ``[M, ...]`` tree."""
     M = (deltas.shape[0] if spec is not None
          else _leaves(deltas)[0][1].shape[0])
+    use_air = cfg.aircomp and noise_rng is not None
+    if spec is not None and use_air:
+        agg_flat, stats = aircomp_aggregate_flat(
+            deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min, d=spec.d,
+            mask=mask, weights=weights, block_rows=block_rows)
+        return unflatten(agg_flat, spec), stats
     if spec is not None:
-        if cfg.aircomp and noise_rng is not None:
-            agg_flat, air_stats = aircomp_aggregate_flat(
-                deltas, noise_rng, snr_db=cfg.snr_db, h_min=cfg.h_min,
-                d=spec.d, mask=mask, weights=weights, block_rows=block_rows)
-        elif mask is not None or weights is not None:
-            maskf, m_div, m_sched = mask_stats(mask, M, weights, device=dev)
-            agg_flat = torch.einsum("mn,m->n", deltas, maskf) / m_div
-            air_stats = {"m_effective": m_sched}
-        else:
-            agg_flat, air_stats = torch.mean(deltas, dim=0), {}
-        return unflatten(agg_flat, spec), air_stats
-    if cfg.aircomp and noise_rng is not None:
+        maskf = m_div = m_sched = None
+        if mask is not None or weights is not None:
+            maskf, m_div, m_sched = mask_stats(mask, M, weights,
+                                               device=deltas.device)
+        part, _ = flat_partial(deltas, maskf, m_div, spec.d, block_rows,
+                               use_air=False)
+        return flat_finish(part, None, spec, cfg, M=M, maskf=maskf,
+                           m_div=m_div, m_sched=m_sched)
+    if use_air:
         return aircomp_aggregate(deltas, noise_rng, snr_db=cfg.snr_db,
                                  h_min=cfg.h_min, mask=mask, weights=weights,
                                  impl=impl)
@@ -585,6 +624,33 @@ def aggregate(deltas, spec, block_rows, cfg: FedZOConfig, *, noise_rng,
         return agg, {"m_effective": m_sched}
     return tree_scale(1.0 / M,
                       tree_map(lambda x: torch.sum(x, 0), deltas)), {}
+
+
+def finish_round(server_params, agg, air_stats, losses, cfg: FedZOConfig, *,
+                 momentum=None, faults=None, cstate=None, new_cstate=None,
+                 dev=None):
+    """Everything of a round after its aggregate: server momentum, the new
+    parameters, ``m_corrupt`` under faults and the metrics. Returns
+    (new_params, metrics[, new_momentum][, new_cstate]), the tuple of
+    ``round_simulated`` and of the sharded round."""
+    if momentum is not None and cfg.server_momentum > 0:
+        momentum = tree_map(
+            lambda m, g: (cfg.server_momentum * m + g).to(m.dtype),
+            momentum, agg)
+        agg = momentum
+    new_params = tree_add(server_params, agg)
+    if faults is not None:
+        # the mask is set under faults, so every aggregation reported
+        # m_effective (the surviving cohort)
+        air_stats["m_corrupt"] = faults.n_corrupt.to(dev)
+    metrics = {"mean_local_loss": torch.mean(losses),
+               "first_loss": torch.mean(losses[:, 0]), **air_stats}
+    out = (new_params, metrics)
+    if momentum is not None:
+        out = out + (momentum,)
+    if cstate is not None:
+        out = out + (new_cstate,)
+    return out
 
 
 def round_simulated(loss_fn, server_params, client_batches, client_rngs,
@@ -649,22 +715,111 @@ def round_simulated(loss_fn, server_params, client_batches, client_rngs,
         deltas, spec, res.block_rows, cfg,
         noise_rng=noise_rng if channel_rng is not None else None,
         mask=mask, weights=weights, impl=impl, dev=dev)
+    return finish_round(server_params, agg, air_stats, losses, cfg,
+                        momentum=momentum, faults=faults, cstate=cstate,
+                        new_cstate=new_cstate, dev=dev)
 
-    if momentum is not None and cfg.server_momentum > 0:
-        momentum = tree_map(
-            lambda m, g: (cfg.server_momentum * m + g).to(m.dtype),
-            momentum, agg)
-        agg = momentum
-    new_params = tree_add(server_params, agg)
-    if faults is not None:
-        # the mask is set under faults, so every branch above reported
-        # m_effective (the surviving cohort)
-        air_stats["m_corrupt"] = faults.n_corrupt.to(dev)
-    metrics = {"mean_local_loss": torch.mean(losses),
-               "first_loss": torch.mean(losses[:, 0]), **air_stats}
-    out = (new_params, metrics)
-    if momentum is not None:
-        out = out + (momentum,)
-    if cstate is not None:
-        out = out + (new_cstate,)
-    return out
+
+def make_pod_round_step(loss_fn_grouped, cfg: FedZOConfig, mesh):
+    """Cross-silo FedZO round over the ``pod`` axis: each pod is one client,
+    and all pods share the round's directions (common random seeds, the
+    wire format of ``core/seedcomm.py``), so the step is one ZO iterate
+    (H = 1) whose only cross-pod uplink is the per-pod coefficients, of
+    which the update takes the mean over pods.
+
+    Counterpart of ``repro/core/fedzo.py:452-532``. ``mesh.shape["pod"]``
+    pods (``launch/mesh.make_pod_mesh``):
+
+    - without a process group (``mesh.group`` None) the pods live in this
+      process: ``loss_fn_grouped(params, batch)`` returns the ``[n_pod]``
+      group losses, as the reference's GSPMD program computes them (its
+      batch holds every pod's rows);
+    - over a process group, one pod per rank: each rank's loss returns its
+      own silo's ``[1]`` loss on its own batch, and the ``[b2 + 1, n_pod]``
+      pack of every pod's coefficients and loss (zero-filled, each rank
+      writing its column) is the one all-reduce; its sum over pods is the
+      ``[b2]`` coefficient sum.
+
+    The flat route (``cfg.flat_params``) runs one ``zo_dirnorms``, b2
+    ``zo_walk`` and one ``zo_replay`` on the flattened buffer; the pytree
+    route the per-leaf ``zo_axpy`` estimator. Metrics: ``loss`` (the mean
+    over pods), ``per_pod_loss`` ``[n_pod]`` and ``coeff_pod_spread`` (the
+    pods' coefficient std, averaged over directions).
+    signature: (params, batch, rng) -> (params, metrics)
+    """
+    n_pod = mesh.shape["pod"]
+    group = getattr(mesh, "group", None)
+    ddt = _DIRECTION_DTYPES[cfg.direction_dtype]
+
+    def pods(coeffs, base):
+        """(coeffs [b2, n_pod], base [n_pod]) of every pod."""
+        if group is None:
+            return coeffs, base
+        pack = torch.zeros((cfg.b2 + 1, n_pod), dtype=torch.float32,
+                           device=base.device)
+        pack[:cfg.b2, mesh.rank] = coeffs[:, 0]
+        pack[cfg.b2, mesh.rank] = base[0].to(torch.float32)
+        mesh.all_reduce(pack)
+        return pack[:cfg.b2], pack[cfg.b2]
+
+    def metrics(coeffs, base):
+        return {"loss": torch.mean(base), "per_pod_loss": base,
+                "coeff_pod_spread": torch.mean(
+                    torch.std(coeffs, dim=1, correction=0))}
+
+    if cfg.flat_params:
+        def flat_step(params, batch, rng):
+            spec, br = flat_geometry(params, cfg.flat_block_rows)
+            buf = flatten(params, spec)[None]
+            keys = prng.counter_words(rng).reshape(1, 2).to(buf.device)
+            # the sphere inv-norms once, shared by the walk and the replay
+            inv = estimator.flat_inv_norms(keys, spec, cfg.b2,
+                                           cfg.estimator, block_rows=br)
+
+            def loss1(p, b):
+                return loss_fn_grouped(tree_map(lambda v: v[0], p),
+                                       b).reshape(1, -1)
+
+            coeffs, base = estimator.flat_coefficients(
+                loss1, buf, spec, batch, keys, mu=cfg.mu, b2=cfg.b2,
+                kind=cfg.estimator, central=cfg.central, block_rows=br,
+                inv=inv)
+            coeffs, base = pods(coeffs[0], base[0])
+            c_mean = torch.sum(coeffs, dim=1) / n_pod            # [b2]
+            buf = estimator.flat_apply_coefficients(
+                buf, spec, keys, c_mean[None], scale=-cfg.lr,
+                kind=cfg.estimator, block_rows=br, inv=inv)
+            return unflatten(buf[0], spec), metrics(coeffs, base)
+
+        return flat_step
+
+    def step(params, batch, rng):
+        coeffs, base = estimator.coefficients(
+            loss_fn_grouped, params, batch, rng, mu=cfg.mu, b2=cfg.b2,
+            kind=cfg.estimator, direction_dtype=ddt,
+            conv=cfg.direction_conv)
+        coeffs, base = pods(coeffs, base)
+        c_mean = torch.sum(coeffs, dim=1) / n_pod
+        new_params = estimator.apply_coefficients(
+            params, rng, c_mean, scale=-cfg.lr, kind=cfg.estimator,
+            direction_dtype=ddt, conv=cfg.direction_conv)
+        return new_params, metrics(coeffs, base)
+
+    return step
+
+
+def make_delta_agg_step(cfg: FedZOConfig, n_pod: int):
+    """The dense-uplink aggregation program: per-pod model deltas (leaves
+    with a leading ``[n_pod]`` axis) -> their mean, or the Eq.-17 AirComp
+    aggregate when ``cfg.aircomp`` (``core/aircomp.aircomp_aggregate``).
+    Counterpart of ``repro/core/fedzo.py:535-551``.
+    signature: (deltas, rng) -> tree
+    """
+    def step(deltas, rng):
+        if cfg.aircomp:
+            agg, _ = aircomp_aggregate(deltas, rng, snr_db=cfg.snr_db,
+                                       h_min=cfg.h_min)
+            return agg
+        return tree_map(lambda x: torch.mean(x, dim=0), deltas)
+
+    return step

@@ -1,7 +1,8 @@
 """Shared building blocks of the dense transformer: init helpers, norms,
-RoPE, MLPs, embeddings and the token cross-entropy.
+RoPE, MLPs, embeddings, the token cross-entropy and the one-token decode
+attention.
 
-Counterpart of ``repro/models/layers.py:22-175``. Everything is functional:
+Counterpart of ``repro/models/layers.py:22-182, 246-261``. Everything is functional:
 ``init_*`` builds a params dict, ``*_fwd`` applies it, and parameters are
 plain nested dicts in the reference's layouts (``[d_in, d_out]`` dense
 weights), so the flat index of every scalar is the reference's.
@@ -199,9 +200,9 @@ def unembed_fwd(p, x, tie, vocab=None):
     vp = logits.shape[-1]
     if vocab is not None and vocab != vp:
         v_iota = torch.arange(vp, device=logits.device)
-        logits = torch.where(v_iota < vocab, logits,
-                             torch.tensor(NEG_INF, dtype=logits.dtype,
-                                          device=logits.device))
+        # a Python scalar (cast to the logits' dtype, as a 0-d tensor of
+        # that dtype would be) needs no host-to-device copy and no wait
+        logits = torch.where(v_iota < vocab, logits, NEG_INF)
     return logits
 
 
@@ -212,13 +213,19 @@ def unembed_fwd_batched(p, x, tie, vocab=None):
     return logits.reshape(x.shape[:-1] + logits.shape[-1:])
 
 
-def softmax_xent(logits, labels):
+def softmax_xent(logits, labels, n_groups=1):
     """Mean token cross-entropy; logits [.., V] (any float), labels int [..].
 
     The label logit is gathered: bitwise the reference's masked sum
     (``where(iota == label, lf, 0)`` summed), whose only nonzero term it is.
+    ``n_groups > 1`` splits the leading (batch) dim into G groups and
+    returns the ``[G]`` per-group means (the pods of the cross-silo pod
+    round, ``core/fedzo.make_pod_round_step``).
     """
-    return torch.mean(_token_xent(logits, labels))
+    tok = _token_xent(logits, labels)
+    if n_groups == 1:
+        return torch.mean(tok)
+    return torch.mean(tok.reshape(n_groups, -1), dim=1)
 
 
 def softmax_xent_batched(logits, labels):
@@ -234,3 +241,27 @@ def _token_xent(logits, labels):
     lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
     ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
     return lse - ll
+
+
+# ---------------------------------------------------------------------------
+# one-token attention against a decode cache
+
+
+def decode_attention(q, k_cache, v_cache, length_mask, scale=None):
+    """Single-token attention against a (possibly ring-buffer) cache, in
+    float32 as the reference's (plain torch: the reference's is plain jnp,
+    not a kernel).
+
+    q [B, 1, Hq, D]; caches [B, W, Hkv, D]; length_mask [B, W] bool marks
+    the valid cache slots (unfilled slots and the ring's wrap).
+    """
+    B, _, Hq, D = q.shape
+    _, W, Hkv, Dv = v_cache.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = (q.to(torch.float32) * scale).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.to(torch.float32))
+    s = torch.where(length_mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, Hq, Dv).to(q.dtype)

@@ -1,6 +1,6 @@
 """Decoder-only transformer assembly, dense family.
 
-Counterpart of ``repro/models/transformer.py:39-179``. Layers are stacked:
+Counterpart of ``repro/models/transformer.py:39-179, 229-388``. Layers are stacked:
 one nested dict whose leaves carry a leading ``[L]`` axis, each layer drawn
 from its own ``fold_in(rng, i)`` key, so the parameter tree, its flat order
 and its init are the reference's. The reference scans the stack with
@@ -25,6 +25,12 @@ stacked blocks, mean-pooled into a linear head. Its client-batched form
 ``[M', ...]`` against a batch ``[M, ...]`` with M' = r·M (r = 1 on the flat
 round, b2 on the wide route, whose r perturbed copies of a client share
 its batch), and runs each RMSNorm and attention as one launch.
+
+Serving (``init_cache``, ``prefill``, ``decode_step``) runs the same
+per-layer loop: prefill returns the last token's logits ``[B, V]`` and a
+cache ``{"blocks": {"k", "v"}}`` stacked over layers (``[L, B, W, Hkv,
+D]``); a decode step takes one token per row and a 0-d position tensor,
+and writes each layer's slot of that cache in place.
 
 FedZO never calls a gradient: the forward is all the train step needs.
 MoE, MLA, MTP, ssm and hybrid stacks are not ported and raise.
@@ -131,18 +137,83 @@ def backbone(params, cfg, h):
 
 def _embed_scale(h, cfg):
     if cfg.d_model >= 1024:
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
-                             device=h.device)  # gemma-style scale
+        # gemma-style scale, rounded to h's dtype: a Python scalar holding
+        # that value computes as a 0-d tensor would, with no host wait
+        h = h * float(torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype))
     return h
 
 
-def loss_fn(params, batch, cfg):
-    """Mean next-token cross entropy: FedZO's F(x, ξ)."""
+def loss_fn(params, batch, cfg, n_groups=1):
+    """Mean next-token cross entropy: FedZO's F(x, ξ). ``n_groups > 1``
+    returns the ``[G]`` per-group means (the pod round's silos)."""
     tokens, labels = batch["tokens"], batch["labels"]
     h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
     hf = backbone(params, cfg, h)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
-    return softmax_xent(logits, labels)
+    return softmax_xent(logits, labels, n_groups)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode with caches
+
+
+def init_cache(cfg, batch, width, *, device="cpu"):
+    """Zeroed decode cache, stacked over layers: ``{"blocks": {"k", "v"}}``
+    with leaves ``[L, B, W, Hkv, D]`` in the model's dtype."""
+    check_dense(cfg)
+    c = attn.init_kv_cache(cfg, batch, width, _dtype(cfg), device=device)
+    return {"blocks": {k: v.expand((cfg.n_layers,) + tuple(v.shape))
+                       .contiguous() for k, v in c.items()}}
+
+
+def block_prefill(p, cfg, h, width):
+    """Full-sequence block forward that also returns its decode cache."""
+    hn = norm_fwd(p["norm1"], h, cfg.norm)
+    o, cache = attn.attention_prefill(p["attn"], cfg, hn, width)
+    h = h + o
+    hn = norm_fwd(p["norm2"], h, cfg.norm)
+    return h + mlp_fwd(p["mlp"], hn, cfg.act), cache
+
+
+def block_decode(p, cfg, h, cache, pos, *, window=0):
+    """One-token block forward; writes ``cache``'s slot in place."""
+    hn = norm_fwd(p["norm1"], h, cfg.norm)
+    o, cache = attn.attention_decode(p["attn"], cfg, hn, cache, pos,
+                                     window=window or cfg.sliding_window)
+    h = h + o
+    hn = norm_fwd(p["norm2"], h, cfg.norm)
+    return h + mlp_fwd(p["mlp"], hn, cfg.act), cache
+
+
+def prefill(params, tokens, cfg, width):
+    """tokens [B, S] -> (last-token logits [B, V], cache of width
+    ``width``)."""
+    check_dense(cfg)
+    h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
+    caches = []
+    for i in range(cfg.n_layers):
+        h, c = block_prefill(_layer(params["blocks"], i), cfg, h, width)
+        caches.append(c)
+    hf = norm_fwd(params["final_norm"], h, cfg.norm)
+    logits = unembed_fwd(params["embed"], hf[:, -1:], cfg.tie_embeddings,
+                         cfg.vocab)
+    return logits[:, 0], {"blocks": _stack(caches)}
+
+
+def decode_step(params, token, cache, pos, cfg, window=0):
+    """token [B, 1] int; ``pos`` the absolute position (a 0-d int tensor on
+    the parameters' device; an int is moved there) -> (logits [B, V],
+    cache), the cache updated in place."""
+    check_dense(cfg)
+    h = _embed_scale(embed_fwd(params["embed"], token), cfg)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
+    blocks = cache["blocks"]
+    for i in range(cfg.n_layers):
+        h, _ = block_decode(_layer(params["blocks"], i), cfg, h,
+                            _layer(blocks, i), pos, window=window)
+    hf = norm_fwd(params["final_norm"], h, cfg.norm)
+    logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
+    return logits[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

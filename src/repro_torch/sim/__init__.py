@@ -1,7 +1,8 @@
 """The federation simulation engine (counterpart of ``repro/sim``): the
 client store, the round loop, faults, the wireless channel, scenario
-sweeps and the tiered store, and ``fast_sim_config``, the reference's fast
-execution strategy."""
+sweeps, the tiered store, the sharded client fan-out over
+``torch.distributed`` ranks (``make_clients_mesh``, ``make_sharded_round``)
+and ``fast_sim_config``, the reference's fast execution strategy."""
 import dataclasses
 
 from repro_torch.configs.base import FedZOConfig
@@ -12,6 +13,7 @@ from repro_torch.sim.engine import (ExperimentResult, experiment_key, history,
                                     round_keys, run_experiment,
                                     split_round_keys, stream_core)
 from repro_torch.sim.faults import DivergenceError, FaultModel, RoundFaults
+from repro_torch.sim.shard import make_clients_mesh, make_sharded_round
 from repro_torch.sim.store import (ClientStore, CohortBatch, build_store,
                                    sample_batches, sample_cohort_batches,
                                    sample_participants)
@@ -24,7 +26,9 @@ __all__ = ["ChannelModel", "ClientStore", "CohortBatch", "CohortStream",
            "DivergenceError", "ExperimentResult", "FaultModel", "HostStore",
            "RoundChannel", "RoundFaults", "build_host_store", "build_store",
            "experiment_key", "fast_sim_config", "history",
-           "make_cohort_round_step", "make_experiment_fn", "make_round_step", "resolve_store", "round_keys",
+           "make_clients_mesh", "make_cohort_round_step",
+           "make_experiment_fn", "make_round_step", "make_sharded_round",
+           "resolve_store", "round_keys",
            "run_experiment", "run_sweep", "run_tiered_experiment",
            "sample_batches", "sample_cohort_batches", "sample_participants",
            "scenario_grid", "split_round_keys", "stream_core"]

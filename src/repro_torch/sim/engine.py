@@ -42,7 +42,7 @@ A ``sim.tiered.HostStore`` (the population in host memory) goes to the
 tiered runner (``tiered.run_tiered_experiment``): its rounds are
 ``make_cohort_round_step`` over staged cohorts, run by ``stream_core``
 through the same round loop, bitwise the resident run. The sharded round
-(``sim/shard.py``) is not ported.
+(``sim/shard.py``) plugs in as ``round_fn``, every rank running this loop.
 """
 from __future__ import annotations
 

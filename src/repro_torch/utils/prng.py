@@ -16,7 +16,8 @@ as the reference:
   fold-in vmapped over ``data = 0..n-1``)
 - ``random_bits(key, shape, impl)``
 - ``randint``, ``permutation``, ``uniform``, ``normal``, ``rademacher``,
-  ``exponential`` (the same transforms over either generator's bits)
+  ``exponential``, ``gumbel``, ``categorical`` (the same transforms over
+  either generator's bits)
 
 A key is an int64 tensor of shape ``[..., 2]`` (threefry) or ``[..., 4]``
 (rbg, unsafe_rbg) holding uint32 words (torch has no uint32 add or shift
@@ -472,6 +473,15 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
+def _meta(k, shape, dtype, device):
+    """A draw on the ``meta`` device: its shape and dtype, no values (an
+    init on ``meta`` counts parameters without running the generator)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(getattr(k, "shape", (2,))[:-1])
+                           + tuple(shape), dtype=dtype, device="meta")
+    return None
+
+
 def normal(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
            device=None) -> torch.Tensor:
     """``jax.random.normal(k, shape, dtype)``: ``sqrt(2)·erfinv(u)`` with u
@@ -485,6 +495,9 @@ def normal(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
     -0.99609375 and the span rounded to 2; erfinv in float32 rounded to
     bfloat16 (XLA upcasts it), then the bfloat16 product with bf16(√2). All
     128 values of u agree with jax 0.9.0 (``tests/test_torch_wide.py``)."""
+    meta = _meta(k, shape, dtype, device)
+    if meta is not None:
+        return meta
     if dtype == torch.float32:
         u = uniform(k, shape, _NORMAL_LO, 1.0, impl=impl, device=device)
         return erfinv(u) * _SQRT2
@@ -514,3 +527,47 @@ def rademacher(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
     ``uniform(k, shape) < 0.5`` mapped to ``2·b − 1``. Bitwise jax's."""
     b = (uniform(k, shape, impl=impl, device=device) < 0.5).to(dtype)
     return (2 * b - 1).to(dtype)
+
+
+_TINY = {torch.float32: float(np.finfo(np.float32).tiny),
+         torch.bfloat16: 2.0 ** -126}
+
+
+def _uniform_bf16(k, shape, minval, maxval, impl, device):
+    """bfloat16 ``jax.random.uniform``: 8 random bits (the low byte of the
+    32-bit draw), their top 7 as the mantissa under exponent 0, then
+    ``f·bf16(max − min) + min`` in bfloat16, floored at ``min``."""
+    bits = _bits(k, shape, impl, device) & 0xFF
+    fbits = ((bits >> 1) | 0x3F80).to(torch.int16)
+    floats = fbits.view(torch.bfloat16) - 1.0
+    lo = torch.tensor(minval, dtype=torch.bfloat16)
+    span = float(torch.tensor(maxval, dtype=torch.bfloat16) - lo)
+    return torch.clamp_min(floats * span + float(lo), float(lo))
+
+
+def gumbel(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
+           device=None) -> torch.Tensor:
+    """``jax.random.gumbel(k, shape, dtype)`` in its default ``mode="low"``
+    (jax 0.9.0): ``-log(-log(u))`` with u uniform on ``[tiny, 1)`` in
+    ``dtype``. The uniform is bitwise jax's; the logs are torch's, so a
+    float32 draw agrees within a few ulp. A bfloat16 draw rounds each log
+    to bfloat16, as XLA does, and is bitwise jax's (all 128 values of u)."""
+    if dtype == torch.float32:
+        u = uniform(k, shape, _TINY[dtype], 1.0, impl=impl, device=device)
+        return -torch.log(-torch.log(u))
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(f"gumbel draws in {dtype}: float32 and "
+                                  f"bfloat16 are ported")
+    u = _uniform_bf16(k, shape, _TINY[dtype], 1.0, impl, device)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor, *, axis=-1,
+                impl=None) -> torch.Tensor:
+    """``jax.random.categorical(k, logits, axis)`` with replacement (the
+    Gumbel-max trick): ``argmax(gumbel(k, logits.shape) + logits, axis)``,
+    the Gumbel draw in the logits' dtype on their device. int64 indices of
+    shape ``logits.shape`` without ``axis``."""
+    g = gumbel(k, tuple(logits.shape), dtype=logits.dtype, impl=impl,
+               device=logits.device)
+    return torch.argmax(g + logits, dim=axis)

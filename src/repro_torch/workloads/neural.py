@@ -157,9 +157,16 @@ def default_config(task: NeuralTask, **overrides) -> FedZOConfig:
 
 
 def run(task: NeuralTask, cfg: FedZOConfig, rounds: int, *, eval_every=2,
-        eval_rows=1024, params=None, **kw) -> engine.ExperimentResult:
+        mesh=None, eval_rows=1024, params=None,
+        **kw) -> engine.ExperimentResult:
     """Train the task's model with FedZO for ``rounds`` rounds. ``params``
-    overrides the seeded init (to start from given weights)."""
+    overrides the seeded init (to start from given weights). ``mesh`` (a
+    ``sim.make_clients_mesh()``) fans the M sampled clients out over its
+    ranks through the sharded round (``sim/shard.py``); every rank runs
+    this call."""
+    if mesh is not None:
+        from repro_torch.sim.shard import make_sharded_round
+        kw.setdefault("round_fn", make_sharded_round(task.loss, cfg, mesh))
     if params is None:
         params = params_init(task, cfg.seed)
     return engine.run_experiment(task.loss, params, task.store, cfg, rounds,

@@ -23,8 +23,11 @@ plain version's autograd), strategy and FedAvg rounds against the CPU, and
 the seed aggregate's launch counts. Under faults: a poisoned upload
 bitwise a masked one through ``aircomp_reduce`` and ``zo_walk``, the
 poison reaching the weights with the guard off (also from a zero-
-coefficient row), and kill-and-resume bitwise on the card.
-``chip_smoke.py`` repeats these at the main path's full shapes and times
+coefficient row), and kill-and-resume bitwise on the card. Serving: the
+dense smoke configs' prefill and ring decode on the card against the CPU,
+with exact launches; the one-rank sharded round bitwise the unsharded one
+on the card, two gloo ranks sharing the card within 1e-3 of it; the pod
+step on the card against the CPU. ``chip_smoke.py`` repeats these at the main path's full shapes and times
 them.
 """
 import itertools
@@ -1006,3 +1009,153 @@ def test_fast_sim_config_card_matches_cpu(gen, aircomp):
     assert torch.equal(a.key, b.key)
     for k in b.params:
         assert float((a.params[k].cpu() - b.params[k]).abs().max()) <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# serving, the sharded fan-out and the pod round
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b-smoke", "qwen3-4b-smoke",
+                                  "gemma-2b-smoke", "qwen1.5-32b-smoke"])
+def test_serve_prefill_and_decode_on_card_match_the_cpu(gen, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.utils import convert
+    cfg = get_config(arch)
+    m = api.build(cfg)
+    cpu = m.init(prng.key(0), device="cpu")
+    card = convert.to_torch(convert.to_numpy(cpu), device="cuda")
+    shape = ShapeConfig("p", 32, 2, "prefill")
+    outs = {}
+    for dev, p in (("cpu", cpu), ("cuda", card)):
+        b = api.make_batch(m, shape, prng.key(1), device=dev)
+        ops.reset_launches()
+        lg, c = m.prefill(p, b, 24)          # a ring: width < prompt
+        pre = dict(ops.LAUNCHES)
+        logits = [lg]
+        ops.reset_launches()
+        for i in range(3):
+            tok = torch.argmax(logits[-1], -1)[:, None].to(torch.int32)
+            lg, c = m.decode(p, {"tokens": tok}, c,
+                             torch.tensor(32 + i, device=dev))
+            logits.append(lg)
+        outs[dev] = (logits, pre, dict(ops.LAUNCHES))
+    norms = 2 + 2 * cfg.qk_norm
+    assert outs["cuda"][1]["rmsnorm"] == norms * cfg.n_layers + 1
+    assert outs["cuda"][1]["flash_attention"] == cfg.n_layers
+    assert outs["cuda"][2]["rmsnorm"] == 3 * (norms * cfg.n_layers + 1)
+    assert outs["cuda"][2]["flash_attention"] == 0
+    for g, w in zip(outs["cuda"][0], outs["cpu"][0]):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale
+
+
+def _shard_task(dev):
+    from repro_torch.workloads import neural
+    return neural.make_task("softmax", device=dev, n_train=300, n_test=64,
+                            n_clients=6, n_features=24, n_classes=4)
+
+
+SHARD_CFG = dict(n_devices=6, n_participating=4, local_iters=2, b1=8, b2=4,
+                 lr=5e-3, flat_block_rows=4, weight_by_size=True,
+                 flat_params=True)
+
+
+@pytest.mark.parametrize("air", [False, True], ids=["flat", "aircomp"])
+def test_one_rank_sharded_run_bitwise_on_card(gen, air):
+    from repro_torch import sim
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.sim.faults import FaultModel
+    from repro_torch.workloads import neural
+    task = _shard_task("cuda")
+    cfg = FedZOConfig(**SHARD_CFG, aircomp=air, channel_schedule=air)
+    faults = FaultModel(p_fail=0.2, p_recover=0.5, p_corrupt=0.2)
+    ops.reset_launches()
+    a = neural.run(task, cfg, 3, eval_every=0, faults=faults)
+    la = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    b = neural.run(task, cfg, 3, eval_every=0, faults=faults,
+                   mesh=sim.make_clients_mesh(device="cuda"))
+    assert dict(ops.LAUNCHES) == la
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    for k in a.metrics:
+        assert torch.equal(a.metrics[k], b.metrics[k]), k
+
+
+def test_two_gloo_ranks_on_one_card_match_one_rank(gen, tmp_path):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_ranks
+    from repro_torch.configs.base import FedZOConfig
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.workloads import neural
+    task_kw = dict(n_train=300, n_test=64, n_clients=6, n_features=24,
+                   n_classes=4)
+    cfgs = [SHARD_CFG, {**SHARD_CFG, "aircomp": True}]
+    out = str(tmp_path / "ranks.pt")
+    run_ranks(_torch_ranks.sharded_run, 2, backend="gloo",
+              init_dir=str(tmp_path), args=(out, task_kw, cfgs, 3, "cuda"),
+              timeout=300)
+    got = torch.load(out)
+    for kw, g in zip(cfgs, got):
+        one = neural.run(_shard_task("cuda"), FedZOConfig(**kw), 3,
+                         eval_every=0)
+        for k, v in one.params.items():
+            assert float((g["params"][k] - v.cpu()).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "pytree"])
+def test_pod_step_on_card_matches_the_cpu(gen, flat):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedZOConfig, ShapeConfig
+    from repro_torch.core import fedzo
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import api
+    from repro_torch.utils import convert
+    m = api.build(get_config("qwen2-0.5b-smoke"))
+    cpu = m.init(prng.key(0), device="cpu")
+    cfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=2, flat_params=flat)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = cpu if dev == "cpu" else convert.to_torch(
+            convert.to_numpy(cpu), device="cuda")
+        b = api.make_batch(m, ShapeConfig("t", 16, 4, "train"), prng.key(1),
+                           device=dev)
+        step = fedzo.make_pod_round_step(
+            lambda pp, bb: m.loss(pp, bb, n_groups=2), cfg,
+            make_pod_mesh(2, device=dev))
+        ops.reset_launches()
+        res[dev] = step(p, b, prng.key(5)) + (dict(ops.LAUNCHES),)
+    if flat:
+        assert res["cuda"][2]["zo_walk"] == 2
+        assert res["cuda"][2]["zo_replay"] == 1
+        assert res["cuda"][2]["zo_dirnorms"] == 1
+    assert res["cuda"][2]["flash_attention"] == 3 * 2
+    from repro_torch.utils.flatparams import _leaves
+    for (_, g), (_, w) in zip(_leaves(res["cuda"][0]), _leaves(res["cpu"][0])):
+        assert float((g.cpu() - w).abs().max()) <= 6e-4
+    assert torch.allclose(res["cuda"][1]["per_pod_loss"].cpu(),
+                          res["cpu"][1]["per_pod_loss"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_categorical_on_card_is_the_cpu_draw(gen, dtype):
+    logits = torch.randn(4, 4096, generator=gen, device="cuda").to(dtype)
+    for seed in range(3):
+        got = prng.categorical(prng.key(seed), logits)
+        want = prng.categorical(prng.key(seed), logits.cpu())
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embed_scale_scalar_is_the_tensor_product_on_card(gen, dtype):
+    """The gemma-style embedding scale is a Python scalar holding the
+    dtype-rounded √d (no host-to-device copy): bitwise the product with a
+    0-d tensor of that dtype, as the reference computes it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config("gemma-2b")
+    h = torch.randn(64, cfg.d_model, generator=gen, device="cuda").to(dtype)
+    want = h * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device="cuda")
+    assert torch.equal(transformer._embed_scale(h, cfg), want)

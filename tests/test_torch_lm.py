@@ -87,7 +87,7 @@ def test_config_is_the_reference_config(arch):
 
 
 def test_unported_architectures_and_routes_raise():
-    for arch in ("qwen3-4b", "deepseek-v3-671b", "rwkv6-7b"):
+    for arch in ("deepseek-v3-671b", "rwkv6-7b", "hymba-1.5b"):
         with pytest.raises(NotImplementedError):
             get_config(arch)
     with pytest.raises(NotImplementedError):
@@ -96,9 +96,16 @@ def test_unported_architectures_and_routes_raise():
     for kw in (dict(family="moe"), dict(n_experts=4), dict(mtp=True)):
         with pytest.raises(NotImplementedError):
             api.build(cfg.replace(**kw))
+    # prefill and decode of a non-dense family (build rejects the family,
+    # and the serving functions reject it themselves)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError):
+            ttf.prefill({}, toks, cfg.replace(family=family), 16)
+        with pytest.raises(NotImplementedError):
+            ttf.decode_step({}, toks[:, :1], {}, 4, cfg.replace(
+                family=family))
     model = api.build(cfg)
-    with pytest.raises(NotImplementedError):
-        model.prefill({}, {}, 16)
     # the wireless channel model is ported; the train step ignores it, as
     # the reference's does
     from repro_torch.sim import ChannelModel
