@@ -213,6 +213,32 @@ each of which raises on a failure (the script then exits non-zero):
        ``make_delta_agg_step`` on two per-pod delta trees at smoke size,
        with and without AirComp.
 
+10. Phase "moe serving" (budget 150 s), each part's seconds and peak
+   memory printed, each number with the card's name and power limit.
+   Before each served model runs, its kernels are held at its shapes as in
+   phase 9 (rmsnorm at widths 2,048, 7,168, 1,536, 512 and the qk-norm
+   rows of 128; attention at [2, 64, 32/4, 128] and, with v's head dim
+   apart from q's, [2, 64, 128/128, (192, 128)]).
+   (a) ``launch/serve.py``'s ``main`` on qwen3-moe-30b-a3b
+       (hf:Qwen/Qwen3-30B-A3B) at full width and depth in bfloat16, batch
+       2 x prompt 64, 4 greedy steps: init seconds, peak memory from before
+       the init (under 64 GiB: the 56.89 GiB of weights held once), exact
+       launches, the share of routed assignments dropped at capacity
+       factor 1.25; a warm prefill and decode loop; one decode step
+       against a prefill of S + 1 tokens within SERVE_BF16_TOL at the
+       capacity factor E / k, which drops nothing; moe_fwd bitwise run to
+       run on layer 0.
+   (b) deepseek-v3-671b (arXiv:2412.19437) at full width, reduced in depth
+       only to 4 layers (3 dense, 1 MoE, the MTP block): the 61-layer count
+       on ``meta``, init, prefill 2 x 64 and 4 decode steps with exact
+       launches, the same consistency check, the loss at 2 x 64 finite
+       with a positive MTP term.
+   (c) both ``-smoke`` configs in float32 on the card against the CPU:
+       prefill, 4 decode steps, the loss (aux and MTP), one pytree FedZO
+       train step (b2 2, mu 1e-2), exact launches, moe_fwd bitwise.
+   Then flash_attention at (192, 128), [2, 64, 128/128], both dtypes,
+   timed against SDPA and its bound.
+
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
 traces of one softmax round and one Qwen2-0.5B train step (kernel time by
@@ -622,18 +648,21 @@ def hold_rmsnorm(torch, ops, plain_rms, x, sc):
 
 
 def hold_attention(torch, ops, plain_flash, q, k, v, causal, window):
-    """``ops.attention`` on ``[B, S, H, D]`` against its plain version.
-    float32: max |err| within 1e-5 of max |out|; bf16: the rule of
+    """``ops.attention`` on ``[B, S, H, D]`` (v's head dim Dv may differ)
+    against its plain version, at the default scale 1/√D. float32: max
+    |err| within 1e-5 of max |out|; bf16: the rule of
     ``bf16_attention_errs``. Returns (max abs error, the printed note)."""
     got = ops.attention(q, k, v, causal=causal, window=window)
     want = plain_flash.flash_attention_plain(q, k, v, causal=causal,
                                              window=window)
+    dv = v.shape[3]
     tag = (f"attention {'fp32' if q.dtype == torch.float32 else 'bf16'} "
            f"{list(q.shape[:2])} "
            f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]}"
+           f"{'' if dv == q.shape[3] else f' Dv={dv}'}"
            f"{'' if causal else ' non-causal'}"
            f"{f' window {window}' if window else ''}")
-    check(got.dtype == q.dtype and got.shape == q.shape,
+    check(got.dtype == q.dtype and got.shape == q.shape[:3] + (dv,),
           f"{tag}: output {got.dtype} {tuple(got.shape)}")
     if q.dtype == torch.float32:
         rel = float((got - want).abs().max()) / float(want.abs().max())
@@ -836,8 +865,8 @@ EXTRA_HEAD_DIMS = {16: (14, 2), 128: (32, 8), 256: (8, 1)}
 
 
 def attention_f64(torch, q, k, v, causal, window):
-    """softmax(q kᵀ / √D + mask) v in float64 (GQA by head repetition), on
-    q's device."""
+    """softmax(q kᵀ / √D + mask) v in float64 (GQA by head repetition; v's
+    head dim may differ from D), on q's device."""
     Sq, Hq, D = q.shape[1:]
     Sk, Hkv = k.shape[1], k.shape[2]
     kk, vv = (t.double().repeat_interleave(Hq // Hkv, 2) for t in (k, v))
@@ -3518,14 +3547,20 @@ GLOO_REL = 1e-6
 POD_N, POD_B, POD_S, POD_STEPS = 2, 2, 128, 2
 
 
+def layer_norms(cfg):
+    """RMSNorm launches of one block: two, and the q and k norms under
+    qk_norm, MLA's q and kv norms under MLA."""
+    return 2 + 2 * (cfg.qk_norm or cfg.mla is not None)
+
+
 def serve_launches(cfg, prefills, decodes):
     """rmsnorm and flash_attention launches of ``prefills`` prefills and
-    ``decodes`` decode steps of a dense model: per layer two RMSNorms (and
-    the q and k norms under qk_norm) and, in prefill, one attention; the
-    final norm once per forward. Decode's one-token attention is plain
-    torch."""
-    norms = 2 + 2 * cfg.qk_norm
-    per = norms * cfg.n_layers + 1
+    ``decodes`` decode steps of a served model: per layer two RMSNorms
+    (and the q and k norms under qk_norm, MLA's q and kv norms under MLA)
+    and, in prefill, one attention; the final norm once per forward.
+    Decode's one-token attention (MLA's absorbed form too) and the MoE
+    layers are plain torch."""
+    per = layer_norms(cfg) * cfg.n_layers + 1
     return {"rmsnorm": per * (prefills + decodes),
             "flash_attention": cfg.n_layers * prefills}
 
@@ -3570,8 +3605,10 @@ def hold_served_kernels(torch, ops, cfg, b, s, rows):
     them, against their plain versions under phase 2's tolerances, in
     float32 and bfloat16: rmsnorm over the block norms' ``[b.s, d_model]``
     and ``[b, d_model]`` rows and, under qk_norm, the q and k norms'
-    ``[rows.heads, head_dim]``; attention at ``[b, s, n_heads /
-    n_kv_heads, head_dim]``, causal under the config's window. The largest
+    ``[rows.heads, head_dim]``, under MLA its q and kv norms' ``[rows,
+    q_lora]`` and ``[rows, kv_lora]``; attention at ``[b, s, n_heads /
+    n_kv_heads, head_dim]`` (MLA: ``n_heads`` kv heads, q/k of nope + rope
+    and v of v_head_dim), causal under the config's window. The largest
     errors join the kernels' ``max_abs_err``. Not counted: run before the
     served path's counts are set to 0."""
     from repro_torch.kernels import flash_attention as plain_flash
@@ -3582,8 +3619,14 @@ def hold_served_kernels(torch, ops, cfg, b, s, rows):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
     hq, hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    dv = hd
     widths = [(b * s, d), (b, d)]
-    if cfg.qk_norm:
+    if cfg.mla is not None:
+        m = cfg.mla
+        hkv, hd, dv = hq, m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+        widths += [(r, w) for r in (b * s, b)
+                   for w in (m.q_lora_rank, m.kv_lora_rank)]
+    elif cfg.qk_norm:
         widths += [(r * h, hd) for r in (b * s, b) for h in (hq, hkv)]
     notes, err = [], dict.fromkeys(("rmsnorm", "flash_attention"), 0.0)
     for dt in (torch.float32, torch.bfloat16):
@@ -3595,7 +3638,7 @@ def hold_served_kernels(torch, ops, cfg, b, s, rows):
         e, note = hold_attention(torch, ops, plain_flash,
                                  rnd(b, s, hq, hd, dtype=dt),
                                  rnd(b, s, hkv, hd, dtype=dt),
-                                 rnd(b, s, hkv, hd, dtype=dt), True,
+                                 rnd(b, s, hkv, dv, dtype=dt), True,
                                  cfg.sliding_window)
         err["flash_attention"] = max(err["flash_attention"], e)
         notes.append(note)
@@ -3996,6 +4039,424 @@ def run_serve_sharded(torch, ops, neural, FedZOConfig, smi, rows):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase "moe serving": qwen3-moe-30b-a3b at full width and depth,
+# deepseek-v3-671b at full width cut to 4 layers, both -smoke configs on
+# the card against the CPU
+
+MOE_BUDGET_S = 150.0
+# one prefill of batch 2 x 64 and 4 greedy decode steps
+MOE_B, MOE_S, MOE_GEN = 2, 64, 4
+# deepseek-v3-671b cut in depth only: its 3 dense layers, 1 MoE layer and
+# the MTP block at full width (15,694,592,000 parameters, 29.24 GiB bf16)
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_4L_PARAMS = 15_694_592_000
+DEEPSEEK_PARAMS = 671_609_894_912
+QWEN3_MOE_PARAMS = 30_532_122_624
+# qwen3-moe-30b-a3b's bfloat16 weights are 56.89 GiB; beside them the init
+# holds one layer while it is copied into the stack (1.2 GB) and one draw
+# chunk's temporaries (prng.DRAW_CHUNK: 2 GiB). A peak from before the init
+# below 64 GiB shows the stack is not held twice (114 GiB) and no leaf was
+# drawn whole (about 67 GiB).
+MOE_PEAK_GIB = 64.0
+# The -smoke configs on the card against the CPU, in float32. Logits,
+# caches and losses: within SMOKE_CARD_REL of the largest magnitude, as the
+# dense smoke configs' serving check (the GEMMs and the kernels sum in
+# other orders; readings of a few 1e-7). The pytree train step: a
+# coefficient is d.(L(x + mu.v) - L(x))/mu, and one loss ulp (4.8e-7 near
+# 6.6) moves it by d.ulp/mu = 30 at d = 624,384 and mu = 1e-2, and a weight
+# by lr/b2 . 30 . max |v_i| = 1e-3/2 . 30 . 6.3e-3 = 9.5e-5 (a unit
+# direction's largest entry in 624,384 dims is about 5/sqrt(d)).
+# MOE_STEP_TOL = 1e-3 allows about ten loss ulps, as the dense smoke steps'
+# card-vs-CPU bound; the step must move a weight by at least ten times it,
+# so a lost or doubled update cannot pass (the port against JAX on the CPU
+# reads 2.1e-4 and 1.2e-7, tests/test_torch_moe.py).
+SMOKE_CARD_REL = 1e-5
+MOE_STEP_TOL = 1e-3
+SMOKE_S = 32    # the -smoke configs' prompt and train sequence
+
+
+def moe_drop_spy():
+    """Record (tokens, kept, assignments) of every MoE routing while it is
+    installed; returns (records, uninstall). The counts stay on the device
+    until read."""
+    from repro_torch.models import moe
+    orig, seen = moe.route, []
+
+    def spy(x_flat, *a, **k):
+        r = orig(x_flat, *a, **k)
+        seen.append((x_flat.shape[0], r["keep"].sum(), r["keep"].numel()))
+        return r
+
+    moe.route = spy
+
+    def undo():
+        moe.route = orig
+    return seen, undo
+
+
+def moe_bitwise_twice(torch, cfg, p, gen, dtype):
+    """``moe_fwd`` twice on the same [MOE_B, MOE_S, d] input on the card:
+    bitwise equal outputs and aux."""
+    from repro_torch.models import moe
+    x = torch.randn((MOE_B, MOE_S, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    a, aux_a = moe.moe_fwd(p, cfg, x)
+    b, aux_b = moe.moe_fwd(p, cfg, x)
+    check(torch.equal(a, b) and torch.equal(aux_a, aux_b),
+          f"{cfg.name}: moe_fwd differs between two runs on the card")
+
+
+def serve_moe_loop(torch, ops, model, params, batch, cfg, total):
+    """One warm prefill of the batch and MOE_GEN greedy decode steps, each
+    timed between synchronisations, exact launches. Returns (prefill s,
+    decode s per step)."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, MOE_S + MOE_GEN)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pos = torch.tensor(MOE_S, device="cuda")
+    steps = []
+    for i in range(MOE_GEN):
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, {"tokens": tok}, cache, pos + i)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    counts = dict(ops.LAUNCHES)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0),
+            **serve_launches(cfg, 1, MOE_GEN)}
+    check(counts == want, f"{cfg.name}: launches {counts} != {want}")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: logits")
+    for k in total:
+        total[k] += counts[k]
+    return pre_s, steps
+
+
+def serve_qwen3_moe(torch, ops, smi, total, rows):
+    """Part (a): ``launch/serve.py``'s ``main`` on qwen3-moe-30b-a3b at full
+    width and depth in bfloat16 (batch 2 x prompt 64, 4 greedy steps):
+    init seconds, peak memory from before the init, exact launches, the
+    share of routed assignments dropped at the published capacity factor;
+    a warm prefill and decode loop; decode against prefill on the
+    no-drop capacity; moe_fwd bitwise run to run at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api, transformer
+    from repro_torch.utils.tree import tree_size
+    cfg = get_config("qwen3-moe-30b-a3b")
+    hold_served_kernels(torch, ops, cfg, MOE_B, MOE_S, rows)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seen, undo = moe_drop_spy()
+    try:
+        res = serve.main(["--arch", cfg.name, "--batch", str(MOE_B),
+                          "--prompt-len", str(MOE_S), "--gen",
+                          str(MOE_GEN)])
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, params, batch = res.model, res.params, res.batch
+    n = tree_size(params)
+    check(n == QWEN3_MOE_PARAMS, f"{cfg.name}: {n} parameters")
+    check(peak < MOE_PEAK_GIB, f"{cfg.name}: peak {peak:.2f} GiB from "
+          f"before the init, bound {MOE_PEAK_GIB}")
+    for got, want in ((res.prefill_launches, serve_launches(cfg, 1, 0)),
+                      (res.decode_launches,
+                       serve_launches(cfg, 0, MOE_GEN))):
+        want = {**dict.fromkeys(ops.LAUNCHES, 0), **want}
+        check(got == want, f"serve {cfg.name}: launches {got} != {want}")
+        for k in total:
+            total[k] += got[k]
+    pre = [(k, t) for T, k, t in seen if T == MOE_B * MOE_S]
+    check(len(pre) == cfg.n_layers, f"{cfg.name}: {len(pre)} prefill "
+          f"routings")
+    kept = sum(int(k) for k, _ in pre)
+    routed = sum(t for _, t in pre)
+    dropped = 1.0 - kept / routed
+    pre_s, steps = serve_moe_loop(torch, ops, model, params, batch, cfg,
+                                  total)
+    # Capacity drops differ between a batched prefill (T = B.S tokens
+    # share each expert's C slots) and a one-token decode by design, which
+    # is why the reference's reduced() uses capacity 4.0: the check runs
+    # on the same weights at the capacity factor E / k, which drops nothing
+    nodrop = api.build(cfg.replace(capacity_factor=cfg.n_experts
+                                   / cfg.top_k))
+    rel, agree = decode_vs_prefill(torch, nodrop, params, batch,
+                                   SERVE_BF16_TOL)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    moe_bitwise_twice(torch, cfg, transformer._layer(
+        params["moe_blocks"]["moe"], 0), g, torch.bfloat16)
+    step_ms = 1e3 * sorted(steps[1:])[len(steps[1:]) // 2]
+    print(f"qwen3_moe_30b_a3b_serve (bfloat16, full width and depth, {n} "
+          f"parameters): init {res.init_s:.2f} s; peak {peak:.3f} GiB from "
+          f"before the init (bound {MOE_PEAK_GIB}); CLI prefill batch "
+          f"{MOE_B} x {MOE_S} {1e3 * res.prefill_s:.2f} ms "
+          f"({MOE_B * MOE_S / res.prefill_s:.1f} tok/s), decode "
+          f"{1e3 * res.decode_s / MOE_GEN:.2f} ms a step; warm prefill "
+          f"{1e3 * pre_s:.2f} ms ({MOE_B * MOE_S / pre_s:.1f} tok/s), decode "
+          f"ms a step {[round(1e3 * t, 3) for t in steps]} ({step_ms:.3f} "
+          f"median after the first, {MOE_B / (step_ms / 1e3):.1f} tok/s); "
+          f"dropped at capacity factor {cfg.capacity_factor}: "
+          f"{routed - kept} of {routed} routed assignments in the prefill "
+          f"({dropped:.4f}); decode vs prefill at capacity factor "
+          f"{cfg.n_experts / cfg.top_k} rel {rel:.3e} (bound "
+          f"{SERVE_BF16_TOL}), argmax agree {agree:.2f}; moe_fwd bitwise "
+          f"run to run; launches prefill {res.prefill_launches['rmsnorm']} "
+          f"rmsnorm {res.prefill_launches['flash_attention']} attention, "
+          f"decode {res.decode_launches['rmsnorm']} rmsnorm [{smi}]")
+    del params, res, model, batch
+    torch.cuda.empty_cache()
+
+
+def serve_deepseek_4l(torch, ops, smi, total, rows):
+    """Part (b): deepseek-v3-671b at full width with its depth cut to
+    DEEPSEEK_LAYERS (3 dense, 1 MoE, the MTP block) in bfloat16: the
+    61-layer count on ``meta``, init, prefill 2 x 64 and 4 decode steps
+    with exact launches, decode against prefill on the no-drop capacity,
+    the loss at 2 x 64 with its MTP term."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api, transformer
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec
+    from repro_torch.utils.tree import tree_size
+    full = get_config("deepseek-v3-671b")
+    n_full = flat_spec(transformer.init_params(prng.key(0), full,
+                                               device="meta")).d
+    check(n_full == DEEPSEEK_PARAMS, f"deepseek-v3-671b: {n_full} on meta")
+    cfg = full.replace(n_layers=DEEPSEEK_LAYERS)
+    hold_served_kernels(torch, ops, cfg, MOE_B, MOE_S, rows)
+    model = api.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = tree_size(params)
+    check(n == DEEPSEEK_4L_PARAMS, f"deepseek-v3-671b 4L: {n} parameters")
+    batch = api.make_batch(model, ShapeConfig("serve", MOE_S, MOE_B,
+                                              "prefill"), prng.key(1),
+                           device="cuda")
+    pre_s, steps = serve_moe_loop(torch, ops, model, params, batch, cfg,
+                                  total)
+    nodrop = api.build(cfg.replace(capacity_factor=cfg.n_experts
+                                   / cfg.top_k))
+    rel, agree = decode_vs_prefill(torch, nodrop, params, batch,
+                                   SERVE_BF16_TOL)
+    # the train forward: cross entropy + the MoE aux + 0.3 x the MTP
+    # block's cross entropy; per forward 4 norms a layer (2 block, MLA's q
+    # and kv), the final norm, the MTP norm and block (5), L + 1 attentions
+    tb = api.make_batch(model, ShapeConfig("train", MOE_S, MOE_B, "train"),
+                        prng.key(2), device="cuda")
+    ops.reset_launches()
+    loss = float(model.loss(params, tb))
+    counts = dict(ops.LAUNCHES)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0),
+            "rmsnorm": 4 * DEEPSEEK_LAYERS + 1 + 5,
+            "flash_attention": DEEPSEEK_LAYERS + 1}
+    check(counts == want, f"deepseek loss: launches {counts} != {want}")
+    for k in total:
+        total[k] += counts[k]
+    no_mtp = float(transformer.loss_fn(params, tb, cfg.replace(mtp=False)))
+    mtp_term = loss - no_mtp
+    check(math.isfinite(loss) and math.isfinite(no_mtp) and mtp_term > 0,
+          f"deepseek loss {loss}, without MTP {no_mtp}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = 1e3 * sorted(steps[1:])[len(steps[1:]) // 2]
+    print(f"deepseek_v3_4l_serve (bfloat16, full width, reduced: depth only,"
+          f" n_layers {DEEPSEEK_LAYERS} of {full.n_layers}; {n} parameters, "
+          f"{n_full} at full depth on meta): init {init_s:.2f} s; prefill "
+          f"batch {MOE_B} x {MOE_S} {1e3 * pre_s:.2f} ms "
+          f"({MOE_B * MOE_S / pre_s:.1f} tok/s); decode ms a step "
+          f"{[round(1e3 * t, 3) for t in steps]} ({step_ms:.3f} median after "
+          f"the first); peak {peak:.3f} GiB from before the init; decode vs "
+          f"prefill at capacity factor {cfg.n_experts / cfg.top_k} rel "
+          f"{rel:.3e} (bound {SERVE_BF16_TOL}), argmax agree {agree:.2f}; "
+          f"loss at {MOE_B} x {MOE_S} {loss:.6f}, MTP term {mtp_term:.6f}; "
+          f"launches {counts['rmsnorm']} rmsnorm "
+          f"{counts['flash_attention']} attention a loss [{smi}]")
+    del params
+    torch.cuda.empty_cache()
+
+
+def moe_smoke_card_vs_cpu(torch, ops, FedZOConfig, total):
+    """Part (c): both -smoke configs in float32 on the card against the
+    same port on the CPU from the same weights: prefill and 4 decode steps
+    on the CPU's greedy tokens (logits and caches), the loss with and
+    without the aux (and the MTP term), one pytree FedZO train step (b2 2,
+    mu 1e-2) with exact launches, and moe_fwd bitwise run to run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import fedzo
+    from repro_torch.models import api, transformer
+    from repro_torch.utils import convert, prng
+    from repro_torch.utils.flatparams import _leaves
+    notes = []
+    for arch in ("qwen3-moe-30b-a3b-smoke", "deepseek-v3-671b-smoke"):
+        model = api.build(get_config(arch))
+        cfg = model.cfg
+        init = model.init(prng.key(0), device="cpu")
+        shape = ShapeConfig("p", SMOKE_S, MOE_B, "prefill")
+        tshape = ShapeConfig("t", SMOKE_S, MOE_B, "train")
+        fcfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=2)
+        calls = [0]
+
+        def loss(p, b):
+            calls[0] += 1
+            return model.loss(p, b)
+
+        out, toks = {}, []
+        for dev in ("cpu", "cuda"):
+            p = init if dev == "cpu" else convert.to_torch(
+                convert.to_numpy(init), device="cuda")
+            b = api.make_batch(model, shape, prng.key(1), device=dev)
+            tb = api.make_batch(model, tshape, prng.key(2), device=dev)
+            ops.reset_launches()
+            lg, c = model.prefill(p, b, shape.seq_len + MOE_GEN)
+            logits = [lg.cpu()]
+            for i in range(MOE_GEN):
+                if dev == "cpu":
+                    toks.append(torch.argmax(lg, -1)[:, None].to(
+                        torch.int32))
+                lg, c = model.decode(p, {"tokens": toks[i].to(dev)}, c,
+                                     torch.tensor(shape.seq_len + i,
+                                                  device=dev))
+                logits.append(lg.cpu())
+            serve_counts = dict(ops.LAUNCHES)
+            losses = [float(model.loss(p, tb)), float(transformer.loss_fn(
+                p, tb, cfg.replace(router_aux_coef=0.0)))]
+            if cfg.mtp:
+                losses.append(float(transformer.loss_fn(
+                    p, tb, cfg.replace(mtp=False))))
+            calls[0] = 0
+            ops.reset_launches()
+            new, met = fedzo.make_train_step(loss, fcfg)(p, tb, prng.key(3))
+            step_counts = dict(ops.LAUNCHES)
+            out[dev] = (logits, {g: None if v is None else
+                                 {k: t.cpu() for k, t in v.items()}
+                                 for g, v in c.items()},
+                        losses, [t.cpu() for _, t in _leaves(new)],
+                        serve_counts, step_counts, calls[0])
+        cpu, card = out["cpu"], out["cuda"]
+        worst = 0.0
+        for g, w in zip(card[0], cpu[0]):
+            worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+        for grp, kv in cpu[1].items():
+            for k, w in (kv or {}).items():
+                worst = max(worst, float((card[1][grp][k] - w).abs().max()
+                                         / w.abs().max()))
+        check(worst <= SMOKE_CARD_REL, f"{arch}: serve card vs CPU {worst}")
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(card[2], cpu[2]))
+        check(lrel <= SMOKE_CARD_REL, f"{arch}: losses {card[2]} {cpu[2]}")
+        check(cpu[2][0] > cpu[2][1], f"{arch}: no aux in the loss")
+        if cfg.mtp:
+            check(abs(cpu[2][0] - cpu[2][2]) > 1e-3, f"{arch}: no MTP term")
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(cpu[3], (t for _, t in _leaves(init))))
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(card[3], cpu[3]))
+        check(diff <= MOE_STEP_TOL and moved >= 10 * MOE_STEP_TOL,
+              f"{arch}: step card vs CPU {diff}, moved {moved}")
+        want = {**dict.fromkeys(ops.LAUNCHES, 0),
+                **serve_launches(cfg, 1, MOE_GEN)}
+        check(card[4] == want, f"{arch}: serve launches {card[4]} != {want}")
+        # a forward: the blocks' norms, the final norm, and under MTP its
+        # norm and block
+        per_norm = serve_launches(cfg, 1, 0)["rmsnorm"] \
+            + cfg.mtp * (1 + layer_norms(cfg))
+        per_attn = cfg.n_layers + cfg.mtp
+        n_leaves = len(_leaves(init))
+        want = {**dict.fromkeys(ops.LAUNCHES, 0),
+                "rmsnorm": card[6] * per_norm,
+                "flash_attention": card[6] * per_attn,
+                "zo_axpy": 2 * fcfg.b2 * n_leaves}
+        check(card[6] == cpu[6] == fcfg.b2 + 1 and card[5] == want,
+              f"{arch}: step launches {card[5]} != {want} ({card[6]} "
+              f"forwards)")
+        for counts in (card[4], card[5]):
+            for k in total:
+                total[k] += counts[k]
+        p = transformer._layer(convert.to_torch(convert.to_numpy(
+            init["moe_blocks"]["moe"]), device="cuda"), 0)
+        moe_bitwise_twice(torch, cfg, p, torch.Generator(
+            device="cuda").manual_seed(8), torch.float32)
+        notes.append(f"{arch}: serve card vs CPU {worst:.3e}, losses "
+                     f"{lrel:.3e} (bound {SMOKE_CARD_REL}); step "
+                     f"{diff:.3e} (bound {MOE_STEP_TOL}) against a move of "
+                     f"{moved:.4g}; moe_fwd bitwise run to run")
+    print("moe smoke configs (float32) on the card against the CPU: "
+          + "; ".join(notes))
+
+
+def time_mla_attention(torch, ops, smi, rows):
+    """flash_attention at DeepSeek-V3's prefill pair (192, 128), [2, 64,
+    128/128 heads], causal, both dtypes, against SDPA and the bound;
+    stored in the attention row's ``mla`` entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as plain_flash
+    g = torch.Generator(device="cuda").manual_seed(9)
+    b, s, h, dk, dv = MOE_B, MOE_S, 128, 192, 128
+    q, k = (torch.randn(b, s, h, dk, generator=g, device="cuda")
+            for _ in range(2))
+    v = torch.randn(b, s, h, dv, generator=g, device="cuda")
+    pairs = s * (s + 1) // 2            # causal (q, k) pairs per head
+    flops = 2 * (dk + dv) * pairs * b * h   # q.k and p.v multiply-adds
+    elems = b * s * h * (2 * dk + 2 * dv)   # q, k, v read, out written
+    out, lines = {}, []
+    for dt, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        ms = median_ms(torch, lambda: ops.attention(qd, kd, vd), 50)
+        lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+            is_causal=True), 50)
+        plain_ms = median_ms(torch, lambda: plain_flash
+                             .flash_attention_plain(qd, kd, vd), 10)
+        bd = bound(elems * (4 if dt == torch.float32 else 2), flops, kind)
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, **bd)
+        lines.append(f"flash_attention (192, 128) {kind} [{b}, {s}, {h}/{h}]"
+                     f" causal: ms {ms:.5f} plain {plain_ms:.4f} library "
+                     f"{lib:.5f} ({ms / lib:.2f}x SDPA) bound "
+                     f"{bd['bound_ms']:.5f} ({bd['bound_by']}, "
+                     f"{bd['bound_ms'] / ms:.1%} of it) [{smi}]")
+    rows["flash_attention"]["mla"] = out
+    for line in lines:
+        print(line)
+
+
+def run_moe_serving(torch, ops, FedZOConfig, smi, rows):
+    """Phase "moe serving": parts (a) to (c) and the (192, 128) attention
+    timing, each part's seconds and peak memory printed; budget
+    MOE_BUDGET_S. Returns the launches of its main-path runs."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for name, part in (
+            ("(a) serve qwen3-moe-30b-a3b", lambda: serve_qwen3_moe(
+                torch, ops, smi, total, rows)),
+            ("(b) serve deepseek-v3-671b, 4 layers", lambda: serve_deepseek_4l(
+                torch, ops, smi, total, rows)),
+            ("(c) smoke configs card vs CPU", lambda: moe_smoke_card_vs_cpu(
+                torch, ops, FedZOConfig, total)),
+            ("attention (192, 128) timing", lambda: time_mla_attention(
+                torch, ops, smi, rows))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        part()
+        print(f"part {name}: {time.perf_counter() - t0:.1f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"moe serving: {took:.1f} s of the {MOE_BUDGET_S:.0f} s budget "
+          f"[{smi}]")
+    return total
+
+
 def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
@@ -4166,6 +4627,9 @@ def main(argv):
         launches[k] += n
     for k, n in timed("serve and sharded rounds", lambda: run_serve_sharded(
             torch, ops, neural, FedZOConfig, smi, rows)).items():
+        launches[k] += n
+    for k, n in timed("moe serving", lambda: run_moe_serving(
+            torch, ops, FedZOConfig, smi, rows)).items():
         launches[k] += n
     if args.profile:
         timed("profiles", lambda: (

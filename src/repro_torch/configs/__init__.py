@@ -2,26 +2,28 @@
 ``get_shape("<shape-id>")``, as in ``repro/configs/__init__.py``. The
 ``-smoke`` suffix gives the reduced variant (``ModelConfig.reduced``).
 
-The dense architectures are registered; the other families' ids (MoE,
-MLA/MTP, ssm, hybrid, enc-dec, VLM) and any unknown id raise
-``NotImplementedError``.
+The dense and MoE architectures (``qwen3-moe-30b-a3b``; ``deepseek-v3-671b``
+with MLA and MTP) are registered; the other families' ids (ssm, hybrid,
+enc-dec, VLM) and any unknown id raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (FedZOConfig, INPUT_SHAPES, ModelConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import (FedZOConfig, INPUT_SHAPES, MLAConfig,
+                                      ModelConfig, ShapeConfig)
 
 _ARCH_MODULES = {
     "qwen3-4b": "qwen3_4b",
     "qwen1.5-32b": "qwen15_32b",
     "gemma-2b": "gemma_2b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 # the reference's other architectures: families the port does not build
-_UNPORTED = ("rwkv6-7b", "llama-3.2-vision-90b", "deepseek-v3-671b",
-             "seamless-m4t-large-v2", "hymba-1.5b", "qwen3-moe-30b-a3b")
+_UNPORTED = ("rwkv6-7b", "llama-3.2-vision-90b", "seamless-m4t-large-v2",
+             "hymba-1.5b")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 SHAPE_IDS = tuple(INPUT_SHAPES)
@@ -44,5 +46,5 @@ def get_shape(shape: str) -> ShapeConfig:
     return INPUT_SHAPES[shape]
 
 
-__all__ = ["FedZOConfig", "ModelConfig", "ShapeConfig", "INPUT_SHAPES",
+__all__ = ["FedZOConfig", "MLAConfig", "ModelConfig", "ShapeConfig", "INPUT_SHAPES",
            "ARCH_IDS", "SHAPE_IDS", "get_config", "get_shape"]

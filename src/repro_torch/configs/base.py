@@ -1,13 +1,12 @@
 """Configs: a jax-free copy of the reference's ``FedZOConfig``,
-``ModelConfig``, ``ShapeConfig`` and ``INPUT_SHAPES``
+``MLAConfig``, ``ModelConfig``, ``ShapeConfig`` and ``INPUT_SHAPES``
 (``repro/configs/base.py``).
 
 The field sets and defaults are the reference's, so a config built for one
-package means the same run in the other. The port implements the flat-buffer
-route (``flat_params=True``) of the fedzo strategy and the dense model
-family; fields that select a route it does not have yet are rejected where
-they are used (``core/fedzo.py``, ``models/api.py``), never silently
-ignored.
+package means the same run in the other. The port builds the dense and moe
+(MLA, MTP) model families; fields that select a route it does not have yet
+are rejected where they are used (``core/fedzo.py``, ``models/api.py``),
+never silently ignored.
 """
 from __future__ import annotations
 
@@ -57,6 +56,16 @@ class FedZOConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                 # dense | moe | ssm | hybrid | encdec | vlm
@@ -85,7 +94,7 @@ class ModelConfig:
     router_aux_coef: float = 0.001
     capacity_factor: float = 1.25
     # MLA / MTP (DeepSeek)
-    mla: Optional[object] = None  # MLA dims (not ported: build rejects it)
+    mla: Optional[MLAConfig] = None
     mtp: bool = False            # multi-token-prediction extra head
     # SSM
     ssm_kind: str = ""           # rwkv6 | mamba (hybrid uses mamba)
@@ -109,7 +118,7 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant of the same family: tiny dims, same structure
-        (the reference's rule, field for field; MLA dims are not ported)."""
+        (the reference's rule, field for field)."""
         kw = dict(
             name=self.name + "-smoke",
             n_layers=2,
@@ -128,7 +137,12 @@ class ModelConfig:
             kw["top_k"] = min(self.top_k, 2)
             kw["moe_d_ff"] = min(self.moe_d_ff, 128)
             kw["n_dense_layers"] = min(self.n_dense_layers, 1)
+            # ample capacity so smoke tests see no token dropping (capacity
+            # drops legitimately differ between batched prefill and decode)
             kw["capacity_factor"] = 4.0
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                  qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
         if self.ssm_state:
             kw["ssm_state"] = min(self.ssm_state, 8)
         if self.encoder_layers:

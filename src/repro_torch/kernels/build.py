@@ -65,9 +65,9 @@ SIGNATURES = {
         "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _L, _P],
     },
     "flash_attention": {
-        "flash_head_dim_ok": [_I, _I],
+        "flash_head_dim_ok": [_I, _I, _I],
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _I, _P],
+                                   _I, _I, _I, _F, _I, _P],
     },
     "philox": {
         "philox_bits_launch": [_P, _U, _U, _U, _U, _UL, _UL, _P],

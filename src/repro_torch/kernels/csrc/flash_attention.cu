@@ -5,8 +5,10 @@
 // query head), the kv head being h / (Hq / Hkv), with causal and sliding-window
 // masks by position (q and k positions both start at 0). Layout is the
 // reference wrapper's [B, S, H, D] (repro/kernels/ops.py:attention), read in
-// place: no transpose and no padding to a block multiple. Two bodies behind
-// one launcher: float32 on the FMA pipes, bfloat16 on the tensor cores.
+// place: no transpose and no padding to a block multiple. v and out may have
+// a head dim DV apart from q's and k's DQK, as in the Pallas kernel (v [B,
+// Sk, Hkv, DV], out [B, Sq, Hq, DV]). Two bodies behind one launcher: float32
+// on the FMA pipes, bfloat16 on the tensor cores.
 //
 // What bounds it on an H100: at the Qwen2-0.5B train step (B 4, S 128, Hq 14,
 // Hkv 2, D 64, causal) a call needs 0.12 GFLOP and moves 4.2 MB in float32
@@ -17,10 +19,19 @@
 // by how many warps are in flight to hide it.
 //
 // What the design does about it:
-// - Head dims 16, 32, 64, 128 and 256, each its own instantiation, and in
-//   float32 also 8 (the neural transformer track at its test and figure
-//   sizes: d_model 16 over 2 heads). bfloat16 at D = 8 is not built: Q.K^T
-//   there is half of one m16n8k16 k-step.
+// - Both bodies are templated on the pair (DQK, DV). Equal pairs: head dims
+//   16, 32, 64, 128 and 256, each its own instantiation, and in float32 also
+//   8 (the neural transformer track at its test and figure sizes: d_model 16
+//   over 2 heads). bfloat16 at D = 8 is not built: Q.K^T there is half of
+//   one m16n8k16 k-step. Unequal pairs: (192, 128) in both dtypes (DeepSeek
+//   MLA's prefill: nope 128 + rope 64 against v 128) and (24, 16) in float32
+//   (its smoke size: nope 16 + rope 8 against v 16; 24 is no whole number of
+//   16-wide bf16 k-steps). Q.K^T walks DQK, P.V and the output DV; K and V
+//   are staged as rows of their own widths. Equal pairs compile to the code
+//   they had before the pair was split. At (192, 128) a float32 block holds
+//   201,728 bytes of shared memory (q 25,088, two stages of K and V 167,936,
+//   the p strips 8,704), a bfloat16 block 162,816 (three q pieces 76,800,
+//   two stages 86,016): both double-buffered, one block an SM.
 // - The grid is (x blocks of a batch row x B, Hq): the batch is folded into
 //   grid.x (up to 2^31 - 1 blocks), not put in grid.z, whose 65,535 the
 //   wide FedZO route passes (B = M.b2.b1 = 5,000 rows at the paper's
@@ -203,14 +214,13 @@ __device__ __forceinline__ void split_pair(float x0, float x1,
   }
 }
 
-// Stage keys [k0, k0 + kKeys) of kv head hk into ks/vs ([kKeys][D + pad]
-// elements, pad = 16 bytes): every thread issues its share of 16-byte
-// copies; keys beyond Sk are zero-filled.
+// Stage keys [k0, k0 + kKeys) of kv head hk of one of K or V into xs
+// ([kKeys][D + pad] elements, pad = 16 bytes): every thread issues its
+// share of 16-byte copies; keys beyond Sk are zero-filled.
 template <typename T, int D, int NT>
-__device__ __forceinline__ void stage_tile(T* ks, T* vs,
-                                           const T* __restrict__ k,
-                                           const T* __restrict__ v, int hk,
-                                           int Sk, int Hkv, int k0, int tid) {
+__device__ __forceinline__ void stage_rows(T* xs, const T* __restrict__ x,
+                                           int hk, int Sk, int Hkv, int k0,
+                                           int tid) {
   constexpr int kEl = 16 / static_cast<int>(sizeof(T));  // per copy
   constexpr int kCpr = D / kEl;                          // copies per row
   constexpr int kStride = D + kEl;
@@ -218,15 +228,46 @@ __device__ __forceinline__ void stage_tile(T* ks, T* vs,
 #pragma unroll
   for (int i = 0; i < (kCopies + NT - 1) / NT; ++i) {
     const int c = tid + i * NT;
-    if (kCopies % NT != 0 && c >= kCopies) break;  // D = 8: half the block
+    if (kCopies % NT != 0 && c >= kCopies) break;
     const int j = c / kCpr;
     const int e = (c % kCpr) * kEl;
     const int kp = k0 + j;
     const bool ok = kp < Sk;
     const size_t off =
         (static_cast<size_t>(ok ? kp : 0) * Hkv + hk) * D + e;
-    cp_async16(ks + j * kStride + e, k + off, ok);
-    cp_async16(vs + j * kStride + e, v + off, ok);
+    cp_async16(xs + j * kStride + e, x + off, ok);
+  }
+}
+
+// Stage keys [k0, k0 + kKeys) of kv head hk into ks ([kKeys][DK + pad]) and
+// vs ([kKeys][DV + pad]). Equal widths share one loop over the copies.
+template <typename T, int DK, int DV, int NT>
+__device__ __forceinline__ void stage_tile(T* ks, T* vs,
+                                           const T* __restrict__ k,
+                                           const T* __restrict__ v, int hk,
+                                           int Sk, int Hkv, int k0, int tid) {
+  if constexpr (DK != DV) {
+    stage_rows<T, DK, NT>(ks, k, hk, Sk, Hkv, k0, tid);
+    stage_rows<T, DV, NT>(vs, v, hk, Sk, Hkv, k0, tid);
+  } else {
+    constexpr int D = DK;
+    constexpr int kEl = 16 / static_cast<int>(sizeof(T));  // per copy
+    constexpr int kCpr = D / kEl;                          // copies per row
+    constexpr int kStride = D + kEl;
+    constexpr int kCopies = kKeys * kCpr;
+#pragma unroll
+    for (int i = 0; i < (kCopies + NT - 1) / NT; ++i) {
+      const int c = tid + i * NT;
+      if (kCopies % NT != 0 && c >= kCopies) break;  // D = 8: half the block
+      const int j = c / kCpr;
+      const int e = (c % kCpr) * kEl;
+      const int kp = k0 + j;
+      const bool ok = kp < Sk;
+      const size_t off =
+          (static_cast<size_t>(ok ? kp : 0) * Hkv + hk) * D + e;
+      cp_async16(ks + j * kStride + e, k + off, ok);
+      cp_async16(vs + j * kStride + e, v + off, ok);
+    }
   }
 }
 
@@ -246,16 +287,16 @@ __device__ __forceinline__ int causal_tiles(int Sk, int causal, int q_end) {
 
 // ---------------------------------------------------------------- float32
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t f32_smem_bytes(int stages) {
   // q tile, the stages of K and V, the p strips
-  return (static_cast<size_t>(kF32Rows) * (D + 4) +
-          2 * stages * static_cast<size_t>(kKeys) * (D + 4) +
+  return (static_cast<size_t>(kF32Rows) * (DK + 4) +
+          stages * static_cast<size_t>(kKeys) * (DK + 4 + DV + 4) +
           static_cast<size_t>(kF32Rows) * (kKeys + 4)) *
          sizeof(float);
 }
-template <int D>
-constexpr int kF32Stages = f32_smem_bytes<D>(2) <= kMaxSmem ? 2 : 1;
+template <int DK, int DV>
+constexpr int kF32Stages = f32_smem_bytes<DK, DV>(2) <= kMaxSmem ? 2 : 1;
 
 // output columns a float32 thread holds: D / 16, and one at D = 8
 template <int D>
@@ -300,45 +341,48 @@ __device__ __forceinline__ void read_cols(const float* row, int tx,
   }
 }
 
-template <int D>
+// DK: the head dim of q and k (the scores); DV: that of v and out
+template <int DK, int DV>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out, int Sq,
                   int Sk, int Hq, int Hkv, int causal, int window,
                   float scale, int xb) {
-  constexpr int kS = D + 4;       // padded row of q, K, V
+  constexpr int kS = DK + 4;      // padded row of q and K
+  constexpr int kSV = DV + 4;     // padded row of V
   constexpr int kPS = kKeys + 4;  // padded p strip
-  constexpr int CW = kCols<D>;    // output columns per thread
-  constexpr int kStages = kF32Stages<D>;
+  constexpr int CW = kCols<DV>;   // output columns per thread
+  constexpr int kStages = kF32Stages<DK, DV>;
+  constexpr int kStage = kKeys * (kS + kSV);  // K and V of one stage
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kF32Rows][kS]
-  float* kv0 = qs + kF32Rows * kS;  // kStages x (K, V) x [kKeys][kS]
-  float* ps = kv0 + kStages * 2 * kKeys * kS;  // [kF32Rows][kPS]
+  float* kv0 = qs + kF32Rows * kS;  // kStages x (K [kKeys][kS], V [kKeys][kSV])
+  float* ps = kv0 + kStages * kStage;  // [kF32Rows][kPS]
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int r0 = 2 * (tid >> 4);  // this thread's rows r0, r0 + 1
   const int bx = blockIdx.x / xb;  // xb q tiles per batch row
   const int q0 = (blockIdx.x - bx * xb) * kF32Rows;
   // the batch row as a pointer offset: no index register lives on
-  q += static_cast<size_t>(bx) * Sq * Hq * D;
-  out += static_cast<size_t>(bx) * Sq * Hq * D;
-  k += static_cast<size_t>(bx) * Sk * Hkv * D;
-  v += static_cast<size_t>(bx) * Sk * Hkv * D;
+  q += static_cast<size_t>(bx) * Sq * Hq * DK;
+  out += static_cast<size_t>(bx) * Sq * Hq * DV;
+  k += static_cast<size_t>(bx) * Sk * Hkv * DK;
+  v += static_cast<size_t>(bx) * Sk * Hkv * DV;
   const int h = blockIdx.y;
   const int hk = h / (Hq / Hkv);
   const int n_tiles = causal_tiles(Sk, causal, min(q0 + kF32Rows, Sq));
 
-  stage_tile<float, D, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, hk, Sk,
-                                    Hkv, 0, tid);
+  stage_tile<float, DK, DV, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, hk, Sk,
+                                         Hkv, 0, tid);
   cp_async_commit();
   // the q tile, scaled as the reference scales q; rows beyond Sq are zeros
-  for (int c = tid; c < kF32Rows * D / 4; c += kF32Threads) {
-    const int r = c / (D / 4);
-    const int e = (c % (D / 4)) * 4;
+  for (int c = tid; c < kF32Rows * DK / 4; c += kF32Threads) {
+    const int r = c / (DK / 4);
+    const int e = (c % (DK / 4)) * 4;
     float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (q0 + r < Sq) {
       t = *reinterpret_cast<const float4*>(
-          q + (static_cast<size_t>(q0 + r) * Hq + h) * D + e);
+          q + (static_cast<size_t>(q0 + r) * Hq + h) * DK + e);
       t.x *= scale;
       t.y *= scale;
       t.z *= scale;
@@ -358,21 +402,21 @@ __global__ void __launch_bounds__(kF32Threads)
 
   for (int t = 0; t < n_tiles; ++t) {
     if (kStages == 2 && t + 1 < n_tiles) {
-      float* nk = kv0 + ((t + 1) & 1) * 2 * kKeys * kS;
-      stage_tile<float, D, kF32Threads>(nk, nk + kKeys * kS, k, v, hk, Sk,
-                                        Hkv, (t + 1) * kKeys, tid);
+      float* nk = kv0 + ((t + 1) & 1) * kStage;
+      stage_tile<float, DK, DV, kF32Threads>(nk, nk + kKeys * kS, k, v, hk,
+                                             Sk, Hkv, (t + 1) * kKeys, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       if (kStages == 1 && t > 0) {  // the one buffer is free again
-        stage_tile<float, D, kF32Threads>(kv0, kv0 + kKeys * kS, k, v, hk,
-                                          Sk, Hkv, t * kKeys, tid);
+        stage_tile<float, DK, DV, kF32Threads>(kv0, kv0 + kKeys * kS, k, v,
+                                               hk, Sk, Hkv, t * kKeys, tid);
         cp_async_commit();
       }
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t (and, at t = 0, the q tile) is in place
-    const float* ks = kv0 + (kStages == 2 ? (t & 1) : 0) * 2 * kKeys * kS;
+    const float* ks = kv0 + (kStages == 2 ? (t & 1) : 0) * kStage;
     const float* vs = ks + kKeys * kS;
     const int k0 = t * kKeys;
 
@@ -381,7 +425,7 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[0][c] = s[1][c] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DK; d += 4) {
       const float4 qa = *reinterpret_cast<const float4*>(qs + r0 * kS + d);
       const float4 qb =
           *reinterpret_cast<const float4*>(qs + (r0 + 1) * kS + d);
@@ -442,7 +486,7 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float vv[CW];
-        read_cols<D>(vs + (j + u) * kS, tx, vv);
+        read_cols<DV>(vs + (j + u) * kSV, tx, vv);
         psum[0] = psum[0] + pav[u];
         psum[1] = psum[1] + pbv[u];
 #pragma unroll
@@ -460,42 +504,47 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + r0 + r;
-    if (qi < Sq && (D >= 16 || tx < D)) {
+    if (qi < Sq && (DV >= 16 || tx < DV)) {
       const float denom = fmaxf(l[r], 1e-30f);
-      float* orow = out + (static_cast<size_t>(qi) * Hq + h) * D;
+      float* orow = out + (static_cast<size_t>(qi) * Hq + h) * DV;
 #pragma unroll
-      for (int i = 0; i < CW; ++i) orow[out_col<D>(tx, i)] = acc[r][i] / denom;
+      for (int i = 0; i < CW; ++i) orow[out_col<DV>(tx, i)] = acc[r][i] / denom;
     }
   }
 }
 
 // ---------------------------------------------------------------- bfloat16
 
-template <int D, int NQ>
+template <int DK, int DV, int NQ>
 constexpr size_t bf16_smem_bytes(int stages) {
   // NQ bf16 pieces of the q tile, the stages of K and V
-  return (static_cast<size_t>(NQ) * kBfRows + 2 * stages * kKeys) *
-         (D + 8) * sizeof(bf16);
+  return (static_cast<size_t>(NQ) * kBfRows * (DK + 8) +
+          static_cast<size_t>(stages) * kKeys * (DK + 8 + DV + 8)) *
+         sizeof(bf16);
 }
-template <int D, int NQ>
-constexpr int kBfStages = bf16_smem_bytes<D, NQ>(2) <= kMaxSmem ? 2 : 1;
+template <int DK, int DV, int NQ>
+constexpr int kBfStages = bf16_smem_bytes<DK, DV, NQ>(2) <= kMaxSmem ? 2 : 1;
 
 // NQ = 1: the scale is a power of two and bf16(q * scale) is exact. NQ = 3:
-// float32 q * scale is held as the sum of three bf16 pieces (24 bits).
-template <int D, int NQ>
+// float32 q * scale is held as the sum of three bf16 pieces (24 bits). DK:
+// the head dim of q and k; DV: that of v and out.
+template <int DK, int DV, int NQ>
 __global__ void __launch_bounds__(kBfThreads)
     flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
                    int Sk, int Hq, int Hkv, int causal, int window,
                    float scale, int xb) {
-  constexpr int kS = D + 8;  // padded row of q, K, V (16 bytes)
-  constexpr int KD = D / 16;  // k-steps of Q.K^T over D
-  constexpr int DV = kBfOutCols<D>;  // output columns of this block
-  constexpr int ND = DV / 8;          // their n-tiles
-  constexpr int kStages = kBfStages<D, NQ>;
+  constexpr int kS = DK + 8;   // padded row of q and K (16 bytes)
+  constexpr int kSV = DV + 8;  // padded row of V
+  constexpr int KD = DK / 16;  // k-steps of Q.K^T over DK
+  constexpr int DVB = kBfOutCols<DV>;  // output columns of this block
+  constexpr int ND = DVB / 8;          // their n-tiles
+  constexpr int kStages = kBfStages<DK, DV, NQ>;
+  constexpr int kStage = kKeys * (kS + kSV);  // K and V of one stage
   extern __shared__ float4 smem4[];
   bf16* qs = reinterpret_cast<bf16*>(smem4);  // NQ x [kBfRows][kS]
-  bf16* kv0 = qs + NQ * kBfRows * kS;  // kStages x (K, V) x [kKeys][kS]
+  // kStages x (K [kKeys][kS], V [kKeys][kSV])
+  bf16* kv0 = qs + NQ * kBfRows * kS;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -504,29 +553,29 @@ __global__ void __launch_bounds__(kBfThreads)
   const int bx = blockIdx.x / xb;  // xb = q tiles x column groups per row
   const int xi = blockIdx.x - bx * xb;
   // the batch row as a pointer offset: no index register lives on
-  q += static_cast<size_t>(bx) * Sq * Hq * D;
-  out += static_cast<size_t>(bx) * Sq * Hq * D;
-  k += static_cast<size_t>(bx) * Sk * Hkv * D;
-  v += static_cast<size_t>(bx) * Sk * Hkv * D;
-  const int q0 = xi / (D / DV) * kBfRows;
-  const int c0 = xi % (D / DV) * DV;  // first output column
+  q += static_cast<size_t>(bx) * Sq * Hq * DK;
+  out += static_cast<size_t>(bx) * Sq * Hq * DV;
+  k += static_cast<size_t>(bx) * Sk * Hkv * DK;
+  v += static_cast<size_t>(bx) * Sk * Hkv * DV;
+  const int q0 = xi / (DV / DVB) * kBfRows;
+  const int c0 = xi % (DV / DVB) * DVB;  // first output column
   const int h = blockIdx.y;
   const int hk = h / (Hq / Hkv);
   const int n_tiles = causal_tiles(Sk, causal, min(q0 + kBfRows, Sq));
 
-  stage_tile<bf16, D, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, hk, Sk, Hkv,
-                                  0, tid);
+  stage_tile<bf16, DK, DV, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, hk, Sk,
+                                       Hkv, 0, tid);
   cp_async_commit();
 
   // the q tile, scaled in float32 as the reference scales q, as NQ bf16
   // pieces; rows beyond Sq are zeros
-  for (int c = tid; c < kBfRows * D / 8; c += kBfThreads) {
-    const int r = c / (D / 8);
-    const int e = (c % (D / 8)) * 8;
+  for (int c = tid; c < kBfRows * DK / 8; c += kBfThreads) {
+    const int r = c / (DK / 8);
+    const int e = (c % (DK / 8)) * 8;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < Sq) {
       raw = *reinterpret_cast<const uint4*>(
-          q + (static_cast<size_t>(q0 + r) * Hq + h) * D + e);
+          q + (static_cast<size_t>(q0 + r) * Hq + h) * DK + e);
     }
     // a bf16 is the high half of a float32
     const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -563,21 +612,21 @@ __global__ void __launch_bounds__(kBfThreads)
 
   for (int t = 0; t < n_tiles; ++t) {
     if (kStages == 2 && t + 1 < n_tiles) {
-      bf16* nk = kv0 + ((t + 1) & 1) * 2 * kKeys * kS;
-      stage_tile<bf16, D, kBfThreads>(nk, nk + kKeys * kS, k, v, hk, Sk,
-                                      Hkv, (t + 1) * kKeys, tid);
+      bf16* nk = kv0 + ((t + 1) & 1) * kStage;
+      stage_tile<bf16, DK, DV, kBfThreads>(nk, nk + kKeys * kS, k, v, hk, Sk,
+                                           Hkv, (t + 1) * kKeys, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       if (kStages == 1 && t > 0) {  // the one buffer is free again
-        stage_tile<bf16, D, kBfThreads>(kv0, kv0 + kKeys * kS, k, v, hk,
-                                        Sk, Hkv, t * kKeys, tid);
+        stage_tile<bf16, DK, DV, kBfThreads>(kv0, kv0 + kKeys * kS, k, v,
+                                             hk, Sk, Hkv, t * kKeys, tid);
         cp_async_commit();
       }
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* ks = kv0 + (kStages == 2 ? (t & 1) : 0) * 2 * kKeys * kS;
+    const bf16* ks = kv0 + (kStages == 2 ? (t & 1) : 0) * kStage;
     const bf16* vs = ks + kKeys * kS;
     const int k0 = t * kKeys;
 
@@ -674,7 +723,7 @@ __global__ void __launch_bounds__(kBfThreads)
         uint32_t bv[4];
         const int key = 16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3);
         const int col = c0 + 16 * dp + ((lane >> 4) << 3);
-        ldmatrix_x4_trans(bv, vs + key * kS + col);
+        ldmatrix_x4_trans(bv, vs + key * kSV + col);
         float t0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         float t1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -692,9 +741,9 @@ __global__ void __launch_bounds__(kBfThreads)
   const float da = fmaxf(l[0], 1e-30f);
   const float db = fmaxf(l[1], 1e-30f);
   uint32_t* oa = reinterpret_cast<uint32_t*>(
-      out + (static_cast<size_t>(ra) * Hq + h) * D + c0);
+      out + (static_cast<size_t>(ra) * Hq + h) * DV + c0);
   uint32_t* ob = reinterpret_cast<uint32_t*>(
-      out + (static_cast<size_t>(rb) * Hq + h) * D + c0);
+      out + (static_cast<size_t>(rb) * Hq + h) * DV + c0);
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     if (ra < Sq) oa[4 * n + tq] = pack_bf16(o[n][0] / da, o[n][1] / da);
@@ -724,67 +773,73 @@ int set_smem_once(Kernel kernel, size_t bytes, bool (&done)[kMaxDevices]) {
   return 0;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int Hq, int Hkv, int causal, int window,
                float scale, cudaStream_t s) {
-  constexpr size_t smem = f32_smem_bytes<D>(kF32Stages<D>);
+  constexpr size_t smem = f32_smem_bytes<DK, DV>(kF32Stages<DK, DV>);
   static_assert(smem <= kMaxSmem, "float32 tile fits in shared memory");
   static bool done[kMaxDevices] = {};
-  const int attr = set_smem_once(flash_fwd_f32<D>, smem, done);
+  const int attr = set_smem_once(flash_fwd_f32<DK, DV>, smem, done);
   if (attr != 0) return attr;
   const long long xb = (Sq + kF32Rows - 1) / kF32Rows;
   if (xb * B > kMaxGridX) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const dim3 grid(static_cast<unsigned>(xb * B), Hq, 1);
-  flash_fwd_f32<D><<<grid, kF32Threads, smem, s>>>(
+  flash_fwd_f32<DK, DV><<<grid, kF32Threads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq, Hkv,
       causal, window, scale, static_cast<int>(xb));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int NQ>
+template <int DK, int DV, int NQ>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
                 int Sq, int Sk, int Hq, int Hkv, int causal, int window,
                 float scale, cudaStream_t s) {
-  constexpr size_t smem = bf16_smem_bytes<D, NQ>(kBfStages<D, NQ>);
+  constexpr size_t smem =
+      bf16_smem_bytes<DK, DV, NQ>(kBfStages<DK, DV, NQ>);
   static_assert(smem <= kMaxSmem, "bfloat16 tile fits in shared memory");
   static bool done[kMaxDevices] = {};
-  const int attr = set_smem_once(flash_fwd_bf16<D, NQ>, smem, done);
+  const int attr = set_smem_once(flash_fwd_bf16<DK, DV, NQ>, smem, done);
   if (attr != 0) return attr;
   const long long xb = static_cast<long long>((Sq + kBfRows - 1) / kBfRows) *
-                       (D / kBfOutCols<D>);
+                       (DV / kBfOutCols<DV>);
   if (xb * B > kMaxGridX) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const dim3 grid(static_cast<unsigned>(xb * B), Hq, 1);
-  flash_fwd_bf16<D, NQ><<<grid, kBfThreads, smem, s>>>(
+  flash_fwd_bf16<DK, DV, NQ><<<grid, kBfThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, Hq, Hkv,
       causal, window, scale, static_cast<int>(xb));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// the bfloat16 body needs whole 16-wide k-steps over DK and n-tile pairs
+// over DV
+template <int DK, int DV>
+constexpr bool kBfBuilt = DK % 16 == 0 && DV % 16 == 0;
+
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int causal, int window,
            float scale, int dtype, cudaStream_t s) {
   if (dtype == 0) {
-    return launch_f32<D>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                         scale, s);
+    return launch_f32<DK, DV>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                              window, scale, s);
   }
-  if constexpr (D < 16) {
+  if constexpr (!kBfBuilt<DK, DV>) {
     if (dtype == 1) return static_cast<int>(cudaErrorInvalidValue);
   } else if (dtype == 1) {
     int e2 = 0;
     if (std::frexp(scale, &e2) == 0.5f) {  // a power of two
-      return launch_bf16<D, 1>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
-                               window, scale, s);
+      return launch_bf16<DK, DV, 1>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                                    window, scale, s);
     }
-    return launch_bf16<D, 3>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                             scale, s);
+    return launch_bf16<DK, DV, 3>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                                  window, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -793,19 +848,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// Whether a launch takes head dim D in dtype (0 float32, 1 bfloat16): the
-// kernel is instantiated per head dim.
-int flash_head_dim_ok(int D, int dtype) {
-  if (D == 8) return dtype == 0;
-  return D == 16 || D == 32 || D == 64 || D == 128 || D == 256;
+// Whether a launch takes head dims (D of q and k, Dv of v and out) in dtype
+// (0 float32, 1 bfloat16): the kernel is instantiated per pair.
+int flash_head_dim_ok(int D, int Dv, int dtype) {
+  if (D == Dv) {
+    if (D == 8) return dtype == 0;
+    return D == 16 || D == 32 || D == 64 || D == 128 || D == 256;
+  }
+  if (D == 192 && Dv == 128) return 1;
+  if (D == 24 && Dv == 16) return dtype == 0;
+  return 0;
 }
 
-// q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], out [B, Sq, Hq, D], all contiguous,
-// 16-byte aligned and of one dtype (code 0 float32, 1 bfloat16). window 0
-// means none.
+// q [B, Sq, Hq, D], k [B, Sk, Hkv, D], v [B, Sk, Hkv, Dv], out [B, Sq, Hq,
+// Dv], all contiguous, 16-byte aligned and of one dtype (code 0 float32, 1
+// bfloat16). window 0 means none.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                           int D, int causal, int window, float scale,
+                           int D, int Dv, int causal, int window, float scale,
                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
@@ -815,28 +875,21 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   if (addr_bits % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   if (Hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  switch (D) {
-    case 8:
-      return launch<8>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                       scale, dtype, s);
-    case 16:
-      return launch<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                        scale, dtype, s);
-    case 32:
-      return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                        scale, dtype, s);
-    case 64:
-      return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                        scale, dtype, s);
-    case 128:
-      return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                         scale, dtype, s);
-    case 256:
-      return launch<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                         scale, dtype, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_PAIR(DK, DV)                                                  \
+  if (D == DK && Dv == DV) {                                                \
+    return launch<DK, DV>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, \
+                          scale, dtype, s);                                 \
   }
+  FLASH_PAIR(8, 8)
+  FLASH_PAIR(16, 16)
+  FLASH_PAIR(32, 32)
+  FLASH_PAIR(64, 64)
+  FLASH_PAIR(128, 128)
+  FLASH_PAIR(256, 256)
+  FLASH_PAIR(192, 128)
+  FLASH_PAIR(24, 16)
+#undef FLASH_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

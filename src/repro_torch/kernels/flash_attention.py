@@ -14,8 +14,10 @@ those wholly above the causal diagonal: they add exact zeros (the CUDA
 kernel skips them).
 
 Layouts are the reference wrapper's (``repro/kernels/ops.py:attention``):
-q ``[B, Sq, Hq, D]``, k/v ``[B, Sk, Hkv, D]``, GQA with kv head
-``h // (Hq // Hkv)``. Math in float32, output in q's dtype.
+q ``[B, Sq, Hq, D]``, k ``[B, Sk, Hkv, D]``, v ``[B, Sk, Hkv, Dv]`` (v's
+head dim may differ from q's, as in the Pallas kernel; DeepSeek MLA's
+prefill has D 192, Dv 128), GQA with kv head ``h // (Hq // Hkv)``. Math in
+float32, output ``[B, Sq, Hq, Dv]`` in q's dtype.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ BLOCK_K = 64   # keys per block: the CUDA kernel's K/V tile
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
                           block_k=BLOCK_K):
-    """q ``[B, Sq, Hq, D]``; k/v ``[B, Sk, Hkv, D]`` -> ``[B, Sq, Hq, D]``.
+    """q ``[B, Sq, Hq, D]``; k ``[B, Sk, Hkv, D]``, v ``[B, Sk, Hkv, Dv]``
+    -> ``[B, Sq, Hq, Dv]``; ``scale`` defaults to 1/√D.
 
     ``window`` > 0 keeps keys with ``q_pos − k_pos < window``; positions
     start at 0 for both q and k.

@@ -159,9 +159,11 @@ def axpy2(x, u, v, a, b):
 
 def tree_axpy2(x_tree, u_tree, v_tree, a, b):
     """Leafwise fused x + a·u + b·v over nested dicts of one structure (the
-    MeZO unperturb-and-reperturb pass): one ``axpy2`` per leaf."""
+    MeZO unperturb-and-reperturb pass): one ``axpy2`` per leaf; a None
+    subtree stays None."""
     return {k: tree_axpy2(x, u_tree[k], v_tree[k], a, b)
-            if isinstance(x, dict) else axpy2(x, u_tree[k], v_tree[k], a, b)
+            if isinstance(x, dict) else None if x is None
+            else axpy2(x, u_tree[k], v_tree[k], a, b)
             for k, x in x_tree.items()}
 
 
@@ -350,42 +352,48 @@ def _rmsnorm(x, scale, eps):
 
 def _attention(q, k, v, causal, window, scale):
     """Flash attention on the reference wrapper's layout: q ``[B, Sq, Hq,
-    D]``, k/v ``[B, Sk, Hkv, D]`` -> ``[B, Sq, Hq, D]`` in q's dtype.
+    D]``, k ``[B, Sk, Hkv, D]``, v ``[B, Sk, Hkv, Dv]`` -> ``[B, Sq, Hq,
+    Dv]`` in q's dtype (the Pallas kernel's contract: v may have its own
+    head dim).
 
     GQA (``Hq`` a multiple of ``Hkv``); ``window`` > 0 keeps keys with
-    ``q_pos − k_pos < window``. Any Sq, Sk: the kernel masks its own ragged
-    edge, so there is no padding and no restriction on non-causal calls.
+    ``q_pos − k_pos < window``; ``scale`` defaults to 1/√D. Any Sq, Sk:
+    the kernel masks its own ragged edge, so there is no padding and no
+    restriction on non-causal calls. A pair (D, Dv) the kernel does not
+    build raises ``ValueError`` on the card.
     """
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     code = _dtype_code(q, "q")
     _need(q, "q", q.dtype, (B, Sq, Hq, D), q.device)
     _need(k, "k", q.dtype, (B, Sk, Hkv, D), q.device)
-    _need(v, "v", q.dtype, (B, Sk, Hkv, D), q.device)
+    _need(v, "v", q.dtype, (B, Sk, Hkv, Dv), q.device)
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
     # the kernel copies 16 bytes at a time: an input that starts elsewhere
     # (a slice at an odd row) is copied to a fresh, aligned tensor first
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     lib = build.load()["flash_attention"]
-    if not lib.flash_head_dim_ok(D, code):
-        raise ValueError(f"attention: head dim {D} in {q.dtype} not built "
-                         f"(8 in float32 only; 16, 32, 64, 128, 256)")
+    if not lib.flash_head_dim_ok(D, Dv, code):
+        dims = f"head dim {D}" if D == Dv else f"head dims (q/k {D}, v {Dv})"
+        raise ValueError(f"attention: {dims} in {q.dtype} not built (equal: "
+                         f"8 in float32 only; 16, 32, 64, 128, 256; "
+                         f"unequal: (192, 128); (24, 16) in float32 only)")
     # the grid: (q tiles x column groups) of every batch row in grid.x,
     # heads in grid.y
     x_blocks = B * (-(-Sq // 32) if code == 0
-                    else -(-Sq // 64) * max(1, D // 64))
+                    else -(-Sq // 64) * max(1, Dv // 64))
     if x_blocks > 2**31 - 1 or Hq > 65535:
         raise ValueError(f"attention: {x_blocks} blocks of grid.x (at most "
                          f"2^31 - 1) or {Hq} heads (at most 65,535)")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     _check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        Hq, Hkv, D, int(bool(causal)), int(window), float(scale), code,
+        Hq, Hkv, D, Dv, int(bool(causal)), int(window), float(scale), code,
         _stream()), "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
@@ -456,10 +464,10 @@ def rmsnorm(x, scale, *, eps=1e-6):
 
 def attention(q, k, v, *, causal=True, window=0, scale=None):
     """Flash attention on the reference wrapper's layout (the
-    ``flash_attention`` kernel on the card): q ``[B, Sq, Hq, D]``, k/v
-    ``[B, Sk, Hkv, D]`` -> ``[B, Sq, Hq, D]`` in q's dtype. Differentiable
-    in q, k and v (the plain version's gradient, recomputed in the
-    backward)."""
+    ``flash_attention`` kernel on the card): q ``[B, Sq, Hq, D]``, k ``[B,
+    Sk, Hkv, D]``, v ``[B, Sk, Hkv, Dv]`` -> ``[B, Sq, Hq, Dv]`` in q's
+    dtype, at ``scale`` (default 1/√D). Differentiable in q, k and v (the
+    plain version's gradient, recomputed in the backward)."""
     if _wants_grad(q, k, v):
         return _AttentionFn.apply(q, k, v, causal, window, scale)
     return _attention(q, k, v, causal, window, scale)

@@ -1,8 +1,10 @@
 """Serving CLI: one batched prefill, then a decode loop, on a registered
-dense architecture, in PyTorch.
+architecture (dense or moe), in PyTorch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b-smoke \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --batch 2 --prompt-len 64 --gen 4
 
 Counterpart of ``repro/launch/serve.py``: the same flags, key chain and
 printed lines. The weights come from ``--seed``, the prompt from
@@ -15,7 +17,10 @@ second (host clock between ``torch.cuda.synchronize()`` calls), the first
 two requests' tokens and ``serve OK`` after a finite check of the last
 logits. On the card the prefill runs the ``flash_attention`` and
 ``rmsnorm`` kernels in every layer and decode the ``rmsnorm`` kernel; the
-one-token attention over the cache is plain torch, as the reference's.
+one-token attention over the cache (MLA's absorbed form included) and the
+MoE routing and expert GEMMs are plain torch, as the reference's.
+qwen3-moe-30b-a3b at full width holds 56.89 GiB of bfloat16 weights: one
+80 GB card serves it with its cache.
 
 ``--device`` (default ``cuda``; the CPU only when asked) is the port's
 addition. ``main(argv)`` returns a ``ServeResult``.
@@ -42,6 +47,7 @@ class ServeResult(NamedTuple):
     logits: torch.Tensor   # the last decode step's [B, V]
     prefill_s: float
     decode_s: float
+    init_s: float           # the weights' init (host clock, synchronised)
     prefill_launches: dict  # ops.LAUNCHES of the prefill
     decode_launches: dict   # ops.LAUNCHES of the gen decode steps
     model: Any
@@ -85,7 +91,11 @@ def main(argv=None) -> ServeResult:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     model = build(cfg)
+    _sync(dev)
+    t0 = time.perf_counter()
     params = model.init(prng.key(args.seed), device=dev)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
     width = args.width or (args.prompt_len + args.gen)
 
     shape = ShapeConfig("serve", args.prompt_len, args.batch, "prefill")
@@ -125,7 +135,7 @@ def main(argv=None) -> ServeResult:
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("serve: non-finite logits")
     print("serve OK")
-    return ServeResult(seqs, logits, t_prefill, dt, pre_launches,
+    return ServeResult(seqs, logits, t_prefill, dt, t_init, pre_launches,
                        dec_launches, model, params, batch)
 
 

@@ -1,4 +1,4 @@
-"""Unified model API, dense family.
+"""Unified model API, dense and moe families.
 
 Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
 ``Model`` bundle of functions,
@@ -8,7 +8,8 @@ Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
                                          means with n_groups > 1)
   loss_batched(params, batch) -> [M]    (``loss`` per client of a cohort:
                                          leaves and batch with a leading
-                                         ``[M]`` client axis)
+                                         ``[M]`` client axis; dense family
+                                         only, the moe family raises)
   prefill(params, batch, width) -> (logits [B, V], cache)
   decode(params, batch, cache, pos, window=0) -> (logits [B, V], cache)
   init_cache(batch_size, width, device="cuda") -> zeroed cache
@@ -21,8 +22,13 @@ LM batches are ``{"tokens": [B, S], "labels": [B, S]}`` integer tensors on
 the parameters' device; a decode batch's ``tokens`` is ``[B, 1]`` and
 ``pos`` a 0-d int tensor (the decode cache is written in place,
 ``models/transformer.py``). ``make_batch`` draws a batch bitwise the
-reference's. Families other than dense raise at ``build``, and with them
-their prefill and decode.
+reference's. The moe family (``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``
+with MLA and MTP) builds through the same ``transformer`` functions; its
+client-batched cohort loss is not ported, so ``loss_batched`` (and with
+it ``fedzo.batched_loss``, the flat and wide rounds) raises
+``NotImplementedError`` for it before any forward runs. Families other
+than dense and moe raise at ``build``, and with them their prefill and
+decode.
 """
 from __future__ import annotations
 
@@ -60,7 +66,7 @@ def _lm_batch_shapes(cfg, shape: ShapeConfig):
 
 
 def build(cfg: ModelConfig) -> Model:
-    transformer.check_dense(cfg)
+    transformer.check_family(cfg)
 
     def loss(p, b, n_groups=1):
         return transformer.loss_fn(p, b, cfg, n_groups)

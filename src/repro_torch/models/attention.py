@@ -1,44 +1,54 @@
-"""GQA/MQA self-attention of the dense transformer: the train forward,
-prefill and one-token decode against a ring KV cache.
+"""Self-attention of the decoder stacks: GQA/MQA attention and DeepSeek's
+Multi-head Latent Attention (MLA), each with its train forward, prefill
+and one-token decode against a ring cache.
 
-Counterpart of ``repro/models/attention.py:31-131``: ``init_attention``,
-``_qkv`` and ``attention_fwd`` with grouped kv heads, ``qkv_bias``,
-``qk_norm``, RoPE and the sliding window; ``init_kv_cache``,
-``attention_prefill`` and ``attention_decode``. The attention itself goes through
+Counterpart of ``repro/models/attention.py:31-131, 165-269``: GQA
+(``init_attention``, ``_qkv``, ``attention_fwd`` with grouped kv heads,
+``qkv_bias``, ``qk_norm``, RoPE and the sliding window; ``init_kv_cache``,
+``attention_prefill``, ``attention_decode``) and MLA (``init_mla``,
+``_mla_q``, ``mla_fwd``, ``init_mla_cache``, ``mla_prefill``,
+``mla_decode``). The full-sequence attention goes through
 ``kernels/ops.attention`` on the reference's ``[B, S, H, D]`` layout: the
 CUDA flash kernel on the card, its plain blocked version on the CPU (the
 reference uses ``chunked_attention``, the jnp twin of its Pallas kernel).
+MLA's is the kernel's unequal pair: q and k of head dim nope + rope (192
+at DeepSeek-V3's width), v of ``v_head_dim`` (128), at the explicit scale
+1/√(nope + rope).
 
-``attention_fwd_batched`` is the same forward per client of a cohort
+``attention_fwd_batched`` is the GQA forward per client of a cohort
 (weights ``[M, ...]``, x ``[M, B, S, d]``): q, k and v come from batched
 GEMMs, and the attention is ONE kernel call over the ``[M·B, S, H, D]``
 rows. The kernel treats each batch row on its own, so its output is bit
 for bit that of M separate calls, and the launch count does not depend on
 M.
 
-Decode caches are ring buffers of width W, ``{"k": [B, W, Hkv, D], "v":
-[B, W, Hkv, D]}`` in the model's dtype: W = S is the ordinary full cache,
-W < S the sliding ring whose slot for position p is ``p % W``. Prefill runs
-its full-sequence attention through ``ops.attention`` (the flash kernel on
-the card) and lays the last W keys and values out in the ring; decode
+Decode caches are ring buffers of width W: ``{"k": [B, W, Hkv, D], "v":
+[B, W, Hkv, D]}`` for GQA, ``{"latent": [B, W, kv_lora + rope]}`` (the
+compressed c_kv ++ k_rope) for MLA, in the model's dtype. W = S is the
+ordinary full cache, W < S the sliding ring whose slot for position p is
+``p % W``. Prefill lays the last W positions out in the ring; decode
 writes slot ``pos % W`` IN PLACE (the reference returns a new cache, which
-XLA updates in place when the caller donates it) and attends over the valid
-slots with ``layers.decode_attention`` (plain torch in float32, as the
-reference's plain jnp). ``pos`` is a 0-d int tensor on the cache's device,
-so a decode step never waits for the host.
+XLA updates in place when the caller donates it) and attends over the
+valid slots: GQA with ``layers.decode_attention``, MLA in the absorbed
+form (``wk_b`` folded into q, ``wv_b`` applied after the softmax), both
+plain torch in float32 as the reference's plain jnp. ``pos`` is a 0-d int
+tensor on the cache's device, so a decode step never waits for the host.
 
-MLA and cross-attention are not ported.
+MLA's ``c_kv`` is the first ``kv_lora`` columns of each ``[kv_lora +
+rope]`` row (a strided view); it is made contiguous before the RMSNorm,
+whose kernel takes contiguous rows. Cross-attention is not ported.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from repro_torch.kernels import ops
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (apply_rope, decode_attention,
-                                       dense_init, init_norm, norm_fwd,
-                                       norm_fwd_batched, rope_angles)
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (NEG_INF, apply_rope,
+                                       decode_attention, dense_init,
+                                       init_norm, norm_fwd, norm_fwd_batched,
+                                       rope_angles)
 from repro_torch.utils import prng
 
 
@@ -177,3 +187,126 @@ def attention_fwd_batched(p, cfg, x):
     k = apply_rope(k, cos, sin)
     out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
     return (out.reshape(M, B * S, -1) @ p["wo"]).reshape(M, B, S, -1)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek Multi-head Latent Attention
+
+
+def init_mla(rng, cfg, dtype, *, device="cpu"):
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    ks = prng.split(rng, 6)
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq_a": dense_init(ks[0], d, m.q_lora_rank, dtype, device=device),
+        "q_norm": init_norm(m.q_lora_rank, "rmsnorm", dtype, device=device),
+        "wq_b": dense_init(ks[1], m.q_lora_rank, h * qk_dim, dtype,
+                           device=device),
+        "wkv_a": dense_init(ks[2], d, m.kv_lora_rank + m.qk_rope_dim, dtype,
+                            device=device),
+        "kv_norm": init_norm(m.kv_lora_rank, "rmsnorm", dtype, device=device),
+        "wk_b": dense_init(ks[3], m.kv_lora_rank, h * m.qk_nope_dim, dtype,
+                           device=device),
+        "wv_b": dense_init(ks[4], m.kv_lora_rank, h * m.v_head_dim, dtype,
+                           device=device),
+        "wo": dense_init(ks[5], h * m.v_head_dim, d, dtype, device=device),
+    }
+
+
+def _mla_scale(m):
+    return float(1.0 / np.sqrt(m.qk_nope_dim + m.qk_rope_dim))
+
+
+def _mla_q(p, cfg, x, positions):
+    m, h = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q = norm_fwd(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(B, S, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_kv(p, cfg, x, positions):
+    """(c_kv [B, S, kv_lora] normed, k_rope [B, S, 1, rope] rotated)."""
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    c_kv = norm_fwd(p["kv_norm"], kv[..., :m.kv_lora_rank].contiguous())
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], cos, sin)
+    return c_kv, k_rope
+
+
+def mla_fwd(p, cfg, x, *, window=0):
+    """Train/prefill MLA in decompressed form: one attention launch at
+    head dims (nope + rope, v_head_dim). Returns (out, latent [B, S,
+    kv_lora + rope])."""
+    m, h = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_kv(p, cfg, x, positions)  # 1 shared rope head
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, m.qk_nope_dim)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, h, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_dim)], dim=-1)
+    out = ops.attention(q, k, v, causal=True, window=window,
+                        scale=_mla_scale(m))
+    out = out.reshape(B, S, -1) @ p["wo"]
+    latent = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
+    return out, latent
+
+
+def init_mla_cache(cfg, batch, width, dtype, *, device="cpu"):
+    m = cfg.mla
+    return {"latent": torch.zeros((batch, width,
+                                   m.kv_lora_rank + m.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_prefill(p, cfg, x, width):
+    """Prefill: ``mla_fwd`` and the latent cache of the last ``width``
+    positions (slots ``[0, S)`` when width >= S, else the ring layout)."""
+    S = x.shape[1]
+    out, latent = mla_fwd(p, cfg, x)
+    if width >= S:
+        latent = F.pad(latent, (0, 0, 0, width - S))
+    else:
+        latent = torch.roll(latent[:, -width:], S % width, dims=1)
+    return out, {"latent": latent}
+
+
+def mla_decode(p, cfg, x, cache, pos, *, window=0):
+    """Absorbed-form one-token decode against the latent cache only. x [B,
+    1, d]; ``pos`` a 0-d int tensor on x's device. Writes slot ``pos % W``
+    of ``cache["latent"]`` in place and returns (out [B, 1, d], cache)."""
+    m, h = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    latent = cache["latent"]
+    W = latent.shape[1]
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[None, None])
+    c_kv, k_rope = _mla_kv(p, cfg, x, pos[None, None])
+    new_latent = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
+    slot = torch.remainder(pos, W).reshape(1)
+    latent.index_copy_(1, slot, new_latent.to(latent.dtype))
+    c_cache = latent[..., :m.kv_lora_rank].to(torch.float32)   # [B, W, r]
+    r_cache = latent[..., m.kv_lora_rank:].to(torch.float32)   # [B, W, rope]
+    # absorb W_k^b into q: q_eff[b,h,r] = sum_n q_nope[b,h,n] * wk_b[r, h, n]
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].to(torch.float32),
+                         wk_b.to(torch.float32))
+    s = torch.einsum("bhr,bwr->bhw", q_eff, c_cache)
+    s = s + torch.einsum("bhr,bwr->bhw", q_rope[:, 0].to(torch.float32),
+                         r_cache)
+    idx = torch.arange(W, device=x.device)
+    valid = (idx <= pos) | (pos >= W)
+    if window:
+        age = torch.remainder(slot - idx, W)
+        valid = valid & (age < min(window, W))
+    s = torch.where(valid[None, None], s * _mla_scale(m), NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    out_c = torch.einsum("bhw,bwr->bhr", pr, c_cache)
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bhr,rhv->bhv", out_c, wv_b.to(torch.float32))
+    out = out.reshape(B, 1, h * m.v_head_dim).to(x.dtype) @ p["wo"]
+    return out, cache

@@ -34,9 +34,11 @@ from repro_torch.utils import prng
 
 
 def dense_init(rng, d_in, d_out, dtype, scale=None, *, device="cpu"):
+    """normal(rng, [d_in, d_out]) · scale (default 1/√d_in) in ``dtype``,
+    drawn in chunks into the one output tensor (``prng.normal_into``)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = prng.normal(rng, (d_in, d_out), device=device) * scale
-    return w.to(dtype)
+    out = torch.empty((d_in, d_out), dtype=dtype, device=device)
+    return prng.normal_into(rng, out, lambda g: g * scale)
 
 
 def init_norm(d, kind="rmsnorm", dtype=torch.float32, *, device="cpu"):

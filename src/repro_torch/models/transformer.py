@@ -1,21 +1,37 @@
-"""Decoder-only transformer assembly, dense family.
+"""Decoder-only transformer assembly: the dense and moe families (MoE
+layers, MLA, MTP).
 
-Counterpart of ``repro/models/transformer.py:39-179, 229-388``. Layers are stacked:
-one nested dict whose leaves carry a leading ``[L]`` axis, each layer drawn
-from its own ``fold_in(rng, i)`` key, so the parameter tree, its flat order
-and its init are the reference's. The reference scans the stack with
-``jax.lax.scan``; here ``_scan_blocks`` is a Python loop over layer slices
-(views, no copies), because every layer launches the RMSNorm and attention
-kernels through ctypes.
+Counterpart of ``repro/models/transformer.py:39-179, 229-388``. Layers are
+stacked: one nested dict whose leaves carry a leading ``[L]`` axis, each
+layer drawn from its own ``fold_in(rng, i)`` key, so the parameter tree,
+its flat order and its init are the reference's. A moe config has two
+stacked groups, ``dense_blocks`` (its ``n_dense_layers`` leading dense
+layers; None when there are none, as in the reference's tree, and skipped
+by every tree walk) and ``moe_blocks``; a dense config one, ``blocks``.
+MTP adds ``mtp_block`` and ``mtp_norm``. The stacked leaves are allocated
+once and filled layer by layer (``_stack_init``), and every normal draw is
+chunked into its output (``prng.normal_into``), so an init holds the
+weights once: qwen3-moe-30b-a3b's 56.89 GiB of bfloat16 fit one card. The
+reference scans each stack with ``jax.lax.scan``; here ``_scan_blocks`` is
+a Python loop over layer slices (views, no copies), because every layer
+launches the RMSNorm and attention kernels through ctypes.
+
+``block_fwd`` returns (h, aux): the MoE layer's load-balance loss, None
+for a dense layer (the reference's zero). ``loss_fn`` adds the layers' aux
+and, under MTP, 0.3 times the cross entropy of the MTP block on ``hf +
+emb_next`` (the scaled embedding shifted by one token) against the labels
+shifted by one.
 
 ``loss_fn_batched`` is ``loss_fn`` per client of a cohort, the reference's
-loss under ``jax.vmap`` as the flat round maps it: every leaf carries a
-leading ``[M]`` client axis (what ``unflatten`` of the ``[M, n_pad]``
-buffer gives, views into it), the batch leaves ``[M, B, S]``, and it
-returns ``[M]`` losses. A layer is the slice ``leaf[:, i]`` (a view), the
-dense products are batched GEMMs, and each RMSNorm and attention is one
-kernel launch over the whole cohort: 2L + 1 RMSNorms and L attentions per
-forward, whatever M is.
+loss under ``jax.vmap`` as the flat round maps it, for the dense family:
+every leaf carries a leading ``[M]`` client axis (what ``unflatten`` of the
+``[M, n_pad]`` buffer gives, views into it), the batch leaves ``[M, B,
+S]``, and it returns ``[M]`` losses. A layer is the slice ``leaf[:, i]``
+(a view), the dense products are batched GEMMs, and each RMSNorm and
+attention is one kernel launch over the whole cohort: 2L + 1 RMSNorms and
+L attentions per forward, whatever M is. The moe family's cohort forward
+(each client routing its own tokens with its own router) is not ported:
+it raises.
 
 The classifier head (``init_classifier``, ``classifier_logits``,
 ``classifier_loss``, ``classifier_accuracy``) is the neural FedZO
@@ -27,13 +43,16 @@ round, b2 on the wide route, whose r perturbed copies of a client share
 its batch), and runs each RMSNorm and attention as one launch.
 
 Serving (``init_cache``, ``prefill``, ``decode_step``) runs the same
-per-layer loop: prefill returns the last token's logits ``[B, V]`` and a
-cache ``{"blocks": {"k", "v"}}`` stacked over layers (``[L, B, W, Hkv,
-D]``); a decode step takes one token per row and a 0-d position tensor,
-and writes each layer's slot of that cache in place.
+per-layer loop over each group: prefill returns the last token's logits
+``[B, V]`` and a cache stacked over each group's layers, ``{"blocks":
+{"k", "v"}}`` (``[L, B, W, Hkv, D]``) for a dense config, ``{"dense": …,
+"moe": …}`` for a moe one (None for an empty group; ``{"latent"}`` leaves
+``[L, B, W, kv_lora + rope]`` under MLA); a decode step takes one token
+per row and a 0-d position tensor, and writes each layer's slot of that
+cache in place.
 
 FedZO never calls a gradient: the forward is all the train step needs.
-MoE, MLA, MTP, ssm and hybrid stacks are not ported and raise.
+The ssm, hybrid, encdec and vlm families are not ported and raise.
 """
 from __future__ import annotations
 
@@ -47,39 +66,57 @@ from repro_torch.models.layers import (dense_init, embed_fwd,
                                        norm_fwd_batched, softmax_xent,
                                        softmax_xent_batched, unembed_fwd,
                                        unembed_fwd_batched)
+from repro_torch.models.moe import init_moe, moe_fwd
 from repro_torch.models.simple import mean_xent, mean_xent_batched
 from repro_torch.utils import prng
+from repro_torch.utils.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FAMILIES = ("dense", "moe")
 
 
 def _dtype(cfg):
     return _DTYPES[cfg.dtype]
 
 
-def check_dense(cfg):
-    """Reject every architecture the port cannot build as asked."""
-    unported = [name for name, on in (
-        (f"family={cfg.family!r}", cfg.family != "dense"),
-        ("MoE (n_experts)", bool(cfg.n_experts)),
-        ("MLA", cfg.mla is not None), ("MTP", cfg.mtp))
-        if on]
-    if unported:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not "
-                                  f"ported; the port runs the dense family")
+def check_family(cfg):
+    """Reject every architecture the port cannot build as asked: the dense
+    and moe families (with MoE layers, MLA and MTP) are ported; ssm,
+    hybrid, encdec and vlm raise."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: family={cfg.family!r} not "
+                                  f"ported; the port runs the {FAMILIES} "
+                                  f"families")
+
+
+def _groups(cfg):
+    """(params key, cache key, moe_layer, depth) of each stacked group, in
+    the order the forward runs them."""
+    if cfg.n_experts:
+        return (("dense_blocks", "dense", False, cfg.n_dense_layers),
+                ("moe_blocks", "moe", True,
+                 cfg.n_layers - cfg.n_dense_layers))
+    return (("blocks", "blocks", False, cfg.n_layers),)
 
 
 # ---------------------------------------------------------------------------
 # per-layer init
 
 
-def init_block(rng, cfg, dtype, *, device="cpu"):
+def init_block(rng, cfg, dtype, *, moe_layer=False, device="cpu"):
     ks = prng.split(rng, 4)
-    return {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
-            "norm2": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
-            "attn": attn.init_attention(ks[0], cfg, dtype, device=device),
-            "mlp": init_mlp(ks[2], cfg.d_model, cfg.d_ff, cfg.act, dtype,
-                            device=device)}
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+         "norm2": init_norm(cfg.d_model, cfg.norm, dtype, device=device)}
+    if cfg.mla is not None:
+        p["attn"] = attn.init_mla(ks[0], cfg, dtype, device=device)
+    else:
+        p["attn"] = attn.init_attention(ks[0], cfg, dtype, device=device)
+    if moe_layer:
+        p["moe"] = init_moe(ks[2], cfg, dtype, device=device)
+    else:
+        p["mlp"] = init_mlp(ks[2], cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                            device=device)
+    return p
 
 
 def _stack(trees):
@@ -88,33 +125,72 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _fill(stacked, i, layer):
+    """Copy ``layer``'s leaves into slice i of the stacked leaves."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _fill(stacked[k], i, v)
+        else:
+            stacked[k][i].copy_(v)
+
+
 def _stack_init(rng, n, init_fn):
-    return _stack([init_fn(prng.fold_in(rng, i)) for i in range(n)])
+    """``n`` layers on a leading axis, layer i from ``fold_in(rng, i)``:
+    bitwise ``_stack`` of the layers, without holding them twice. Each
+    stacked leaf is allocated once and layer i copied into its slice as
+    soon as it is drawn, so one layer lives beside the stack; a stack of
+    one is a view of its layer's leaves. None for n = 0 (an empty group)."""
+    if n == 0:
+        return None
+    layer = init_fn(prng.fold_in(rng, 0))
+    if n == 1:
+        return tree_map(lambda x: x[None], layer)
+    stacked = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), layer)
+    for i in range(n):
+        if i:
+            layer = init_fn(prng.fold_in(rng, i))
+        _fill(stacked, i, layer)
+        layer = None
+    return stacked
 
 
 def init_params(rng, cfg, *, device="cpu"):
-    check_dense(cfg)
+    check_family(cfg)
     dtype = _dtype(cfg)
     ks = prng.split(rng, 6)
-    return {"embed": init_embed(ks[0], cfg.vocab, cfg.d_model, dtype,
-                                cfg.tie_embeddings, device=device),
-            "final_norm": init_norm(cfg.d_model, cfg.norm, dtype,
-                                    device=device),
-            "blocks": _stack_init(ks[1], cfg.n_layers,
-                                  lambda k: init_block(k, cfg, dtype,
-                                                       device=device))}
+    p = {"embed": init_embed(ks[0], cfg.vocab, cfg.d_model, dtype,
+                             cfg.tie_embeddings, device=device),
+         "final_norm": init_norm(cfg.d_model, cfg.norm, dtype,
+                                 device=device)}
+    for key, (name, _, moe_layer, n) in zip((ks[1], ks[2]), _groups(cfg)):
+        p[name] = _stack_init(key, n, lambda k, moe_layer=moe_layer:
+                              init_block(k, cfg, dtype, moe_layer=moe_layer,
+                                         device=device))
+    if cfg.mtp:
+        p["mtp_block"] = init_block(ks[3], cfg, dtype, device=device)
+        p["mtp_norm"] = init_norm(cfg.d_model, cfg.norm, dtype,
+                                  device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
 # block forward (full sequence)
 
 
-def block_fwd(p, cfg, h):
-    """Pre-norm block on h [B, S, d]."""
+def block_fwd(p, cfg, h, *, moe_layer=False):
+    """Pre-norm block on h [B, S, d]. Returns (h, aux): the MoE layer's
+    load-balance loss, None for a dense layer."""
     hn = norm_fwd(p["norm1"], h, cfg.norm)
-    h = h + attn.attention_fwd(p["attn"], cfg, hn)
+    if cfg.mla is not None:
+        o, _ = attn.mla_fwd(p["attn"], cfg, hn)
+    else:
+        o = attn.attention_fwd(p["attn"], cfg, hn)
+    h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
-    return h + mlp_fwd(p["mlp"], hn, cfg.act)
+    if moe_layer:
+        o, aux = moe_fwd(p["moe"], cfg, hn)
+        return h + o, aux
+    return h + mlp_fwd(p["mlp"], hn, cfg.act), None
 
 
 def _layer(stacked, i):
@@ -123,16 +199,27 @@ def _layer(stacked, i):
     return stacked[i]
 
 
-def _scan_blocks(stacked, cfg, h):
-    for i in range(cfg.n_layers):
-        h = block_fwd(_layer(stacked, i), cfg, h)
-    return h
+def _add_aux(total, a):
+    return a if total is None else (total if a is None else total + a)
+
+
+def _scan_blocks(stacked, cfg, h, n, *, moe_layer=False):
+    """The ``n`` stacked layers in turn -> (h, the sum of their aux in
+    layer order, or None)."""
+    aux = None
+    for i in range(n):
+        h, a = block_fwd(_layer(stacked, i), cfg, h, moe_layer=moe_layer)
+        aux = _add_aux(aux, a)
+    return h, aux
 
 
 def backbone(params, cfg, h):
-    """Embeddings already applied; h [B, S, d] -> h_normed."""
-    h = _scan_blocks(params["blocks"], cfg, h)
-    return norm_fwd(params["final_norm"], h, cfg.norm)
+    """Embeddings already applied; h [B, S, d] -> (h_normed, aux)."""
+    aux = None
+    for name, _, moe_layer, n in _groups(cfg):
+        h, a = _scan_blocks(params.get(name), cfg, h, n, moe_layer=moe_layer)
+        aux = _add_aux(aux, a)
+    return norm_fwd(params["final_norm"], h, cfg.norm), aux
 
 
 def _embed_scale(h, cfg):
@@ -144,13 +231,25 @@ def _embed_scale(h, cfg):
 
 
 def loss_fn(params, batch, cfg, n_groups=1):
-    """Mean next-token cross entropy: FedZO's F(x, ξ). ``n_groups > 1``
-    returns the ``[G]`` per-group means (the pod round's silos)."""
+    """Mean next-token cross entropy (+ the MoE aux, + 0.3 x the MTP
+    block's): FedZO's F(x, ξ). ``n_groups > 1`` returns the ``[G]``
+    per-group means (the pod round's silos)."""
     tokens, labels = batch["tokens"], batch["labels"]
     h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
-    hf = backbone(params, cfg, h)
+    hf, aux = backbone(params, cfg, h)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
-    return softmax_xent(logits, labels, n_groups)
+    loss = softmax_xent(logits, labels, n_groups)
+    if cfg.mtp:
+        # multi-token prediction: one extra block predicts token t+2 from
+        # (h_t, embed(token_{t+1})), DeepSeek-V3 style, depth 1
+        emb_next = torch.cat([h[:, 1:], h[:, -1:]], dim=1)
+        h2 = norm_fwd(params["mtp_norm"], hf + emb_next, cfg.norm)
+        h2, _ = block_fwd(params["mtp_block"], cfg, h2)
+        logits2 = unembed_fwd(params["embed"], h2, cfg.tie_embeddings,
+                              cfg.vocab)
+        labels2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        loss = loss + 0.3 * softmax_xent(logits2, labels2, n_groups)
+    return loss if aux is None else loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -158,59 +257,87 @@ def loss_fn(params, batch, cfg, n_groups=1):
 
 
 def init_cache(cfg, batch, width, *, device="cpu"):
-    """Zeroed decode cache, stacked over layers: ``{"blocks": {"k", "v"}}``
-    with leaves ``[L, B, W, Hkv, D]`` in the model's dtype."""
-    check_dense(cfg)
-    c = attn.init_kv_cache(cfg, batch, width, _dtype(cfg), device=device)
-    return {"blocks": {k: v.expand((cfg.n_layers,) + tuple(v.shape))
-                       .contiguous() for k, v in c.items()}}
+    """Zeroed decode cache stacked over each group's layers in the model's
+    dtype: ``{"blocks": {"k", "v"}}`` (``[L, B, W, Hkv, D]``) for a dense
+    config, ``{"dense": …, "moe": …}`` for a moe one (None for an empty
+    group); ``{"latent"}`` leaves under MLA."""
+    check_family(cfg)
+    dtype = _dtype(cfg)
+    if cfg.mla is not None:
+        c = attn.init_mla_cache(cfg, batch, width, dtype, device=device)
+    else:
+        c = attn.init_kv_cache(cfg, batch, width, dtype, device=device)
+    return {ckey: None if n == 0 else
+            {k: v.expand((n,) + tuple(v.shape)).contiguous()
+             for k, v in c.items()}
+            for _, ckey, _, n in _groups(cfg)}
 
 
-def block_prefill(p, cfg, h, width):
+def block_prefill(p, cfg, h, width, *, moe_layer=False):
     """Full-sequence block forward that also returns its decode cache."""
     hn = norm_fwd(p["norm1"], h, cfg.norm)
-    o, cache = attn.attention_prefill(p["attn"], cfg, hn, width)
+    if cfg.mla is not None:
+        o, cache = attn.mla_prefill(p["attn"], cfg, hn, width)
+    else:
+        o, cache = attn.attention_prefill(p["attn"], cfg, hn, width)
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
-    return h + mlp_fwd(p["mlp"], hn, cfg.act), cache
+    if moe_layer:
+        o, _ = moe_fwd(p["moe"], cfg, hn)
+    else:
+        o = mlp_fwd(p["mlp"], hn, cfg.act)
+    return h + o, cache
 
 
-def block_decode(p, cfg, h, cache, pos, *, window=0):
+def block_decode(p, cfg, h, cache, pos, *, moe_layer=False, window=0):
     """One-token block forward; writes ``cache``'s slot in place."""
     hn = norm_fwd(p["norm1"], h, cfg.norm)
-    o, cache = attn.attention_decode(p["attn"], cfg, hn, cache, pos,
-                                     window=window or cfg.sliding_window)
+    if cfg.mla is not None:
+        o, cache = attn.mla_decode(p["attn"], cfg, hn, cache, pos,
+                                   window=window)
+    else:
+        o, cache = attn.attention_decode(p["attn"], cfg, hn, cache, pos,
+                                         window=window or cfg.sliding_window)
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
-    return h + mlp_fwd(p["mlp"], hn, cfg.act), cache
+    if moe_layer:
+        o, _ = moe_fwd(p["moe"], cfg, hn)
+    else:
+        o = mlp_fwd(p["mlp"], hn, cfg.act)
+    return h + o, cache
 
 
 def prefill(params, tokens, cfg, width):
     """tokens [B, S] -> (last-token logits [B, V], cache of width
     ``width``)."""
-    check_dense(cfg)
+    check_family(cfg)
     h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
-    caches = []
-    for i in range(cfg.n_layers):
-        h, c = block_prefill(_layer(params["blocks"], i), cfg, h, width)
-        caches.append(c)
+    cache = {}
+    for name, ckey, moe_layer, n in _groups(cfg):
+        caches = []
+        for i in range(n):
+            h, c = block_prefill(_layer(params[name], i), cfg, h, width,
+                                 moe_layer=moe_layer)
+            caches.append(c)
+        cache[ckey] = _stack(caches) if caches else None
     hf = norm_fwd(params["final_norm"], h, cfg.norm)
     logits = unembed_fwd(params["embed"], hf[:, -1:], cfg.tie_embeddings,
                          cfg.vocab)
-    return logits[:, 0], {"blocks": _stack(caches)}
+    return logits[:, 0], cache
 
 
 def decode_step(params, token, cache, pos, cfg, window=0):
     """token [B, 1] int; ``pos`` the absolute position (a 0-d int tensor on
     the parameters' device; an int is moved there) -> (logits [B, V],
     cache), the cache updated in place."""
-    check_dense(cfg)
+    check_family(cfg)
     h = _embed_scale(embed_fwd(params["embed"], token), cfg)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
-    blocks = cache["blocks"]
-    for i in range(cfg.n_layers):
-        h, _ = block_decode(_layer(params["blocks"], i), cfg, h,
-                            _layer(blocks, i), pos, window=window)
+    for name, ckey, moe_layer, n in _groups(cfg):
+        for i in range(n):
+            h, _ = block_decode(_layer(params[name], i), cfg, h,
+                                _layer(cache[ckey], i), pos,
+                                moe_layer=moe_layer, window=window)
     hf = norm_fwd(params["final_norm"], h, cfg.norm)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
     return logits[:, 0], cache
@@ -240,11 +367,26 @@ def backbone_batched(params, cfg, h):
     return norm_fwd_batched(params["final_norm"], h, cfg.norm)
 
 
+def check_batched(cfg):
+    """The client-batched forward runs the dense family without MLA or
+    MTP; the rest raises before any kernel or ``torch.func.vmap`` is
+    reached."""
+    check_family(cfg)
+    if cfg.n_experts or cfg.mla is not None or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: the client-batched cohort loss of the moe family "
+            f"(each client routing its own tokens with its own router; MLA "
+            f"and MTP per client) is not ported; the single-client loss "
+            f"(make_train_step, launch/train.py) runs it")
+
+
 def loss_fn_batched(params, batch, cfg):
     """``loss_fn`` per client: ``[M, ...]`` leaves and batch leaves ``[M,
     B, S]`` -> ``[M]`` losses. Leaves ``[r·M, ...]`` (the wide route's r
     perturbed copies of each client) take client m's tokens for rows m·r …
-    m·r + r − 1 (the token ids are repeated, the weights read in place)."""
+    m·r + r − 1 (the token ids are repeated, the weights read in place).
+    Dense family only (``check_batched``)."""
+    check_batched(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     r = params["final_norm"]["scale"].shape[0] // tokens.shape[0]
     if r > 1:
@@ -265,7 +407,7 @@ def init_classifier(rng, cfg, *, n_patches, patch_dim, n_classes,
     """Patch embedding, a zero positional table, cfg.n_layers stacked
     blocks, the final norm and the head, from ``split(rng, 3)`` as the
     reference draws them."""
-    check_dense(cfg)
+    check_batched(cfg)
     dtype = _dtype(cfg)
     ks = prng.split(rng, 3)
     return {"patch": dense_init(ks[0], patch_dim, cfg.d_model, dtype,
@@ -287,7 +429,7 @@ def classifier_logits(params, cfg, x):
     n_p = params["pos"].shape[0]
     h = x.reshape(x.shape[0], n_p, -1).to(_dtype(cfg))
     h = h @ params["patch"] + params["pos"]
-    h = _scan_blocks(params["blocks"], cfg, h)
+    h, _ = _scan_blocks(params["blocks"], cfg, h, cfg.n_layers)
     h = norm_fwd(params["final_norm"], h, cfg.norm)
     return torch.mean(h, dim=1) @ params["head"]
 

@@ -48,7 +48,8 @@ class FlatSpec:
 
 
 def _leaves(params, prefix=()):
-    """(key path, tensor) pairs in jax's order: keys sorted at every level."""
+    """(key path, tensor) pairs in jax's order: keys sorted at every level;
+    a None subtree (an empty stacked group) has no leaves, as in jax."""
     if not isinstance(params, dict):
         raise TypeError("FlatParams takes a dict of tensors (nested dicts "
                         f"allowed), got {type(params).__name__} at "
@@ -56,6 +57,8 @@ def _leaves(params, prefix=()):
     out = []
     for k in sorted(params):
         v = params[k]
+        if v is None:
+            continue
         out.extend([((*prefix, k), v)] if isinstance(v, torch.Tensor)
                    else _leaves(v, (*prefix, k)))
     return out

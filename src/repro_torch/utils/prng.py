@@ -434,7 +434,10 @@ def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0, *, impl=None,
             device=None) -> torch.Tensor:
     """float32 ``jax.random.uniform``: 23 mantissa bits under exponent 0,
     shifted and scaled in float32."""
-    bits = _bits(k, shape, impl, device)
+    return _uniform_from_bits(_bits(k, shape, impl, device), minval, maxval)
+
+
+def _uniform_from_bits(bits, minval, maxval):
     fbits = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     # the bounds as float32 scalars (a Python scalar reaches the device as
@@ -499,8 +502,7 @@ def normal(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
     if meta is not None:
         return meta
     if dtype == torch.float32:
-        u = uniform(k, shape, _NORMAL_LO, 1.0, impl=impl, device=device)
-        return erfinv(u) * _SQRT2
+        return _normal_from_bits(_bits(k, shape, impl, device))
     if dtype != torch.bfloat16:
         raise NotImplementedError(f"normal draws in {dtype}: float32 and "
                                   f"bfloat16 are ported")
@@ -511,6 +513,54 @@ def normal(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
     # operation to bfloat16, as XLA does here)
     u = torch.clamp_min(floats * 2.0 + _NORMAL_LO_BF16, _NORMAL_LO_BF16)
     return erfinv(u.float()).to(torch.bfloat16) * _SQRT2_BF16
+
+
+def _normal_from_bits(bits):
+    """float32 normals from 32-bit words: ``sqrt(2)·erfinv(u)``, u uniform
+    on ``(nextafter(-1, 0), 1)``."""
+    return erfinv(_uniform_from_bits(bits, _NORMAL_LO, 1.0)) * _SQRT2
+
+
+# Flat elements of one chunk of ``normal_into``. A float32 normal's
+# temporaries peak in the Threefry rounds: the int64 counter and its low
+# word, the two state words and a rotate's three int64 intermediates are
+# live at once, 7 x 8 = 56 bytes an element (the uniform and erfinv stages
+# hold float32 and bool tensors, less), plus the chunk's float32 result and
+# its transform: about 64 bytes an element. 2**25 elements x 64 bytes = 2
+# GiB a chunk, against tens of GiB for a whole expert or embedding leaf
+# (DeepSeek-V3's [1, 256, 7168, 2048] expert leaf is 3.76e9 elements).
+DRAW_CHUNK = 1 << 25
+
+
+def normal_into(k: torch.Tensor, out: torch.Tensor, fn=None, *,
+                chunk: int = DRAW_CHUNK) -> torch.Tensor:
+    """Fill the contiguous ``out`` with ``fn(normal(k, out.shape))`` (float32
+    normals, ``fn`` elementwise, identity when None) cast to out's dtype,
+    and return it. A threefry host key draws in chunks of ``chunk`` flat
+    elements, each written into its slice of ``out``: element i depends on
+    counter i alone and every step is elementwise, so the result is bitwise
+    the whole draw's, and the temporaries are those of one chunk. On
+    ``meta`` it returns ``out`` as it is."""
+    if out.device.type == "meta":
+        return out
+    n = out.numel()
+    if n <= chunk or not isinstance(k, torch.Tensor) \
+            or not _one_host_key(k) or k.shape[-1] != 2:
+        g = normal(k, tuple(out.shape), device=out.device)
+        out.copy_(fn(g) if fn is not None else g)
+        return out
+    flat = out.view(-1)
+    k0, k1 = k.tolist()
+    for a in range(0, n, chunk):
+        idx = torch.arange(a, min(a + chunk, n), dtype=torch.int64,
+                           device=out.device)
+        hi = 0 if n <= 2 ** 32 else idx >> 32
+        x0, x1 = threefry2x32(k0, k1, hi, idx & MASK32)
+        del idx
+        g = _normal_from_bits(x0 ^ x1)
+        del x0, x1
+        flat[a:a + g.numel()] = fn(g) if fn is not None else g
+    return out
 
 
 def exponential(k: torch.Tensor, shape, *, impl=None,

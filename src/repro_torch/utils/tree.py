@@ -38,9 +38,11 @@ def tree_unflatten(paths, leaves) -> dict:
 
 
 def tree_map(fn, tree, *rest) -> dict:
-    """``fn`` over the leaves of same-structured nested dicts."""
+    """``fn`` over the leaves of same-structured nested dicts; a None
+    subtree stays None (jax's node without leaves)."""
     return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+            else None if v is None else fn(v, *(r[k] for r in rest))
+            for k, v in tree.items()}
 
 
 def tree_size(tree) -> int:

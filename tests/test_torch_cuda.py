@@ -15,7 +15,10 @@ summation order), bfloat16 within 1 bf16 ulp of the output; RMSNorm (both
 dtypes, one scale or a ``[G, D]`` scale) and float32 flash attention also
 bitwise their summation order's torch twin; attention at every head dim
 it builds (8 in float32, 16 to 256), and over more batch rows than grid.z
-holds. The client-batched LM and classifier losses against each client's
+holds, and with v's head dim apart from q's ((192, 128), (24, 16); an
+unbuilt pair raises). The MoE layer bitwise run to run, the in-place
+stacked init and the chunked draws bitwise the whole ones. The
+client-batched LM and classifier losses against each client's
 own loss; bfloat16 normals bitwise the CPU's, and the transformer track's
 rounds (also with bfloat16 directions) within 1e-3 of the CPU's. The
 autograd wrappers of RMSNorm and attention (their backward bitwise the
@@ -376,6 +379,101 @@ def test_attention_head_dims_on_card(gen, dtype, hd, b, s, hq, hkv, causal,
         u, r, _ = chip_smoke.bf16_attention_errs(torch, q, k, v, got, want,
                                                  causal, window)
         assert u <= (1 if r <= 1 else 1 + r)
+
+
+@pytest.mark.parametrize("dk,dv,dtype", [
+    (192, 128, torch.float32), (192, 128, torch.bfloat16),
+    (24, 16, torch.float32)])
+@pytest.mark.parametrize("b,s,hq,hkv,causal,window", [
+    (2, 64, 128, 128, True, 0),   # deepseek-v3's prefill heads
+    (2, 100, 4, 1, True, 24),     # ragged, window, G = 4
+    (1, 130, 2, 2, False, 0),     # non-causal over 3 ragged tiles
+    (1, 300, 4, 2, True, 0),      # 5 tiles: both stages cycle
+])
+def test_attention_value_head_dim_on_card(gen, dk, dv, dtype, b, s, hq, hkv,
+                                          causal, window):
+    """v's head dim apart from q's (MLA: (192, 128) at DeepSeek-V3's
+    width, (24, 16) at its smoke size) against the plain version at MLA's
+    scale 1/√D: float32 within 1e-5 of max |out|; bfloat16 by
+    ``chip_smoke.bf16_attention_errs``'s rule."""
+    q = torch.randn(b, s, hq, dk, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, s, hkv, dk, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, s, hkv, dv, generator=gen, device="cuda").to(dtype)
+    scale = 1.0 / math.sqrt(dk)
+    got = ops.attention(q, k, v, causal=causal, window=window, scale=scale)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, hq, dv)
+    top = float(want.float().abs().max())
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * top
+    else:
+        u, r, _ = chip_smoke.bf16_attention_errs(torch, q, k, v, got, want,
+                                                 causal, window)
+        assert u <= (1 if r <= 1 else 1 + r)
+
+
+@pytest.mark.parametrize("dk,dv,dtype", [(24, 16, torch.bfloat16),
+                                         (192, 64, torch.float32),
+                                         (128, 64, torch.bfloat16)])
+def test_attention_unbuilt_head_dim_pair_raises_on_card(gen, dk, dv, dtype):
+    """A pair the kernel does not build raises; nothing falls back to the
+    plain version."""
+    q = torch.randn(1, 8, 2, dk, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, 8, 2, dv, generator=gen, device="cuda").to(dtype)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="not built"):
+        ops.attention(q, q, v)
+    assert ops.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_fwd_bitwise_run_to_run_on_card(gen, dtype):
+    """The MoE layer twice on the same inputs on the card: the routing
+    (stable sorts), the dispatch and combine (gathers, no atomics) and the
+    expert GEMMs give the same bits; the output agrees with the CPU's
+    (float32: 1e-5 of its largest)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("qwen3-moe-30b-a3b-smoke").replace(dtype=dtype)
+    dt = getattr(torch, dtype)
+    p = moe.init_moe(prng.key(0), cfg, dt, device="cuda")
+    x = torch.randn(4, 64, cfg.d_model, generator=gen, device="cuda").to(dt)
+    a, aux_a = moe.moe_fwd(p, cfg, x)
+    b, aux_b = moe.moe_fwd(p, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    if dtype == "float32":
+        cpu = {k: v.cpu() for k, v in p.items()}
+        c, aux_c = moe.moe_fwd(cpu, cfg, x.cpu())
+        assert float((a.cpu() - c).abs().max()) <= 1e-5 * float(c.abs().max())
+        assert abs(float(aux_a) - float(aux_c)) <= 1e-5 * float(aux_c)
+
+
+def test_stacked_init_and_chunked_draws_bitwise_on_card(gen):
+    """On the card, ``_stack_init`` fills each stacked leaf in place,
+    bitwise ``_stack`` of the layers drawn one by one (the previous init),
+    at deepseek-v3-671b-smoke (dense and MoE blocks, MLA); a chunked draw
+    is bitwise the whole draw, transformed and cast."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as ttf
+    from repro_torch.utils.flatparams import _leaves
+    cfg = get_config("deepseek-v3-671b-smoke")
+    for moe_layer in (False, True):
+        def init(k):
+            return ttf.init_block(k, cfg, torch.float32, moe_layer=moe_layer,
+                                  device="cuda")
+        got = ttf._stack_init(prng.key(5), 3, init)
+        want = ttf._stack([init(prng.fold_in(prng.key(5), i))
+                           for i in range(3)])
+        for (pa, a), (pb, b) in zip(_leaves(got), _leaves(want)):
+            assert pa == pb and torch.equal(a, b), pa
+    k = prng.key(11)
+    g = prng.normal(k, (3, 70, 50), device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        out = torch.empty((3, 70, 50), dtype=dt, device="cuda")
+        prng.normal_into(k, out, lambda x: x * 0.125, chunk=4096)
+        assert torch.equal(out, (g * 0.125).to(dt))
 
 
 def flash_f32_row_order(q, k, v, *, causal=True, window=0, block_k=64):
