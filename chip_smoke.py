@@ -239,6 +239,46 @@ each of which raises on a failure (the script then exits non-zero):
    Then flash_attention at (192, 128), [2, 64, 128/128], both dtypes,
    timed against SDPA and its bound.
 
+11. Phase "moe cohort, ssm and hybrid" (budget 150 s), each part's seconds
+   and peak memory printed, each number with the card's name and power
+   limit; each model's kernels first held at its shapes against their
+   plain versions under phase 2's tolerances.
+   (a) ``fedzo.round_simulated`` on qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B)
+       at full width (128 experts, d 2,048, the full vocabulary), reduced
+       in depth only to its first (MoE) layer, in float32: M = 2, H = 2, b2
+       = 8, batch 4 x 128 a client, mu 1e-3, plain mean and AirComp; the
+       reckoned peak printed first; exact launches (those of one client:
+       16 zo_walk, +1 with AirComp, 2 zo_replay, 2 zo_dirnorms, 90 rmsnorm,
+       18 flash_attention), ms a round and peak; the mean round bitwise a
+       second run; the batched loss against each client's own and the
+       routing integers (idx, keep) of the one against the other, at
+       capacity factor E / k and at 1.25. Kernels held: rmsnorm with an [M,
+       128] scale over the qk norms' rows, attention over the cohort's M.B
+       rows [8, 128, 32/4, 128] in float32.
+   (b) qwen3-moe-30b-a3b-smoke and deepseek-v3-671b-smoke in float32, one
+       flat, one flat AirComp and one wide (block) round each (M = 3, H =
+       1, b2 = 4; COHORT_SMOKE_H says why one iterate) on the card against
+       the CPU within COHORT_SMOKE_TOL, exact launches.
+   (c) hymba-1.5b (arXiv:2411.13676) at full width and depth in bfloat16
+       through ``launch/serve.py`` (batch 2 x prompt 2,048, so its window of
+       1,024 bites; 8 greedy steps): init seconds, peak from before the
+       init, exact launches (prefill 32 attention, 65 rmsnorm; 65 rmsnorm a
+       decode step), a warm loop, decode against prefill within
+       SERVE_BF16_TOL; then its cross-silo train step at full width in
+       float32, 2 flat steps (b2 8, batch 2 x 256), finite, exact launches,
+       bitwise a second run.
+   (d) rwkv6-7b (arXiv:2404.05892) at full width and depth in bfloat16
+       through ``launch/serve.py`` (batch 2 x prompt 512, 8 greedy steps):
+       init, peak, prefill and decode times; no kernel launched (its counts
+       all 0: layernorms and a plain-torch WKV, as the reference's jnp);
+       decode against prefill; the cache's size independent of its width.
+   (e) rwkv6-7b-smoke and hymba-1.5b-smoke in float32 on the card against
+       the CPU: prefill, 4 decode steps, the loss, one pytree train step.
+   Then flash_attention at hymba's prefill shape with the window of 1,024
+   (and without it), both dtypes, against SDPA with the boolean window
+   mask and the bound of the pairs the window keeps; rmsnorm over
+   [4,096, 1,600] against ``F.rms_norm``.
+
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
 traces of one softmax round and one Qwen2-0.5B train step (kernel time by
@@ -3549,7 +3589,10 @@ POD_N, POD_B, POD_S, POD_STEPS = 2, 2, 128, 2
 
 def layer_norms(cfg):
     """RMSNorm launches of one block: two, and the q and k norms under
-    qk_norm, MLA's q and kv norms under MLA."""
+    qk_norm, MLA's q and kv norms under MLA; none under layernorm (plain
+    torch: rwkv6)."""
+    if cfg.norm != "rmsnorm":
+        return 0
     return 2 + 2 * (cfg.qk_norm or cfg.mla is not None)
 
 
@@ -3557,12 +3600,14 @@ def serve_launches(cfg, prefills, decodes):
     """rmsnorm and flash_attention launches of ``prefills`` prefills and
     ``decodes`` decode steps of a served model: per layer two RMSNorms
     (and the q and k norms under qk_norm, MLA's q and kv norms under MLA)
-    and, in prefill, one attention; the final norm once per forward.
-    Decode's one-token attention (MLA's absorbed form too) and the MoE
-    layers are plain torch."""
-    per = layer_norms(cfg) * cfg.n_layers + 1
+    and, in prefill, one attention (none in an ssm layer); the final norm
+    once per forward (none of these under layernorm). Decode's one-token
+    attention (MLA's absorbed form too), the MoE layers and the ssm and
+    Mamba layers are plain torch."""
+    per = layer_norms(cfg) * cfg.n_layers + (cfg.norm == "rmsnorm")
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
     return {"rmsnorm": per * (prefills + decodes),
-            "flash_attention": cfg.n_layers * prefills}
+            "flash_attention": attn * prefills}
 
 
 def dense_param_count(cfg):
@@ -3582,7 +3627,8 @@ def dense_param_count(cfg):
 def decode_vs_prefill(torch, model, params, batch, tol_rel):
     """The reference's consistency check: one decode step at position S
     after a prefill of S tokens against the last logits of a prefill of
-    S + 1 tokens. Returns max |dec - ref| / max |ref|."""
+    S + 1 tokens. Returns (max |dec - ref| / max |ref| over the real
+    vocabulary, the argmax agreement)."""
     from repro_torch.utils import prng
     S = batch["tokens"].shape[1]
     _, cache = model.prefill(params, batch, S + 4)
@@ -3592,7 +3638,9 @@ def decode_vs_prefill(torch, model, params, batch, tol_rel):
                           torch.tensor(S, device="cuda"))
     ref, _ = model.prefill(params, {"tokens": torch.cat(
         [batch["tokens"], nxt], 1)}, S + 5)
-    dec, ref = dec.float(), ref.float()
+    # the padded vocabulary's columns hold -1e30 in both: left out
+    v = model.cfg.vocab
+    dec, ref = dec[:, :v].float(), ref[:, :v].float()
     rel = float((dec - ref).abs().max() / ref.abs().max())
     check(rel <= tol_rel, f"{model.cfg.name}: decode vs prefill rel {rel} "
           f"> {tol_rel}")
@@ -4107,19 +4155,20 @@ def moe_bitwise_twice(torch, cfg, p, gen, dtype):
           f"{cfg.name}: moe_fwd differs between two runs on the card")
 
 
-def serve_moe_loop(torch, ops, model, params, batch, cfg, total):
-    """One warm prefill of the batch and MOE_GEN greedy decode steps, each
-    timed between synchronisations, exact launches. Returns (prefill s,
-    decode s per step)."""
+def serve_moe_loop(torch, ops, model, params, batch, cfg, total,
+                   s=MOE_S, gen=MOE_GEN):
+    """One warm prefill of the batch (prompt ``s``) and ``gen`` greedy
+    decode steps, each timed between synchronisations, exact launches.
+    Returns (prefill s, decode s per step)."""
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, batch, MOE_S + MOE_GEN)
+    logits, cache = model.prefill(params, batch, s + gen)
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
-    pos = torch.tensor(MOE_S, device="cuda")
+    pos = torch.tensor(s, device="cuda")
     steps = []
-    for i in range(MOE_GEN):
+    for i in range(gen):
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4127,8 +4176,7 @@ def serve_moe_loop(torch, ops, model, params, batch, cfg, total):
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
     counts = dict(ops.LAUNCHES)
-    want = {**dict.fromkeys(ops.LAUNCHES, 0),
-            **serve_launches(cfg, 1, MOE_GEN)}
+    want = {**dict.fromkeys(ops.LAUNCHES, 0), **serve_launches(cfg, 1, gen)}
     check(counts == want, f"{cfg.name}: launches {counts} != {want}")
     check(bool(torch.isfinite(logits).all()), f"{cfg.name}: logits")
     for k in total:
@@ -4285,16 +4333,60 @@ def serve_deepseek_4l(torch, ops, smi, total, rows):
     torch.cuda.empty_cache()
 
 
+def smoke_runs(torch, ops, model, init, fcfg, gen, losses):
+    """A -smoke model on the CPU, then on the card from the same weights
+    ``init``: a prefill of batch MOE_B x SMOKE_S, ``gen`` decode steps on
+    the CPU's greedy tokens, ``losses(params, train batch)`` (a list of
+    floats) and one pytree FedZO train step under ``fcfg``. Returns {device:
+    (logits, cache leaves, losses, the stepped leaves, the serving
+    launches, the step's launches, the step's forwards)}, tensors on the
+    CPU."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import fedzo
+    from repro_torch.models import api
+    from repro_torch.utils import convert, prng
+    from repro_torch.utils.flatparams import _leaves
+    shape = ShapeConfig("p", SMOKE_S, MOE_B, "prefill")
+    tshape = ShapeConfig("t", SMOKE_S, MOE_B, "train")
+    calls = [0]
+
+    def loss(p, b):
+        calls[0] += 1
+        return model.loss(p, b)
+
+    out, toks = {}, []
+    for dev in ("cpu", "cuda"):
+        p = init if dev == "cpu" else convert.to_torch(
+            convert.to_numpy(init), device="cuda")
+        b = api.make_batch(model, shape, prng.key(1), device=dev)
+        tb = api.make_batch(model, tshape, prng.key(2), device=dev)
+        ops.reset_launches()
+        lg, c = model.prefill(p, b, shape.seq_len + gen)
+        logits = [lg.cpu()]
+        for i in range(gen):
+            if dev == "cpu":
+                toks.append(torch.argmax(lg, -1)[:, None].to(torch.int32))
+            lg, c = model.decode(p, {"tokens": toks[i].to(dev)}, c,
+                                 torch.tensor(shape.seq_len + i, device=dev))
+            logits.append(lg.cpu())
+        serve_counts = dict(ops.LAUNCHES)
+        vals = losses(p, tb)
+        calls[0] = 0
+        ops.reset_launches()
+        new, _ = fedzo.make_train_step(loss, fcfg)(p, tb, prng.key(3))
+        out[dev] = (logits, [t.cpu() for _, t in _leaves(c)], vals,
+                    [t.cpu() for _, t in _leaves(new)], serve_counts,
+                    dict(ops.LAUNCHES), calls[0])
+    return out
+
+
 def moe_smoke_card_vs_cpu(torch, ops, FedZOConfig, total):
     """Part (c): both -smoke configs in float32 on the card against the
     same port on the CPU from the same weights: prefill and 4 decode steps
     on the CPU's greedy tokens (logits and caches), the loss with and
     without the aux (and the MTP term), one pytree FedZO train step (b2 2,
     mu 1e-2) with exact launches, and moe_fwd bitwise run to run."""
-    import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core import fedzo
     from repro_torch.models import api, transformer
     from repro_torch.utils import convert, prng
     from repro_torch.utils.flatparams import _leaves
@@ -4303,55 +4395,21 @@ def moe_smoke_card_vs_cpu(torch, ops, FedZOConfig, total):
         model = api.build(get_config(arch))
         cfg = model.cfg
         init = model.init(prng.key(0), device="cpu")
-        shape = ShapeConfig("p", SMOKE_S, MOE_B, "prefill")
-        tshape = ShapeConfig("t", SMOKE_S, MOE_B, "train")
         fcfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=2)
-        calls = [0]
 
-        def loss(p, b):
-            calls[0] += 1
-            return model.loss(p, b)
-
-        out, toks = {}, []
-        for dev in ("cpu", "cuda"):
-            p = init if dev == "cpu" else convert.to_torch(
-                convert.to_numpy(init), device="cuda")
-            b = api.make_batch(model, shape, prng.key(1), device=dev)
-            tb = api.make_batch(model, tshape, prng.key(2), device=dev)
-            ops.reset_launches()
-            lg, c = model.prefill(p, b, shape.seq_len + MOE_GEN)
-            logits = [lg.cpu()]
-            for i in range(MOE_GEN):
-                if dev == "cpu":
-                    toks.append(torch.argmax(lg, -1)[:, None].to(
-                        torch.int32))
-                lg, c = model.decode(p, {"tokens": toks[i].to(dev)}, c,
-                                     torch.tensor(shape.seq_len + i,
-                                                  device=dev))
-                logits.append(lg.cpu())
-            serve_counts = dict(ops.LAUNCHES)
-            losses = [float(model.loss(p, tb)), float(transformer.loss_fn(
+        def losses(p, tb):
+            vals = [float(model.loss(p, tb)), float(transformer.loss_fn(
                 p, tb, cfg.replace(router_aux_coef=0.0)))]
             if cfg.mtp:
-                losses.append(float(transformer.loss_fn(
+                vals.append(float(transformer.loss_fn(
                     p, tb, cfg.replace(mtp=False))))
-            calls[0] = 0
-            ops.reset_launches()
-            new, met = fedzo.make_train_step(loss, fcfg)(p, tb, prng.key(3))
-            step_counts = dict(ops.LAUNCHES)
-            out[dev] = (logits, {g: None if v is None else
-                                 {k: t.cpu() for k, t in v.items()}
-                                 for g, v in c.items()},
-                        losses, [t.cpu() for _, t in _leaves(new)],
-                        serve_counts, step_counts, calls[0])
+            return vals
+
+        out = smoke_runs(torch, ops, model, init, fcfg, MOE_GEN, losses)
         cpu, card = out["cpu"], out["cuda"]
         worst = 0.0
-        for g, w in zip(card[0], cpu[0]):
+        for g, w in zip(card[0] + card[1], cpu[0] + cpu[1]):
             worst = max(worst, float((g - w).abs().max() / w.abs().max()))
-        for grp, kv in cpu[1].items():
-            for k, w in (kv or {}).items():
-                worst = max(worst, float((card[1][grp][k] - w).abs().max()
-                                         / w.abs().max()))
         check(worst <= SMOKE_CARD_REL, f"{arch}: serve card vs CPU {worst}")
         lrel = max(abs(a - b) / abs(b) for a, b in zip(card[2], cpu[2]))
         check(lrel <= SMOKE_CARD_REL, f"{arch}: losses {card[2]} {cpu[2]}")
@@ -4454,6 +4512,618 @@ def run_moe_serving(torch, ops, FedZOConfig, smi, rows):
     took = time.perf_counter() - t_phase
     print(f"moe serving: {took:.1f} s of the {MOE_BUDGET_S:.0f} s budget "
           f"[{smi}]")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase "moe cohort, ssm and hybrid": the flat FedZO round on
+# qwen3-moe-30b-a3b at full width (depth cut to one layer), hymba-1.5b and
+# rwkv6-7b served at full width and depth, the -smoke configs on the card
+# against the CPU
+
+COHORT_BUDGET_S = 150.0
+# qwen3-moe-30b-a3b at full width (all 128 experts, d 2,048, the full
+# 151,936-token vocabulary), its depth cut to the first layer (a MoE
+# layer): 1,245,452,544 parameters, 4.64 GiB a float32 copy. The flat round
+# holds about 2 + 4M such copies at M clients (the flat Qwen2-0.5B round
+# of phase "qwen flat round" holds 33.19 GiB at M = 4 on an H100, 18
+# copies of 1.84 GiB): about 46 GiB at M = 2, and past 65 GiB at two
+# layers or M = 4; hence one layer and M = 2.
+COHORT_LAYERS, COHORT_PARAMS = 1, 1_245_452_544
+COHORT_M, COHORT_H, COHORT_B2 = 2, 2, 8
+COHORT_B, COHORT_S = 4, 128       # per client, of the synthetic LM stream
+# hymba-1.5b served: batch 2 x prompt 2,048, so the sliding window of
+# 1,024 bites, and 8 greedy steps; then the cross-silo train step in
+# float32, 2 flat steps (b2 8) of batch 2 x 256
+HYMBA_B, HYMBA_S, HYMBA_GEN = 2, 2_048, 8
+HYMBA_PARAMS = 1_393_000_000
+HYMBA_STEP_B, HYMBA_STEP_S, HYMBA_STEPS = 2, 256, 2
+# rwkv6-7b served: batch 2 x prompt 512, 8 greedy steps
+RWKV_B, RWKV_S, RWKV_GEN = 2, 512, 8
+RWKV_PARAMS = 7_534_944_256
+# The -smoke rounds on the card against the CPU (qwen3-moe and deepseek-v3,
+# M = 3, b2 = 4, mu = 1e-2, lr = 1e-3): a loss ulp moves a weight by about
+# 1e-4 an iterate (check_lm_round_small_reference's argument), so one
+# iterate stays within 1e-3. One iterate (H = 1), not two: at random
+# weights a perturbed point that crosses a routing boundary gives a
+# coefficient of millions, and the second iterate starts from weights
+# that such a coefficient moved by up to 0.6, where a 1e-6 relative
+# difference in the start moves the round's result by 0.43 (qwen3-moe-smoke
+# on this stream, measured on the CPU; with H = 1 a 1e-5 relative
+# difference moves it by 1.2e-4 at most, and the card's forwards differ
+# from the CPU's by about 1e-7).
+COHORT_SMOKE_H = 1
+COHORT_SMOKE_TOL = 1e-3
+# The ssm and hybrid -smoke pytree steps: MOE_STEP_TOL's argument (a loss
+# ulp moves a weight by about 1e-4 at lr 1e-3, b2 2, mu 1e-2); the step
+# must move a weight by at least five times the bound (hymba-1.5b-smoke's
+# step moves its largest weight by 9.7e-3, tests/test_torch_ssm.py).
+SSM_STEP_MOVE = 5 * MOE_STEP_TOL
+SSM_SMOKE_GEN = 4   # the ssm and hybrid -smoke configs' decode steps
+
+
+def cohort_launches(ops, mcfg, fcfg):
+    """Launches of one simulated round of the LM ``mcfg`` under ``fcfg``
+    (flat or wide): ``round_launches``' ZO kernels, and per forward the
+    blocks' RMSNorms, the final norm and, under MTP, its norm and block;
+    one attention a layer (and the MTP block's)."""
+    want = round_launches(ops, fcfg, 1)
+    forwards = fcfg.local_iters * (2 if fcfg.batch_directions
+                                   else fcfg.b2 + 1)
+    norms = (layer_norms(mcfg) * mcfg.n_layers + 1
+             + mcfg.mtp * (1 + layer_norms(mcfg)))
+    want.update(rmsnorm=forwards * norms,
+                flash_attention=forwards * (mcfg.n_layers + mcfg.mtp))
+    return want
+
+
+def routing_spy():
+    """Record (idx, keep) of every ``route`` and ``route_batched`` while it
+    is installed; returns (records, uninstall)."""
+    from repro_torch.models import moe
+    orig = (moe.route, moe.route_batched)
+    seen = {"single": [], "batched": []}
+
+    def spy(kind, fn):
+        def wrapped(*a, **k):
+            r = fn(*a, **k)
+            seen[kind].append((r["idx"], r["keep"]))
+            return r
+        return wrapped
+
+    moe.route = spy("single", orig[0])
+    moe.route_batched = spy("batched", orig[1])
+
+    def undo():
+        moe.route, moe.route_batched = orig
+    return seen, undo
+
+
+def cohort_vs_each(torch, model, buf, spec, batch):
+    """The batched loss of the clients' weights (rows of ``buf``) against
+    each client's own ``model.loss``, and the routing integers of the one
+    against the other. Returns (rel, ulps, routing differences, routed
+    assignments, dropped share)."""
+    from repro_torch.utils.flatparams import unflatten
+    m = buf.shape[0]
+    seen, undo = routing_spy()
+    try:
+        got = model.loss_batched(unflatten(buf, spec), batch)
+        each = torch.stack([model.loss(unflatten(buf[i], spec),
+                                       {k: v[i] for k, v in batch.items()})
+                            for i in range(m)])
+    finally:
+        undo()
+    (idx_b, keep_b), = seen["batched"]
+    check(len(seen["single"]) == m, f"{len(seen['single'])} routings")
+    flips, routed, kept = 0, 0, 0
+    for i, (idx, keep) in enumerate(seen["single"]):
+        n = keep.numel()
+        flips += int((idx_b[i] != idx).sum()) + int(
+            (keep_b[i * n:(i + 1) * n] != keep).sum())
+        routed += n
+        kept += int(keep.sum())
+    rel = float(((got - each).abs() / each.abs()).max())
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    return (rel, float(((got - each).abs() / ulp).max()), flips, routed,
+            1.0 - kept / routed)
+
+
+def run_moe_cohort_round(torch, ops, FedZOConfig, smi, total, rows):
+    """Part (a): ``fedzo.round_simulated`` on qwen3-moe-30b-a3b at full
+    width, depth cut to one layer, in float32 (M = 2, H = 2, b2 = 8, batch
+    4 x 128 a client, mu 1e-3), plain mean and AirComp: exact launches
+    (those of one client whatever M is), ms a round and peak memory; the
+    mean round bitwise a second run of itself; the batched loss against
+    each client's own, and the routing integers, at capacity factor E / k
+    (nothing drops) and at the published 1.25."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import fedzo
+    from repro_torch.data.synthetic import lm_token_stream
+    from repro_torch.kernels import flash_attention as plain_flash
+    from repro_torch.kernels import rmsnorm as plain_rms
+    from repro_torch.models import api
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten
+    from repro_torch.utils.tree import tree_leaves, tree_size
+
+    cfg = get_config("qwen3-moe-30b-a3b").replace(
+        n_layers=COHORT_LAYERS, dtype="float32")
+    m, h, b, s = COHORT_M, COHORT_H, COHORT_B, COHORT_S
+    # the cohort's kernels at its shapes: the qk norms' rows under an [M,
+    # 128] scale, the block norms' [M, B.S, 2,048] rows, one attention over
+    # the M.B rows
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    notes, err = [], dict.fromkeys(("rmsnorm", "flash_attention"), 0.0)
+    for x, sc in ((rnd(m, b * s * cfg.n_heads, cfg.head_dim),
+                   1.0 + 0.1 * rnd(m, cfg.head_dim)),
+                  (rnd(m, b * s, cfg.d_model), 1.0 + 0.1 * rnd(m, cfg.d_model))):
+        _, e, note = hold_rmsnorm(torch, ops, plain_rms, x, sc)
+        err["rmsnorm"] = max(err["rmsnorm"], e)
+        notes.append(note + f" ({x.shape[0]} scales)")
+    e, note = hold_attention(torch, ops, plain_flash,
+                             rnd(m * b, s, cfg.n_heads, cfg.head_dim),
+                             rnd(m * b, s, cfg.n_kv_heads, cfg.head_dim),
+                             rnd(m * b, s, cfg.n_kv_heads, cfg.head_dim),
+                             True, 0)
+    err["flash_attention"] = max(err["flash_attention"], e)
+    notes.append(note)
+    for k, e in err.items():
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
+    print("moe cohort shapes against the plain versions: " + "; ".join(notes))
+
+    model = api.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(prng.key(0), device="cuda")
+    n = tree_size(params)
+    check(n == COHORT_PARAMS, f"qwen3-moe 1 layer: {n} parameters")
+    spec = flat_spec(params)
+    toks = lm_token_stream(200_000, min(cfg.vocab, 4096), seed=0)
+    rng = np.random.default_rng(1)
+    per = [lm_batch(torch, toks, rng, b, s, "cuda") for _ in range(m * h)]
+    batches = {k: torch.stack([x[k] for x in per]).reshape((m, h, b, s))
+               for k in ("tokens", "labels")}
+    keys = prng.split(prng.key(1), m)
+    base = dict(n_participating=m, local_iters=h, lr=1e-4, mu=1e-3,
+                b2=COHORT_B2, estimator="sphere", flat_params=True)
+    cfgs = {"mean": FedZOConfig(**base),
+            "aircomp": FedZOConfig(**base, aircomp=True,
+                                   channel_schedule=True, snr_db=5.0)}
+    copy = 4 * spec.n_pad / 2**30
+    print(f"moe cohort round: d {spec.d}, n_pad {spec.n_pad}; reckoned peak "
+          f"{(2 + 4 * m) * copy:.1f} GiB ({2 + 4 * m} float32 copies of "
+          f"{copy:.2f} GiB: the flat Qwen2-0.5B round holds 18 copies at M "
+          f"= 4) [{smi}]")
+    first = None
+    for name in ("mean", "aircomp", "mean"):
+        fcfg = cfgs[name]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = fedzo.round_simulated(model.loss, params, batches, keys,
+                                         fcfg, channel_rng=prng.key(2))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(ops.LAUNCHES)
+        want = cohort_launches(ops, cfg, fcfg)
+        check(counts == want, f"moe cohort round {name}: launches {counts} "
+              f"!= {want}")
+        for k in total:
+            total[k] += counts[k]
+        mets = {k: float(v) for k, v in met.items()}
+        check(all(map(math.isfinite, mets.values())),
+              f"moe cohort round {name}: metrics {mets}")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+              f"moe cohort round {name}: parameters not finite")
+        moved = max(float((a - c).abs().max()) for a, c in
+                    zip(tree_leaves(new), tree_leaves(params)))
+        check(moved > 0, f"moe cohort round {name}: no weight moved")
+        again = ""
+        if name == "mean" and first is None:
+            first = new
+        elif name == "mean":
+            check(all(torch.equal(a, c) for a, c in
+                      zip(tree_leaves(new), tree_leaves(first))),
+                  "moe cohort round: a second run differs")
+            again = "; bitwise the first mean round"
+            first = None
+        del new
+        print(f"qwen3_moe_1l_flat_round {name} (float32, full width, "
+              f"reduced: depth only, n_layers {COHORT_LAYERS} of 48; M {m}, "
+              f"H {h}, b2 {fcfg.b2}, batch {b} x {s} a client): ms/round "
+              f"{ms:.1f}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB; metrics {json.dumps(mets)}; largest weight move "
+              f"{moved:.3e}; launches {counts} (M-independent){again} "
+              f"[{smi}]")
+        torch.cuda.empty_cache()
+    # each client's own weights: the server weights plus a per-client
+    # offset, as rows of one [M, n_pad] buffer
+    buf = flatten(params, spec)[None].repeat(m, 1)
+    buf += 1e-3 * torch.randn(buf.shape, generator=g, device="cuda")
+    b0 = {k: v[:, 0] for k, v in batches.items()}
+    for factor in (cfg.n_experts / cfg.top_k, cfg.capacity_factor):
+        mdl = api.build(cfg.replace(capacity_factor=factor))
+        rel, ulps, flips, routed, dropped = cohort_vs_each(
+            torch, mdl, buf, spec, b0)
+        check(rel <= 1e-5, f"moe cohort loss vs each client at capacity "
+              f"factor {factor}: rel {rel}")
+        print(f"moe cohort loss vs each client's own at capacity factor "
+              f"{factor}: rel {rel:.2e} ({ulps:.1f} ulps); routing integers "
+              f"(idx, keep) differing: {flips} of {2 * routed}; dropped "
+              f"{dropped:.4f} of {routed} routed assignments a client")
+    del buf, params, first
+    torch.cuda.empty_cache()
+
+
+def moe_rounds_card_vs_cpu(torch, ops, FedZOConfig, total):
+    """Part (b): qwen3-moe-30b-a3b-smoke and deepseek-v3-671b-smoke in
+    float32, one flat round, one flat AirComp round and one wide round
+    (batch_directions, block directions) each (M = 3, H = COHORT_SMOKE_H,
+    b2 = 4, mu 1e-2, lr 1e-3), on the card against the same round on the
+    CPU: the weights within COHORT_SMOKE_TOL, the card's launches exact."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import fedzo
+    from repro_torch.data.synthetic import lm_token_stream
+    from repro_torch.models import api
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+    m, h = 3, COHORT_SMOKE_H
+    base = dict(n_participating=m, local_iters=h, lr=1e-3, mu=1e-2, b2=4,
+                flat_params=True)
+    fcfgs = {"flat": FedZOConfig(**base),
+             "aircomp": FedZOConfig(**base, aircomp=True,
+                                    channel_schedule=True, snr_db=5.0),
+             "wide": FedZOConfig(**base, batch_directions=True,
+                                 direction_conv="block")}
+    notes = []
+    for arch in ("qwen3-moe-30b-a3b-smoke", "deepseek-v3-671b-smoke"):
+        model = api.build(get_config(arch))
+        init = model.init(prng.key(0), device="cpu")
+        spec = flat_spec(init)
+        toks = lm_token_stream(20_000, 512, seed=0)
+        rng = np.random.default_rng(0)
+        per = [lm_batch(torch, toks, rng, 2, 16, "cpu") for _ in range(m * h)]
+        batches = {k: torch.stack([x[k] for x in per]).reshape((m, h, 2, 16))
+                   for k in ("tokens", "labels")}
+        for name, fcfg in fcfgs.items():
+            out = {}
+            for dev in ("cuda", "cpu"):
+                params = unflatten(flatten(init, spec).to(dev), spec)
+                ops.reset_launches()
+                new, _ = fedzo.round_simulated(
+                    model.loss, params,
+                    {k: v.to(dev) for k, v in batches.items()},
+                    prng.split(prng.key(1), m), fcfg,
+                    channel_rng=prng.key(2))
+                out[dev] = (flatten(new, spec).cpu(), dict(ops.LAUNCHES))
+            want = cohort_launches(ops, model.cfg, fcfg)
+            check(out["cuda"][1] == want, f"{arch} {name} round: launches "
+                  f"{out['cuda'][1]} != {want}")
+            for k in total:
+                total[k] += out["cuda"][1][k]
+            worst = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+            moved = float((out["cpu"][0] - flatten(init, spec)).abs().max())
+            check(worst <= COHORT_SMOKE_TOL and moved >= 10 * COHORT_SMOKE_TOL,
+                  f"{arch} {name} round card vs CPU {worst}, moved {moved}")
+            notes.append(f"{arch} {name} {worst:.2e} (moved {moved:.3g})")
+    print(f"moe smoke rounds (float32) on the card against the CPU, max "
+          f"|param diff| (bound {COHORT_SMOKE_TOL}): " + "; ".join(notes))
+
+
+def window_pairs(s, w):
+    """(q, k) pairs a causal window of ``w`` keeps over ``s`` positions."""
+    w = min(w, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def time_window_attention(torch, ops, smi, rows):
+    """flash_attention at hymba-1.5b's prefill shape (q [2, 2,048, 25, 64],
+    k/v [2, 2,048, 5, 64], causal, window 1,024), both dtypes: the
+    kernel, its plain version, SDPA with the boolean window mask and the
+    bound of the pairs the window keeps; and the kernel without the window
+    at the same shape (a kernel that skips the key tiles wholly outside
+    the window runs the windowed call faster). Stored in the attention
+    row's ``window`` entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as plain_flash
+    g = torch.Generator(device="cuda").manual_seed(12)
+    b, s, hq, hkv, d, w = HYMBA_B, HYMBA_S, 25, 5, 64, 1_024
+    q = torch.randn(b, s, hq, d, generator=g, device="cuda")
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
+            for _ in range(2))
+    i = torch.arange(s, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w)
+    pairs = window_pairs(s, w)
+    flops = 2 * (d + d) * pairs * b * hq         # q.k and p.v multiply-adds
+    elems = b * s * (2 * hq * d + 2 * hkv * d)   # q, k, v read, out written
+    out, lines = {}, []
+    for dt, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        ms = median_ms(torch, lambda: ops.attention(qd, kd, vd, window=w), 20)
+        causal_ms = median_ms(torch, lambda: ops.attention(qd, kd, vd), 20)
+        lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), 20)
+        plain_ms = median_ms(torch, lambda: plain_flash.flash_attention_plain(
+            qd, kd, vd, window=w), 3)
+        bd = bound(elems * (4 if dt == torch.float32 else 2), flops, kind)
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                         causal_ms=causal_ms, **bd)
+        lines.append(f"flash_attention window {w} {kind} [{b}, {s}, {hq}/"
+                     f"{hkv}, {d}] (hymba-1.5b prefill): ms {ms:.5f}, "
+                     f"without the window {causal_ms:.5f} ({ms / causal_ms:.3f}"
+                     f"; the window keeps {pairs / (s * (s + 1) // 2):.3f} of "
+                     f"the causal pairs), plain {plain_ms:.4f}, SDPA with the "
+                     f"boolean mask {lib:.5f} ({ms / lib:.2f}x), bound "
+                     f"{bd['bound_ms']:.5f} ({bd['bound_by']}, "
+                     f"{bd['bound_ms'] / ms:.1%} of it) [{smi}]")
+    rows["flash_attention"]["window"] = out
+    for line in lines:
+        print(line)
+
+
+def time_rmsnorm_1600(torch, ops, smi, rows):
+    """rmsnorm over hymba-1.5b's prefill rows [4,096, 1,600], both dtypes:
+    the kernel, its plain version, ``F.rms_norm`` and the bound. Stored in
+    the rmsnorm row's ``d1600`` entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as plain_rms
+    g = torch.Generator(device="cuda").manual_seed(13)
+    r, d = HYMBA_B * HYMBA_S, 1_600
+    out, lines = {}, []
+    for dt, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        x = torch.randn(r, d, generator=g, device="cuda").to(dt)
+        sc = (1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+        ms = median_ms(torch, lambda: ops.rmsnorm(x, sc, eps=1e-6), 50)
+        lib = median_ms(torch, lambda: F.rms_norm(x, (d,), sc, eps=1e-6), 50)
+        plain_ms = median_ms(torch, lambda: plain_rms.rmsnorm_plain(
+            x, sc, eps=1e-6), 10)
+        bd = bound((2 * r * d + d) * x.element_size(), 4 * r * d, "fp32")
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, **bd)
+        lines.append(f"rmsnorm {kind} [{r}, {d}] (hymba-1.5b prefill): ms "
+                     f"{ms:.5f}, plain {plain_ms:.4f}, F.rms_norm {lib:.5f}, "
+                     f"bound {bd['bound_ms']:.5f} ({bd['bound_by']}, "
+                     f"{bd['bound_ms'] / ms:.1%} of it) [{smi}]")
+    rows["rmsnorm"]["d1600"] = out
+    for line in lines:
+        print(line)
+
+
+def serve_full(torch, ops, arch, b, s, gen, smi, total):
+    """``launch/serve.py``'s ``main`` on ``arch`` at full width and depth
+    in bfloat16, batch ``b`` x prompt ``s``, ``gen`` greedy steps: init
+    seconds, peak memory from before the init, exact launches; a warm
+    prefill and decode loop; one decode step against a prefill of S + 1
+    tokens within SERVE_BF16_TOL. Returns (result, peak GiB, warm prefill
+    s, warm decode s a step, rel, argmax agreement)."""
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.main(["--arch", arch, "--batch", str(b), "--prompt-len",
+                      str(s), "--gen", str(gen)])
+    cfg = res.model.cfg
+    for got, want in ((res.prefill_launches, serve_launches(cfg, 1, 0)),
+                      (res.decode_launches, serve_launches(cfg, 0, gen))):
+        want = {**dict.fromkeys(ops.LAUNCHES, 0), **want}
+        check(got == want, f"serve {arch}: launches {got} != {want}")
+        for k in total:
+            total[k] += got[k]
+    pre_s, steps = serve_moe_loop(torch, ops, res.model, res.params,
+                                  res.batch, cfg, total, s=s, gen=gen)
+    rel, agree = decode_vs_prefill(torch, res.model, res.params, res.batch,
+                                   SERVE_BF16_TOL)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return res, peak, pre_s, sorted(steps[1:])[len(steps[1:]) // 2], rel, \
+        agree
+
+
+def serve_hymba(torch, ops, FedZOConfig, smi, total, rows):
+    """Part (c): hymba-1.5b (arXiv:2411.13676) at full width and depth in
+    bfloat16 through ``launch/serve.py`` (batch 2 x prompt 2,048, the
+    window of 1,024 biting, 8 greedy steps), its kernels first held at its
+    shapes; then the cross-silo train step at full width in float32: 2 flat
+    steps (b2 8, batch 2 x 256), finite, exact launches, bitwise a second
+    run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import fedzo
+    from repro_torch.data.synthetic import lm_token_stream
+    from repro_torch.models import api
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_size
+    cfg = get_config("hymba-1.5b")
+    hold_served_kernels(torch, ops, cfg, HYMBA_B, HYMBA_S, rows)
+    res, peak, pre_s, step_s, rel, agree = serve_full(
+        torch, ops, cfg.name, HYMBA_B, HYMBA_S, HYMBA_GEN, smi, total)
+    n = tree_size(res.params)
+    check(n == HYMBA_PARAMS, f"hymba-1.5b: {n} parameters")
+    print(f"hymba_1_5b_serve (bfloat16, full width and depth, {n} "
+          f"parameters): init {res.init_s:.2f} s; peak {peak:.3f} GiB from "
+          f"before the init; CLI prefill batch {HYMBA_B} x {HYMBA_S} "
+          f"{1e3 * res.prefill_s:.2f} ms, decode "
+          f"{1e3 * res.decode_s / HYMBA_GEN:.2f} ms a step; warm prefill "
+          f"{1e3 * pre_s:.2f} ms ({HYMBA_B * HYMBA_S / pre_s:.1f} tok/s), "
+          f"decode {1e3 * step_s:.3f} ms a step (median after the first, "
+          f"{HYMBA_B / step_s:.1f} tok/s); decode vs prefill rel {rel:.3e} "
+          f"(bound {SERVE_BF16_TOL}), argmax agree {agree:.2f}; launches "
+          f"prefill {res.prefill_launches['rmsnorm']} rmsnorm "
+          f"{res.prefill_launches['flash_attention']} attention, decode "
+          f"{res.decode_launches['rmsnorm']} rmsnorm "
+          f"{res.decode_launches['flash_attention']} attention [{smi}]")
+    del res
+    torch.cuda.empty_cache()
+
+    model = api.build(cfg.replace(dtype="float32"))
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(prng.key(0), device="cuda")
+    toks = lm_token_stream(200_000, min(cfg.vocab, 4096), seed=0)
+    rng = np.random.default_rng(0)
+    batches = [lm_batch(torch, toks, rng, HYMBA_STEP_B, HYMBA_STEP_S, "cuda")
+               for _ in range(HYMBA_STEPS)]
+    fcfg = FedZOConfig(lr=1e-4, mu=1e-3, b2=COHORT_B2, flat_params=True)
+    step = fedzo.make_train_step(model.loss, fcfg)
+    per = serve_launches(cfg, 1, 0)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0), "zo_walk": fcfg.b2,
+            "zo_replay": 1, "zo_dirnorms": 1,
+            "rmsnorm": (fcfg.b2 + 1) * per["rmsnorm"],
+            "flash_attention": (fcfg.b2 + 1) * per["flash_attention"]}
+    runs = []
+    for run in range(2):
+        p, losses, ms = params, [], []
+        for i, batch in enumerate(batches):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, met = step(p, batch, prng.key(10 + i))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts = dict(ops.LAUNCHES)
+            check(counts == want, f"hymba step: launches {counts} != {want}")
+            if run == 0:
+                for k in total:
+                    total[k] += counts[k]
+            losses.append(float(met["loss"]))
+        check(all(map(math.isfinite, losses)) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(p)),
+            f"hymba step: losses {losses}")
+        runs.append((p, losses, ms))
+    check(all(torch.equal(a, c) for a, c in zip(tree_leaves(runs[0][0]),
+                                                tree_leaves(runs[1][0]))),
+          "hymba step: a second run differs")
+    moved = max(float((a - c).abs().max()) for a, c in
+                zip(tree_leaves(runs[0][0]), tree_leaves(params)))
+    print(f"hymba_1_5b_train (float32, full width and depth, flat route, b2 "
+          f"{fcfg.b2}, batch {HYMBA_STEP_B} x {HYMBA_STEP_S}): ms a step "
+          f"{[round(t, 1) for t in runs[0][2] + runs[1][2]]}; losses "
+          f"{runs[0][1]}; largest weight move {moved:.3e}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bitwise a "
+          f"second run; launches a step {want} [{smi}]")
+    del params, runs, p
+    torch.cuda.empty_cache()
+
+
+def serve_rwkv(torch, ops, smi, total):
+    """Part (d): rwkv6-7b (arXiv:2404.05892) at full width and depth in
+    bfloat16 through ``launch/serve.py`` (batch 2 x prompt 512, 8 greedy
+    steps): init seconds, peak, prefill and decode times; no kernel
+    launches (layernorms, no attention: its counts are all 0); decode
+    against prefill; a cache whose size does not depend on its width."""
+    from repro_torch.utils.tree import tree_leaves, tree_size
+    res, peak, pre_s, step_s, rel, agree = serve_full(
+        torch, ops, "rwkv6-7b", RWKV_B, RWKV_S, RWKV_GEN, smi, total)
+    n = tree_size(res.params)
+    check(n == RWKV_PARAMS, f"rwkv6-7b: {n} parameters")
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    check(res.prefill_launches == zero and res.decode_launches == zero,
+          f"rwkv6-7b launched {res.prefill_launches} {res.decode_launches}")
+    sizes = [sum(t.numel() for t in tree_leaves(res.model.init_cache(
+        RWKV_B, w, device="cuda"))) for w in (16, RWKV_S + RWKV_GEN)]
+    check(sizes[0] == sizes[1], f"rwkv6-7b cache sizes {sizes}")
+    print(f"rwkv6_7b_serve (bfloat16, full width and depth, {n} parameters):"
+          f" init {res.init_s:.2f} s; peak {peak:.3f} GiB from before the "
+          f"init; CLI prefill batch {RWKV_B} x {RWKV_S} "
+          f"{1e3 * res.prefill_s:.2f} ms, decode "
+          f"{1e3 * res.decode_s / RWKV_GEN:.2f} ms a step; warm prefill "
+          f"{1e3 * pre_s:.2f} ms ({RWKV_B * RWKV_S / pre_s:.1f} tok/s), "
+          f"decode {1e3 * step_s:.3f} ms a step (median after the first, "
+          f"{RWKV_B / step_s:.1f} tok/s); decode vs prefill rel {rel:.3e} "
+          f"(bound {SERVE_BF16_TOL}), argmax agree {agree:.2f}; cache "
+          f"{sizes[0]} elements at widths 16 and {RWKV_S + RWKV_GEN}; no "
+          f"kernel launched (counts all 0: layernorm and the WKV are plain "
+          f"torch, as the reference's jnp) [{smi}]")
+    del res
+    torch.cuda.empty_cache()
+
+
+def ssm_smoke_card_vs_cpu(torch, ops, FedZOConfig, total):
+    """Part (e): rwkv6-7b-smoke and hymba-1.5b-smoke in float32 on the card
+    against the same port on the CPU from the same weights
+    (``smoke_runs``): prefill and 4 decode steps on the CPU's greedy tokens
+    (logits and every cache leaf), the loss, one pytree FedZO train step
+    (b2 2, mu 1e-2) with exact launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import _leaves
+    notes = []
+    for arch in ("rwkv6-7b-smoke", "hymba-1.5b-smoke"):
+        model = api.build(get_config(arch))
+        cfg = model.cfg
+        init = model.init(prng.key(0), device="cpu")
+        fcfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=2)
+        out = smoke_runs(torch, ops, model, init, fcfg, SSM_SMOKE_GEN,
+                         lambda p, tb: [float(model.loss(p, tb))])
+        cpu, card = out["cpu"], out["cuda"]
+        worst = 0.0
+        for g, w in zip(card[0] + card[1], cpu[0] + cpu[1]):
+            worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+        check(worst <= SMOKE_CARD_REL, f"{arch}: serve card vs CPU {worst}")
+        lrel = abs(card[2][0] - cpu[2][0]) / abs(cpu[2][0])
+        check(lrel <= SMOKE_CARD_REL, f"{arch}: loss {card[2]} {cpu[2]}")
+        moved = max(float((a - c).abs().max()) for a, c in
+                    zip(cpu[3], (t for _, t in _leaves(init))))
+        diff = max(float((a - c).abs().max()) for a, c in
+                   zip(card[3], cpu[3]))
+        check(diff <= MOE_STEP_TOL and moved >= SSM_STEP_MOVE,
+              f"{arch}: step card vs CPU {diff}, moved {moved}")
+        want = {**dict.fromkeys(ops.LAUNCHES, 0),
+                **serve_launches(cfg, 1, SSM_SMOKE_GEN)}
+        check(card[4] == want, f"{arch}: serve launches {card[4]} != {want}")
+        per = serve_launches(cfg, 1, 0)
+        want = {**dict.fromkeys(ops.LAUNCHES, 0),
+                "rmsnorm": (fcfg.b2 + 1) * per["rmsnorm"],
+                "flash_attention": (fcfg.b2 + 1) * per["flash_attention"],
+                "zo_axpy": 2 * fcfg.b2 * len(_leaves(init))}
+        check(card[6] == cpu[6] == fcfg.b2 + 1 and card[5] == want,
+              f"{arch}: step launches {card[5]} != {want} ({card[6]} "
+              f"forwards)")
+        for counts in (card[4], card[5]):
+            for k in total:
+                total[k] += counts[k]
+        notes.append(f"{arch}: serve card vs CPU {worst:.3e}, loss "
+                     f"{lrel:.3e} (bound {SMOKE_CARD_REL}); step {diff:.3e} "
+                     f"(bound {MOE_STEP_TOL}) against a move of {moved:.4g}")
+    print("ssm and hybrid smoke configs (float32) on the card against the "
+          "CPU: " + "; ".join(notes))
+
+
+def run_cohort_ssm(torch, ops, FedZOConfig, smi, rows):
+    """Phase "moe cohort, ssm and hybrid": parts (a) to (e) and the
+    windowed attention and 1,600-wide RMSNorm timings, each part's seconds
+    and peak memory printed; budget COHORT_BUDGET_S. Returns the launches
+    of its main-path runs."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for name, part in (
+            ("(a) moe flat round", lambda: run_moe_cohort_round(
+                torch, ops, FedZOConfig, smi, total, rows)),
+            ("(b) moe smoke rounds card vs CPU", lambda: moe_rounds_card_vs_cpu(
+                torch, ops, FedZOConfig, total)),
+            ("(c) hymba-1.5b", lambda: serve_hymba(
+                torch, ops, FedZOConfig, smi, total, rows)),
+            ("(d) rwkv6-7b", lambda: serve_rwkv(torch, ops, smi, total)),
+            ("(e) ssm smoke configs card vs CPU", lambda: ssm_smoke_card_vs_cpu(
+                torch, ops, FedZOConfig, total)),
+            ("windowed attention and rmsnorm timing", lambda: (
+                time_window_attention(torch, ops, smi, rows),
+                time_rmsnorm_1600(torch, ops, smi, rows)))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        part()
+        print(f"part {name}: {time.perf_counter() - t0:.1f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"moe cohort, ssm and hybrid: {took:.1f} s of the "
+          f"{COHORT_BUDGET_S:.0f} s budget [{smi}]")
     return total
 
 
@@ -4629,6 +5299,9 @@ def main(argv):
             torch, ops, neural, FedZOConfig, smi, rows)).items():
         launches[k] += n
     for k, n in timed("moe serving", lambda: run_moe_serving(
+            torch, ops, FedZOConfig, smi, rows)).items():
+        launches[k] += n
+    for k, n in timed("moe cohort, ssm and hybrid", lambda: run_cohort_ssm(
             torch, ops, FedZOConfig, smi, rows)).items():
         launches[k] += n
     if args.profile:

@@ -2,9 +2,10 @@
 ``get_shape("<shape-id>")``, as in ``repro/configs/__init__.py``. The
 ``-smoke`` suffix gives the reduced variant (``ModelConfig.reduced``).
 
-The dense and MoE architectures (``qwen3-moe-30b-a3b``; ``deepseek-v3-671b``
-with MLA and MTP) are registered; the other families' ids (ssm, hybrid,
-enc-dec, VLM) and any unknown id raise ``NotImplementedError``.
+The dense, MoE (``qwen3-moe-30b-a3b``; ``deepseek-v3-671b`` with MLA and
+MTP), ssm (``rwkv6-7b``) and hybrid (``hymba-1.5b``) architectures are
+registered; the enc-dec and VLM ids and any unknown id raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,10 +21,11 @@ _ARCH_MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "rwkv6-7b": "rwkv6_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 # the reference's other architectures: families the port does not build
-_UNPORTED = ("rwkv6-7b", "llama-3.2-vision-90b", "seamless-m4t-large-v2",
-             "hymba-1.5b")
+_UNPORTED = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 SHAPE_IDS = tuple(INPUT_SHAPES)

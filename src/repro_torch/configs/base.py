@@ -3,8 +3,8 @@
 (``repro/configs/base.py``).
 
 The field sets and defaults are the reference's, so a config built for one
-package means the same run in the other. The port builds the dense and moe
-(MLA, MTP) model families; fields that select a route it does not have yet
+package means the same run in the other. The port builds the dense, moe
+(MLA, MTP), ssm and hybrid model families; fields that select a route it does not have yet
 are rejected where they are used (``core/fedzo.py``, ``models/api.py``),
 never silently ignored.
 """

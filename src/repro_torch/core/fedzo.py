@@ -118,7 +118,8 @@ def batched_loss(loss_fn):
     row a client).
 
     A loss that carries its client-batched form as ``loss_fn.batched`` (the
-    dense LM's, ``models/api.py``; the transformer track's) runs through
+    dense and moe LMs', ``models/api.py``; the transformer track's) runs
+    through
     it: one kernel launch per RMSNorm and attention for the whole cohort,
     and the batch is not copied r times. Any other loss goes through
     ``torch.func.vmap`` (two levels when r > 1, the inner one sharing the

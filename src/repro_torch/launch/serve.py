@@ -1,10 +1,12 @@
 """Serving CLI: one batched prefill, then a decode loop, on a registered
-architecture (dense or moe), in PyTorch.
+architecture (dense, moe, ssm or hybrid), in PyTorch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b-smoke \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b --batch 2 --prompt-len 64 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch hymba-1.5b --batch 2 --prompt-len 2048 --gen 8
 
 Counterpart of ``repro/launch/serve.py``: the same flags, key chain and
 printed lines. The weights come from ``--seed``, the prompt from
@@ -17,10 +19,14 @@ second (host clock between ``torch.cuda.synchronize()`` calls), the first
 two requests' tokens and ``serve OK`` after a finite check of the last
 logits. On the card the prefill runs the ``flash_attention`` and
 ``rmsnorm`` kernels in every layer and decode the ``rmsnorm`` kernel; the
-one-token attention over the cache (MLA's absorbed form included) and the
-MoE routing and expert GEMMs are plain torch, as the reference's.
-qwen3-moe-30b-a3b at full width holds 56.89 GiB of bfloat16 weights: one
-80 GB card serves it with its cache.
+one-token attention over the cache (MLA's absorbed form included), the
+MoE routing and expert GEMMs, and the rwkv6 and Mamba layers (the chunked
+WKV, the selective scan, their one-step recurrences on the cached state)
+are plain torch, as the reference's. An ssm model (rwkv6-7b, layernorms,
+no attention) launches no kernel at all; a hybrid one (hymba-1.5b)
+launches them as a dense one does, its attention under its sliding window
+of 1,024. qwen3-moe-30b-a3b at full width holds 56.89 GiB of bfloat16
+weights: one 80 GB card serves it with its cache.
 
 ``--device`` (default ``cuda``; the CPU only when asked) is the port's
 addition. ``main(argv)`` returns a ``ServeResult``.

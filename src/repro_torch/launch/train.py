@@ -7,6 +7,9 @@ Counterpart of ``repro/launch/train.py``: the same flags and defaults, the
 same printed lines, the same key chain and synthetic LM stream, and with
 ``--out`` the same ``history.json`` (with ``algo``) and ``final/``
 checkpoint (the format both packages read, ``checkpoint/checkpoint.py``).
+``--arch`` takes any registered architecture: the dense, moe, ssm
+(``rwkv6-7b``) and hybrid (``hymba-1.5b``) families, each step one
+client's loss.
 
 - ``--algo fedzo`` (default, lr 1e-4) runs one local iterate per step on
   the reference's default route, the pytree estimator (``FedZOConfig()``'s

@@ -1,4 +1,4 @@
-"""Unified model API, dense and moe families.
+"""Unified model API: the dense, moe, ssm and hybrid families.
 
 Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
 ``Model`` bundle of functions,
@@ -8,8 +8,9 @@ Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
                                          means with n_groups > 1)
   loss_batched(params, batch) -> [M]    (``loss`` per client of a cohort:
                                          leaves and batch with a leading
-                                         ``[M]`` client axis; dense family
-                                         only, the moe family raises)
+                                         ``[M]`` client axis; dense and
+                                         moe families, ssm and hybrid
+                                         raise)
   prefill(params, batch, width) -> (logits [B, V], cache)
   decode(params, batch, cache, pos, window=0) -> (logits [B, V], cache)
   init_cache(batch_size, width, device="cuda") -> zeroed cache
@@ -23,12 +24,14 @@ the parameters' device; a decode batch's ``tokens`` is ``[B, 1]`` and
 ``pos`` a 0-d int tensor (the decode cache is written in place,
 ``models/transformer.py``). ``make_batch`` draws a batch bitwise the
 reference's. The moe family (``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``
-with MLA and MTP) builds through the same ``transformer`` functions; its
-client-batched cohort loss is not ported, so ``loss_batched`` (and with
-it ``fedzo.batched_loss``, the flat and wide rounds) raises
-``NotImplementedError`` for it before any forward runs. Families other
-than dense and moe raise at ``build``, and with them their prefill and
-decode.
+with MLA and MTP), the ssm family (``rwkv6-7b``) and the hybrid family
+(``hymba-1.5b``) build through the same ``transformer`` functions. The moe
+family's cohort loss routes each client's tokens with its own router, so
+flat and wide rounds run on it; the ssm and hybrid families' cohort loss
+is not ported, so ``loss_batched`` (and with it ``fedzo.batched_loss``)
+raises ``NotImplementedError`` for them before any forward runs, while
+their ``loss``, prefill, decode and train step run. The encdec and vlm
+families raise at ``build``, and with them their prefill and decode.
 """
 from __future__ import annotations
 

@@ -20,7 +20,8 @@ at DeepSeek-V3's width), v of ``v_head_dim`` (128), at the explicit scale
 GEMMs, and the attention is ONE kernel call over the ``[M·B, S, H, D]``
 rows. The kernel treats each batch row on its own, so its output is bit
 for bit that of M separate calls, and the launch count does not depend on
-M.
+M. ``mla_fwd_batched`` is MLA's: the latents' RMSNorms and the attention
+one launch each for the cohort.
 
 Decode caches are ring buffers of width W: ``{"k": [B, W, Hkv, D], "v":
 [B, W, Hkv, D]}`` for GQA, ``{"latent": [B, W, kv_lora + rope]}`` (the
@@ -255,6 +256,34 @@ def mla_fwd(p, cfg, x, *, window=0):
     out = out.reshape(B, S, -1) @ p["wo"]
     latent = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
     return out, latent
+
+
+def mla_fwd_batched(p, cfg, x):
+    """``mla_fwd`` per client: x ``[M, B, S, d]``, weights ``[M, ...]`` ->
+    ``[M, B, S, d]``. The q and kv latents' RMSNorms are one launch each
+    over the cohort (each client's rows under its own ``[M, D]`` scale),
+    and the attention one launch over the ``[M·B]`` rows at (nope + rope,
+    v_head_dim) and the scale 1/√(nope + rope)."""
+    m, h = cfg.mla, cfg.n_heads
+    M, B, S, d = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    xt = x.reshape(M, B * S, d)
+    q = norm_fwd_batched(p["q_norm"], xt @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(M * B, S, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_rope = apply_rope(q[..., m.qk_nope_dim:], cos, sin)
+    kv = xt @ p["wkv_a"]
+    c_kv = norm_fwd_batched(p["kv_norm"],
+                            kv[..., :m.kv_lora_rank].contiguous())
+    k_rope = apply_rope(kv[..., m.kv_lora_rank:].reshape(
+        M * B, S, 1, m.qk_rope_dim), cos, sin)   # 1 shared rope head
+    k_nope = (c_kv @ p["wk_b"]).reshape(M * B, S, h, m.qk_nope_dim)
+    v = (c_kv @ p["wv_b"]).reshape(M * B, S, h, m.v_head_dim)
+    q = torch.cat([q[..., :m.qk_nope_dim], q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(M * B, S, h, m.qk_rope_dim)],
+                  dim=-1)
+    out = ops.attention(q, k, v, causal=True, scale=_mla_scale(m))
+    return (out.reshape(M, B * S, -1) @ p["wo"]).reshape(M, B, S, -1)
 
 
 def init_mla_cache(cfg, batch, width, dtype, *, device="cpu"):

@@ -1,7 +1,10 @@
 """Mixture-of-Experts with sort-based capacity dispatch, on one device.
 
 Counterpart of ``repro/models/moe.py:40-210`` with ``mesh=None``:
-``init_moe``, ``_capacity``, ``_route_and_compute`` and ``moe_fwd``. The
+``init_moe``, ``_capacity``, ``_route_and_compute`` and ``moe_fwd``; and
+``moe_fwd_batched``, the reference's ``moe_fwd`` under ``jax.vmap`` over
+the clients of a flat or wide round (each client routing its own tokens
+with its own router). The
 reference's expert-parallel ``shard_map`` branch (tokens over ``data``,
 experts over ``model``) is not ported: ``moe_fwd`` given a mesh raises
 ``NotImplementedError``.
@@ -32,12 +35,19 @@ within a chunk), one rounding in the activation dtype at a time.
 
 The expert FFNs are batched GEMMs over ``[E, C, d] × [E, d, f]``: the
 reference computes them outside any Pallas kernel.
+
+The cohort form (``route_batched``, ``moe_fwd_batched``) numbers client
+m's expert e as the global expert ``m·E + e``: one stable sort of the
+whole cohort's assignments then gives every client its own slots, drops
+and order of adds, so row m of the cohort is client m's ``moe_fwd`` up to
+the GEMMs' summation order.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import _act, dense_init, init_mlp, mlp_fwd
+from repro_torch.models.layers import (_act, dense_init, init_mlp, mlp_fwd,
+                                       mlp_fwd_batched)
 from repro_torch.utils import prng
 
 
@@ -72,6 +82,31 @@ def _capacity(n_tokens, cfg, e_local):
     return max(c, cfg.top_k)  # floor so tiny smoke shapes don't drop everything
 
 
+def _sort_assignments(fe, ft, fg, n_exp, capacity):
+    """Sort the assignments (expert id ``fe``, token ``ft``, gate ``fg``,
+    each ``[A]``; ``n_exp`` is the dustbin id) stably by expert: ``order``,
+    ``se``, ``st``, ``sg``, each expert's slot ``pos`` and ``keep`` in
+    sorted order, and ``starts``, ``counts`` ``[n_exp + 1]``."""
+    order = torch.argsort(fe, stable=True)
+    se, st, sg = fe[order], ft[order], fg[order]
+    counts = torch.bincount(se, minlength=n_exp + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(fe.shape[0], device=fe.device) - starts[se]
+    keep = (se < n_exp) & (pos < capacity)
+    return dict(order=order, se=se, st=st, sg=sg, pos=pos, keep=keep,
+                starts=starts, counts=counts)
+
+
+def _top_k(logits, k):
+    """(probs, gates, idx) of float32 router ``logits [..., E]``: the
+    softmax, each token's top k by a stable descending sort (jax's order
+    among ties) and their gates renormalised to sum to 1."""
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = top.values[..., :k], top.indices[..., :k]
+    return probs, gates / torch.sum(gates, dim=-1, keepdim=True), idx
+
+
 def route(x_flat, p_router, *, cfg, e_offset, e_local, capacity):
     """The routing of tokens ``x_flat [T, d]`` over local experts
     ``[e_offset, e_offset + e_local)``: a dict of
@@ -87,27 +122,77 @@ def route(x_flat, p_router, *, cfg, e_offset, e_local, capacity):
     """
     T = x_flat.shape[0]
     k = cfg.top_k
-    dev = x_flat.device
     # the router matmul in the activation dtype, the softmax in float32
     logits = (x_flat @ p_router.to(x_flat.dtype)).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = top.values[:, :k], top.indices[:, :k]
-    gates = gates / torch.sum(gates, dim=-1, keepdim=True)
-
+    probs, gates, idx = _top_k(logits, k)
     fe = idx.reshape(-1)                                    # [T*k]
-    ft = torch.arange(T, device=dev).repeat_interleave(k)   # token of each
-    fg = gates.reshape(-1)
+    ft = torch.arange(T, device=x_flat.device).repeat_interleave(k)
     is_local = (fe >= e_offset) & (fe < e_offset + e_local)
     le = torch.where(is_local, fe - e_offset, e_local)
-    order = torch.argsort(le, stable=True)
-    se, st, sg = le[order], ft[order], fg[order]
-    counts = torch.bincount(se, minlength=e_local + 1)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * k, device=dev) - starts[se]
-    keep = (se < e_local) & (pos < capacity)
-    return dict(probs=probs, idx=idx, fe=fe, order=order, se=se, st=st,
-                sg=sg, pos=pos, keep=keep, starts=starts, counts=counts)
+    r = _sort_assignments(le, ft, gates.reshape(-1), e_local, capacity)
+    return dict(probs=probs, idx=idx, fe=fe, **r)
+
+
+def route_batched(x, p_router, *, cfg, capacity):
+    """``route`` per client of a cohort, every expert local: tokens ``x
+    [M, T, d]`` against routers ``[M, d, E]`` (one batched product). Client
+    m's expert e is the global expert ``m·E + e`` (the dustbin ``M·E``
+    takes nothing), and token t of client m the global row ``m·T + t``, so
+    ONE stable sort of the ``M·T·k`` assignments puts client m's in a
+    block of its own, in the order of client m's own sort: the slots,
+    ``keep`` and the capacity per client are ``route``'s. ``probs [M, T,
+    E]``, ``idx [M, T, k]`` and ``fe`` (global ids) as ``route``'s; the
+    sorted fields over all M·T·k assignments."""
+    M, T, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = (x @ p_router.to(x.dtype)).to(torch.float32)   # [M, T, E]
+    probs, gates, idx = _top_k(logits, k)
+    base = torch.arange(M, device=x.device) * E
+    fe = (idx + base[:, None, None]).reshape(-1)            # [M*T*k]
+    ft = torch.arange(M * T, device=x.device).repeat_interleave(k)
+    r = _sort_assignments(fe, ft, gates.reshape(-1), M * E, capacity)
+    return dict(probs=probs, idx=idx, fe=fe, **r)
+
+
+def _dispatch(x_flat, r, n_exp, capacity):
+    """``[n_exp, C, d]``: slot (e, c) holds the token of sorted assignment
+    ``starts[e] + c`` while c is below the expert's kept count, else
+    zeros."""
+    slot = torch.arange(capacity, device=x_flat.device)
+    kept = r["counts"][:n_exp].clamp(max=capacity)
+    filled = slot[None, :] < kept[:, None]                  # [n_exp, C]
+    src = torch.where(filled, r["starts"][:n_exp, None] + slot[None, :], 0)
+    return torch.where(filled[..., None], x_flat[r["st"][src]], 0.0)
+
+
+def _experts(h_in, w_gate, w_up, w_down, act):
+    """The expert FFNs as batched GEMMs: ``[E, C, d] x [E, d, f]``."""
+    if act in ("swiglu", "geglu"):
+        h = _act(torch.bmm(h_in, w_gate), act) * torch.bmm(h_in, w_up)
+    else:
+        h = _act(torch.bmm(h_in, w_up), act)
+    return torch.bmm(h, w_down)                             # [E, C, d]
+
+
+def _combine(out_buf, r, n_tok, k, n_exp, dtype):
+    """Each token adds its k gated expert outputs in ascending sorted
+    position (the reference's chunk-by-chunk, in-order scatter-add), a
+    dropped assignment reading the zero dustbin row."""
+    C, d = out_buf.shape[1:]
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, C, d))], 0)
+    keep = r["keep"]
+    se_c = torch.where(keep, r["se"], n_exp)
+    pos_c = torch.where(keep, r["pos"], 0)
+    w = torch.where(keep, r["sg"], 0.0).to(dtype)
+    order = r["order"]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    by_token = torch.sort(inv.reshape(n_tok, k), dim=1).values  # [T, k]
+    out = torch.zeros((n_tok, d), dtype=dtype, device=out_buf.device)
+    for j in range(k):
+        q = by_token[:, j]
+        out = out + out_buf[se_c[q], pos_c[q]] * w[q][:, None]
+    return out
 
 
 def _route_and_compute(x_flat, p_router, w_gate, w_up, w_down, *, cfg,
@@ -115,46 +200,25 @@ def _route_and_compute(x_flat, p_router, w_gate, w_up, w_down, *, cfg,
     """Dispatch tokens in x_flat [T, d] to local experts [e_offset,
     e_offset + e_local). Returns (partial_out [T, d], (me, ce) partial
     load-balance stats)."""
-    T, d = x_flat.shape
-    k = cfg.top_k
-    dev = x_flat.device
     r = route(x_flat, p_router, cfg=cfg, e_offset=e_offset, e_local=e_local,
               capacity=capacity)
-    se, st, keep = r["se"], r["st"], r["keep"]
-
-    # dispatch: slot (e, c) holds sorted assignment starts[e] + c while c
-    # is below the expert's kept count, else zeros
-    slot = torch.arange(capacity, device=dev)
-    kept = r["counts"][:e_local].clamp(max=capacity)
-    filled = slot[None, :] < kept[:, None]                  # [E_l, C]
-    src = torch.where(filled, r["starts"][:e_local, None] + slot[None, :], 0)
-    h_in = torch.where(filled[..., None], x_flat[st[src]], 0.0)
-
-    if cfg.act in ("swiglu", "geglu"):
-        h = _act(torch.bmm(h_in, w_gate), cfg.act) * torch.bmm(h_in, w_up)
-    else:
-        h = _act(torch.bmm(h_in, w_up), cfg.act)
-    out_buf = torch.bmm(h, w_down)                          # [E_l, C, d]
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, capacity, d))], 0)
-
-    # combine: token t adds its k gated contributions in ascending sorted
-    # position (the reference's chunk-by-chunk, in-order scatter-add)
-    se_c = torch.where(keep, se, e_local)
-    pos_c = torch.where(keep, r["pos"], 0)
-    w = torch.where(keep, r["sg"], 0.0).to(x_flat.dtype)
-    inv = torch.empty_like(r["order"])
-    inv[r["order"]] = torch.arange(T * k, device=dev)
-    by_token = torch.sort(inv.reshape(T, k), dim=1).values  # [T, k]
-    out = torch.zeros((T, d), dtype=x_flat.dtype, device=dev)
-    for j in range(k):
-        q = by_token[:, j]
-        out = out + out_buf[se_c[q], pos_c[q]] * w[q][:, None]
-
+    h_in = _dispatch(x_flat, r, e_local, capacity)
+    out_buf = _experts(h_in, w_gate, w_up, w_down, cfg.act)
+    out = _combine(out_buf, r, x_flat.shape[0], cfg.top_k, e_local,
+                   x_flat.dtype)
     # Switch-style load-balance stats (partial; the caller normalizes);
     # ce counts every routed assignment, dropped ones included
     me = torch.sum(r["probs"], dim=0)                       # [E]
     ce = torch.bincount(r["fe"], minlength=cfg.n_experts).to(torch.float32)
     return out, (me, ce)
+
+
+def _aux(me, ce, cfg, n_tok):
+    """The load-balance loss from the summed stats (``[..., E]``): true
+    divisions, as the reference's (full_like: no host copy)."""
+    me = me / torch.full_like(me, n_tok)
+    ce = ce / torch.full_like(ce, n_tok * cfg.top_k)
+    return cfg.router_aux_coef * cfg.n_experts * torch.sum(me * ce, dim=-1)
 
 
 def moe_fwd(p, cfg, x, mesh=None):
@@ -170,13 +234,38 @@ def moe_fwd(p, cfg, x, mesh=None):
     out, (me, ce) = _route_and_compute(
         x_flat, p["router"], p["w_gate"], p["w_up"], p["w_down"],
         cfg=cfg, e_offset=0, e_local=E, capacity=cap)
-    n_tok = B * S
-    # true divisions, as the reference's (full_like: no host copy)
-    me = me / torch.full_like(me, n_tok)
-    ce = ce / torch.full_like(ce, n_tok * cfg.top_k)
-    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
-
+    aux = _aux(me, ce, cfg, B * S)
     out = out.reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + mlp_fwd(p["shared"], x, cfg.act)
     return out, aux
+
+
+def moe_fwd_batched(p, cfg, x):
+    """``moe_fwd`` per client of a cohort: x ``[M, B, S, d]`` and leaves
+    ``[M, ...]`` (views of the cohort buffer) -> (out ``[M, B, S, d]``, aux
+    ``[M]``). Client m routes its own B·S tokens with its own router at
+    the capacity of its own token count (``route_batched``); the dispatch
+    and the combine are one gather each over the cohort; the expert FFNs
+    are one ``[E, C, d] x [E, d, f]`` GEMM per client and product, read
+    from each client's expert leaves in place (the leaves' client stride
+    is the buffer's row, so folding ``[M, E]`` into one batch axis would
+    copy every expert weight)."""
+    M, B, S, d = x.shape
+    E, T = cfg.n_experts, B * S
+    cap = _capacity(T, cfg, E)
+    x_flat = x.reshape(M * T, d)
+    r = route_batched(x.reshape(M, T, d), p["router"], cfg=cfg,
+                      capacity=cap)
+    h_in = _dispatch(x_flat, r, M * E, cap).reshape(M, E, cap, d)
+    out_buf = torch.cat([_experts(h_in[m], p["w_gate"][m], p["w_up"][m],
+                                  p["w_down"][m], cfg.act)
+                         for m in range(M)])
+    out = _combine(out_buf, r, M * T, cfg.top_k, M * E, x.dtype)
+    me = torch.sum(r["probs"], dim=1)                       # [M, E]
+    ce = torch.bincount(r["fe"], minlength=M * E).reshape(M, E).to(
+        torch.float32)
+    out = out.reshape(M, B, S, d)
+    if cfg.n_shared_experts:
+        out = out + mlp_fwd_batched(p["shared"], x, cfg.act)
+    return out, _aux(me, ce, cfg, T)

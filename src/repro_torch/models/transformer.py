@@ -1,5 +1,5 @@
-"""Decoder-only transformer assembly: the dense and moe families (MoE
-layers, MLA, MTP).
+"""Decoder-only transformer assembly: the dense, moe (MoE layers, MLA,
+MTP), ssm (rwkv6) and hybrid (attention beside a Mamba branch) families.
 
 Counterpart of ``repro/models/transformer.py:39-179, 229-388``. Layers are
 stacked: one nested dict whose leaves carry a leading ``[L]`` axis, each
@@ -22,16 +22,23 @@ and, under MTP, 0.3 times the cross entropy of the MTP block on ``hf +
 emb_next`` (the scaled embedding shifted by one token) against the labels
 shifted by one.
 
+An ssm layer (``family="ssm"``) is the rwkv6 time mix and channel mix
+(``models/ssm.py``, layernorms, no attention and no kernel); a hybrid
+layer runs the attention (under the config's sliding window) and a Mamba
+branch on the same normed input and averages them, ``0.5·(o + o2)``.
+
 ``loss_fn_batched`` is ``loss_fn`` per client of a cohort, the reference's
-loss under ``jax.vmap`` as the flat round maps it, for the dense family:
-every leaf carries a leading ``[M]`` client axis (what ``unflatten`` of the
-``[M, n_pad]`` buffer gives, views into it), the batch leaves ``[M, B,
-S]``, and it returns ``[M]`` losses. A layer is the slice ``leaf[:, i]``
-(a view), the dense products are batched GEMMs, and each RMSNorm and
-attention is one kernel launch over the whole cohort: 2L + 1 RMSNorms and
-L attentions per forward, whatever M is. The moe family's cohort forward
-(each client routing its own tokens with its own router) is not ported:
-it raises.
+loss under ``jax.vmap`` as the flat round maps it, for the dense and moe
+families: every leaf carries a leading ``[M]`` client axis (what
+``unflatten`` of the ``[M, n_pad]`` buffer gives, views into it), the
+batch leaves ``[M, B, S]``, and it returns ``[M]`` losses. A layer is the
+slice ``leaf[:, i]`` (a view), the dense products are batched GEMMs, and
+each RMSNorm and attention is one kernel launch over the whole cohort:
+2L + 1 RMSNorms (4L + 1 under qk_norm or MLA) and L attentions per
+forward, whatever M is. A MoE layer routes each client's tokens with its
+own router (``moe.moe_fwd_batched``), MLA runs per client
+(``attention.mla_fwd_batched``), and each row adds its own aux and MTP
+term. The ssm and hybrid families' cohort loss is not ported: it raises.
 
 The classifier head (``init_classifier``, ``classifier_logits``,
 ``classifier_loss``, ``classifier_accuracy``) is the neural FedZO
@@ -47,18 +54,20 @@ per-layer loop over each group: prefill returns the last token's logits
 ``[B, V]`` and a cache stacked over each group's layers, ``{"blocks":
 {"k", "v"}}`` (``[L, B, W, Hkv, D]``) for a dense config, ``{"dense": …,
 "moe": …}`` for a moe one (None for an empty group; ``{"latent"}`` leaves
-``[L, B, W, kv_lora + rope]`` under MLA); a decode step takes one token
-per row and a 0-d position tensor, and writes each layer's slot of that
-cache in place.
+``[L, B, W, kv_lora + rope]`` under MLA; an ssm layer's WKV state and
+token shifts, a hybrid layer's ring and SSM state, ``init_cache``); a
+decode step takes one token per row and a 0-d position tensor, and writes
+each layer's slot (and state) of that cache in place.
 
 FedZO never calls a gradient: the forward is all the train step needs.
-The ssm, hybrid, encdec and vlm families are not ported and raise.
+The encdec and vlm families are not ported and raise.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (dense_init, embed_fwd,
                                        embed_fwd_batched, init_embed,
                                        init_mlp, init_norm,
@@ -66,13 +75,13 @@ from repro_torch.models.layers import (dense_init, embed_fwd,
                                        norm_fwd_batched, softmax_xent,
                                        softmax_xent_batched, unembed_fwd,
                                        unembed_fwd_batched)
-from repro_torch.models.moe import init_moe, moe_fwd
+from repro_torch.models.moe import init_moe, moe_fwd, moe_fwd_batched
 from repro_torch.models.simple import mean_xent, mean_xent_batched
 from repro_torch.utils import prng
 from repro_torch.utils.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _dtype(cfg):
@@ -80,9 +89,9 @@ def _dtype(cfg):
 
 
 def check_family(cfg):
-    """Reject every architecture the port cannot build as asked: the dense
-    and moe families (with MoE layers, MLA and MTP) are ported; ssm,
-    hybrid, encdec and vlm raise."""
+    """Reject every architecture the port cannot build as asked: the
+    dense, moe (with MoE layers, MLA and MTP), ssm and hybrid families are
+    ported; encdec and vlm raise."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family={cfg.family!r} not "
                                   f"ported; the port runs the {FAMILIES} "
@@ -107,10 +116,16 @@ def init_block(rng, cfg, dtype, *, moe_layer=False, device="cpu"):
     ks = prng.split(rng, 4)
     p = {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
          "norm2": init_norm(cfg.d_model, cfg.norm, dtype, device=device)}
+    if cfg.family == "ssm":  # rwkv6: time mix and channel mix only
+        p["tmix"] = ssm.init_rwkv_tmix(ks[0], cfg, dtype, device=device)
+        p["cmix"] = ssm.init_rwkv_cmix(ks[1], cfg, dtype, device=device)
+        return p
     if cfg.mla is not None:
         p["attn"] = attn.init_mla(ks[0], cfg, dtype, device=device)
     else:
         p["attn"] = attn.init_attention(ks[0], cfg, dtype, device=device)
+    if cfg.family == "hybrid":
+        p["mamba"] = ssm.init_mamba(ks[1], cfg, dtype, device=device)
     if moe_layer:
         p["moe"] = init_moe(ks[2], cfg, dtype, device=device)
     else:
@@ -177,14 +192,32 @@ def init_params(rng, cfg, *, device="cpu"):
 # block forward (full sequence)
 
 
+def _rwkv_block(p, cfg, h):
+    """The rwkv6 block on h [B, S, d] -> (h, its decode cache): the time
+    mix on the first norm, the channel mix on the second, each with its
+    token shift from a zero row."""
+    hn = norm_fwd(p["norm1"], h, cfg.norm)
+    o, (s, last) = ssm.rwkv_tmix_fwd(p["tmix"], cfg, hn)
+    h = h + o
+    hn = norm_fwd(p["norm2"], h, cfg.norm)
+    B, _, d = hn.shape
+    prev = torch.cat([hn.new_zeros((B, 1, d)), hn[:, :-1]], dim=1)
+    h = h + ssm.rwkv_cmix_fwd(p["cmix"], hn, prev)
+    return h, {"s": s, "ts_att": last, "ts_ffn": hn[:, -1]}
+
+
 def block_fwd(p, cfg, h, *, moe_layer=False):
     """Pre-norm block on h [B, S, d]. Returns (h, aux): the MoE layer's
-    load-balance loss, None for a dense layer."""
+    load-balance loss, None for any other layer."""
+    if cfg.family == "ssm":
+        return _rwkv_block(p, cfg, h)[0], None
     hn = norm_fwd(p["norm1"], h, cfg.norm)
     if cfg.mla is not None:
         o, _ = attn.mla_fwd(p["attn"], cfg, hn)
     else:
         o = attn.attention_fwd(p["attn"], cfg, hn)
+    if cfg.family == "hybrid":  # the parallel Mamba branch, averaged
+        o = 0.5 * (o + ssm.mamba_fwd(p["mamba"], cfg, hn)[0])
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
     if moe_layer:
@@ -256,17 +289,35 @@ def loss_fn(params, batch, cfg, n_groups=1):
 # prefill / decode with caches
 
 
-def init_cache(cfg, batch, width, *, device="cpu"):
-    """Zeroed decode cache stacked over each group's layers in the model's
-    dtype: ``{"blocks": {"k", "v"}}`` (``[L, B, W, Hkv, D]``) for a dense
-    config, ``{"dense": …, "moe": …}`` for a moe one (None for an empty
-    group); ``{"latent"}`` leaves under MLA."""
-    check_family(cfg)
-    dtype = _dtype(cfg)
+def _layer_cache(cfg, batch, width, dtype, device):
+    if cfg.family == "ssm":  # the WKV state and both token shifts
+        d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        return {"s": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                                 device=device),
+                "ts_att": torch.zeros((batch, d), dtype=dtype,
+                                      device=device),
+                "ts_ffn": torch.zeros((batch, d), dtype=dtype,
+                                      device=device)}
     if cfg.mla is not None:
         c = attn.init_mla_cache(cfg, batch, width, dtype, device=device)
     else:
         c = attn.init_kv_cache(cfg, batch, width, dtype, device=device)
+    if cfg.family == "hybrid":  # the ring KV cache and the SSM state
+        c["s"] = torch.zeros((batch, cfg.d_model, cfg.ssm_state),
+                             dtype=torch.float32, device=device)
+    return c
+
+
+def init_cache(cfg, batch, width, *, device="cpu"):
+    """Zeroed decode cache stacked over each group's layers:
+    ``{"blocks": {"k", "v"}}`` (``[L, B, W, Hkv, D]``, the model's dtype)
+    for a dense config, ``{"dense": …, "moe": …}`` for a moe one (None for
+    an empty group); ``{"latent"}`` leaves under MLA; a hybrid layer adds
+    the float32 SSM state ``"s"`` ``[L, B, d, n]``; an ssm layer holds only
+    ``"s"`` ``[L, B, H, hd, hd]`` (float32) and the token shifts
+    ``"ts_att"``, ``"ts_ffn"`` ``[L, B, d]``, whatever the width."""
+    check_family(cfg)
+    c = _layer_cache(cfg, batch, width, _dtype(cfg), device)
     return {ckey: None if n == 0 else
             {k: v.expand((n,) + tuple(v.shape)).contiguous()
              for k, v in c.items()}
@@ -275,11 +326,16 @@ def init_cache(cfg, batch, width, *, device="cpu"):
 
 def block_prefill(p, cfg, h, width, *, moe_layer=False):
     """Full-sequence block forward that also returns its decode cache."""
+    if cfg.family == "ssm":
+        return _rwkv_block(p, cfg, h)
     hn = norm_fwd(p["norm1"], h, cfg.norm)
     if cfg.mla is not None:
         o, cache = attn.mla_prefill(p["attn"], cfg, hn, width)
     else:
         o, cache = attn.attention_prefill(p["attn"], cfg, hn, width)
+    if cfg.family == "hybrid":
+        o2, cache["s"] = ssm.mamba_fwd(p["mamba"], cfg, hn)
+        o = 0.5 * (o + o2)
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
     if moe_layer:
@@ -290,7 +346,19 @@ def block_prefill(p, cfg, h, width, *, moe_layer=False):
 
 
 def block_decode(p, cfg, h, cache, pos, *, moe_layer=False, window=0):
-    """One-token block forward; writes ``cache``'s slot in place."""
+    """One-token block forward; writes ``cache``'s slot (and an ssm or
+    hybrid layer's state and token shifts) in place."""
+    if cfg.family == "ssm":
+        hn = norm_fwd(p["norm1"], h, cfg.norm)
+        o, (s, last) = ssm.rwkv_tmix_step(p["tmix"], cfg, hn, cache["s"],
+                                          cache["ts_att"])
+        h = h + o
+        hn = norm_fwd(p["norm2"], h, cfg.norm)
+        h = h + ssm.rwkv_cmix_fwd(p["cmix"], hn, cache["ts_ffn"][:, None])
+        cache["s"].copy_(s)
+        cache["ts_att"].copy_(last)
+        cache["ts_ffn"].copy_(hn[:, 0])
+        return h, cache
     hn = norm_fwd(p["norm1"], h, cfg.norm)
     if cfg.mla is not None:
         o, cache = attn.mla_decode(p["attn"], cfg, hn, cache, pos,
@@ -298,6 +366,10 @@ def block_decode(p, cfg, h, cache, pos, *, moe_layer=False, window=0):
     else:
         o, cache = attn.attention_decode(p["attn"], cfg, hn, cache, pos,
                                          window=window or cfg.sliding_window)
+    if cfg.family == "hybrid":
+        o2, s = ssm.mamba_step(p["mamba"], cfg, hn, cache["s"])
+        cache["s"].copy_(s)
+        o = 0.5 * (o + o2)
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
     if moe_layer:
@@ -347,12 +419,19 @@ def decode_step(params, token, cache, pos, cfg, window=0):
 # client-batched forward (the flat round's cohort)
 
 
-def block_fwd_batched(p, cfg, h):
-    """``block_fwd`` per client: h ``[M, B, S, d]``, leaves ``[M, ...]``."""
+def block_fwd_batched(p, cfg, h, *, moe_layer=False):
+    """``block_fwd`` per client: h ``[M, B, S, d]``, leaves ``[M, ...]`` ->
+    (h, aux ``[M]`` of a MoE layer, else None)."""
     hn = norm_fwd_batched(p["norm1"], h, cfg.norm)
-    h = h + attn.attention_fwd_batched(p["attn"], cfg, hn)
+    if cfg.mla is not None:
+        h = h + attn.mla_fwd_batched(p["attn"], cfg, hn)
+    else:
+        h = h + attn.attention_fwd_batched(p["attn"], cfg, hn)
     hn = norm_fwd_batched(p["norm2"], h, cfg.norm)
-    return h + mlp_fwd_batched(p["mlp"], hn, cfg.act)
+    if moe_layer:
+        o, aux = moe_fwd_batched(p["moe"], cfg, hn)
+        return h + o, aux
+    return h + mlp_fwd_batched(p["mlp"], hn, cfg.act), None
 
 
 def _layer_batched(stacked, i):
@@ -362,40 +441,55 @@ def _layer_batched(stacked, i):
 
 
 def backbone_batched(params, cfg, h):
-    for i in range(cfg.n_layers):
-        h = block_fwd_batched(_layer_batched(params["blocks"], i), cfg, h)
-    return norm_fwd_batched(params["final_norm"], h, cfg.norm)
+    """``backbone`` per client -> (h_normed ``[M, B, S, d]``, aux ``[M]``
+    or None), each stacked group's layers in turn."""
+    aux = None
+    for name, _, moe_layer, n in _groups(cfg):
+        for i in range(n):
+            h, a = block_fwd_batched(_layer_batched(params[name], i), cfg,
+                                     h, moe_layer=moe_layer)
+            aux = _add_aux(aux, a)
+    return norm_fwd_batched(params["final_norm"], h, cfg.norm), aux
 
 
 def check_batched(cfg):
-    """The client-batched forward runs the dense family without MLA or
-    MTP; the rest raises before any kernel or ``torch.func.vmap`` is
-    reached."""
+    """The client-batched forward runs the dense and moe families (MoE
+    layers, MLA, MTP); the ssm and hybrid families raise before any kernel
+    or ``torch.func.vmap`` is reached."""
     check_family(cfg)
-    if cfg.n_experts or cfg.mla is not None or cfg.mtp:
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the client-batched cohort loss of the moe family "
-            f"(each client routing its own tokens with its own router; MLA "
-            f"and MTP per client) is not ported; the single-client loss "
+            f"{cfg.name}: the client-batched cohort loss of the "
+            f"{cfg.family} family is not ported; the single-client loss "
             f"(make_train_step, launch/train.py) runs it")
 
 
 def loss_fn_batched(params, batch, cfg):
     """``loss_fn`` per client: ``[M, ...]`` leaves and batch leaves ``[M,
-    B, S]`` -> ``[M]`` losses. Leaves ``[r·M, ...]`` (the wide route's r
-    perturbed copies of each client) take client m's tokens for rows m·r …
-    m·r + r − 1 (the token ids are repeated, the weights read in place).
-    Dense family only (``check_batched``)."""
+    B, S]`` -> ``[M]`` losses, each row's MoE aux and MTP term its own.
+    Leaves ``[r·M, ...]`` (the wide route's r perturbed copies of each
+    client) take client m's tokens for rows m·r … m·r + r − 1 (the token
+    ids are repeated, the weights read in place). Dense and moe families
+    (``check_batched``)."""
     check_batched(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     r = params["final_norm"]["scale"].shape[0] // tokens.shape[0]
     if r > 1:
         tokens, labels = (t.repeat_interleave(r, 0) for t in (tokens, labels))
     h = _embed_scale(embed_fwd_batched(params["embed"], tokens), cfg)
-    hf = backbone_batched(params, cfg, h)
+    hf, aux = backbone_batched(params, cfg, h)
     logits = unembed_fwd_batched(params["embed"], hf, cfg.tie_embeddings,
                                  cfg.vocab)
-    return softmax_xent_batched(logits, labels)
+    loss = softmax_xent_batched(logits, labels)
+    if cfg.mtp:
+        emb_next = torch.cat([h[:, :, 1:], h[:, :, -1:]], dim=2)
+        h2 = norm_fwd_batched(params["mtp_norm"], hf + emb_next, cfg.norm)
+        h2, _ = block_fwd_batched(params["mtp_block"], cfg, h2)
+        logits2 = unembed_fwd_batched(params["embed"], h2,
+                                      cfg.tie_embeddings, cfg.vocab)
+        labels2 = torch.cat([labels[:, :, 1:], labels[:, :, -1:]], dim=2)
+        loss = loss + 0.3 * softmax_xent_batched(logits2, labels2)
+    return loss if aux is None else loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +552,7 @@ def classifier_logits_batched(params, cfg, x):
     h = (xt @ w).reshape(M, B, n_p, r, d).permute(0, 3, 1, 2, 4)
     h = h.reshape(Mp, B, n_p, d) + params["pos"][:, None]
     for i in range(cfg.n_layers):
-        h = block_fwd_batched(_layer_batched(params["blocks"], i), cfg, h)
+        h, _ = block_fwd_batched(_layer_batched(params["blocks"], i), cfg, h)
     h = norm_fwd_batched(params["final_norm"], h, cfg.norm)
     return torch.mean(h, dim=2) @ params["head"]
 

@@ -30,7 +30,9 @@ coefficient row), and kill-and-resume bitwise on the card. Serving: the
 dense smoke configs' prefill and ring decode on the card against the CPU,
 with exact launches; the one-rank sharded round bitwise the unsharded one
 on the card, two gloo ranks sharing the card within 1e-3 of it; the pod
-step on the card against the CPU. ``chip_smoke.py`` repeats these at the main path's full shapes and times
+step on the card against the CPU. The moe family's client-batched loss on
+the card against the CPU and each client's own; the ssm and hybrid smoke
+configs' serving and loss on the card against the CPU. ``chip_smoke.py`` repeats these at the main path's full shapes and times
 them.
 """
 import itertools
@@ -1257,3 +1259,89 @@ def test_embed_scale_scalar_is_the_tensor_product_on_card(gen, dtype):
     h = torch.randn(64, cfg.d_model, generator=gen, device="cuda").to(dtype)
     want = h * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device="cuda")
     assert torch.equal(transformer._embed_scale(h, cfg), want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b-smoke",
+                                  "deepseek-v3-671b-smoke"])
+def test_moe_cohort_loss_on_card_matches_the_cpu(gen, arch):
+    """The moe family's client-batched loss (M = 3 clients' own weights as
+    views of one ``[M, n_pad]`` buffer) on the card: the launches of one
+    forward whatever M is (the blocks' norms, the final norm, MTP's norm
+    and block; one attention a layer), within 1e-5 of the same loss on the
+    CPU and within 4 float32 ulps of each client's own ``Model.loss`` on
+    the card, and its routing the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+
+    cfg = get_config(arch)
+    model = api.build(cfg)
+    init = model.init(prng.key(0), device="cpu")
+    spec = flat_spec(init)
+    m = 3
+    buf = flatten(init, spec)[None].repeat(m, 1)
+    buf = buf + 1e-2 * torch.randn(buf.shape, generator=torch.Generator()
+                                   .manual_seed(1))
+    tok = torch.randint(0, cfg.vocab, (m, 2, 17),
+                        generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+    cpu = model.loss_batched(unflatten(buf, spec), batch)
+    bc = buf.cuda()
+    bb = {k: v.cuda() for k, v in batch.items()}
+    ops.reset_launches()
+    got = model.loss_batched(unflatten(bc, spec), bb)
+    torch.cuda.synchronize()
+    norms = chip_smoke.layer_norms(cfg)
+    assert ops.LAUNCHES["rmsnorm"] == norms * cfg.n_layers + 1 + cfg.mtp * (
+        1 + norms)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers + cfg.mtp
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=0)
+    each = torch.stack([model.loss(unflatten(bc[i], spec),
+                                   {k: t[i] for k, t in bb.items()})
+                        for i in range(m)])
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    assert float(((got - each).abs() / ulp).max()) <= 4
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b-smoke", "hymba-1.5b-smoke"])
+def test_ssm_and_hybrid_serve_and_loss_on_card_match_the_cpu(gen, arch):
+    """The ssm and hybrid smoke configs on the card against the CPU from
+    the same weights: prefill, 3 decode steps (logits and every cache
+    leaf) and the loss within 1e-5 of their largest magnitude; the launches
+    exact (rwkv6 none: layernorms and a plain WKV; hymba two RMSNorms and,
+    in prefill, one windowed attention a layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.utils import convert
+    from repro_torch.utils.flatparams import _leaves
+    cfg = get_config(arch)
+    m = api.build(cfg)
+    cpu = m.init(prng.key(0), device="cpu")
+    card = convert.to_torch(convert.to_numpy(cpu), device="cuda")
+    outs = {}
+    for dev, p in (("cpu", cpu), ("cuda", card)):
+        b = api.make_batch(m, ShapeConfig("p", 32, 2, "prefill"),
+                           prng.key(1), device=dev)
+        tb = api.make_batch(m, ShapeConfig("t", 32, 2, "train"),
+                            prng.key(2), device=dev)
+        ops.reset_launches()
+        lg, c = m.prefill(p, b, 36)
+        pre = dict(ops.LAUNCHES)
+        logits = [lg.cpu()]
+        ops.reset_launches()
+        for i in range(3):
+            tok = torch.argmax(logits[-1], -1)[:, None].to(torch.int32)
+            lg, c = m.decode(p, {"tokens": tok.to(dev)}, c,
+                             torch.tensor(32 + i, device=dev))
+            logits.append(lg.cpu())
+        outs[dev] = (logits + [t.cpu() for _, t in _leaves(c)], pre,
+                     dict(ops.LAUNCHES), m.loss(p, tb).cpu())
+    want = chip_smoke.serve_launches(cfg, 1, 0)
+    assert {k: outs["cuda"][1][k] for k in want} == want
+    want = chip_smoke.serve_launches(cfg, 0, 3)
+    assert {k: outs["cuda"][2][k] for k in want} == want
+    for g, w in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    torch.testing.assert_close(outs["cuda"][3], outs["cpu"][3], rtol=1e-5,
+                               atol=0)

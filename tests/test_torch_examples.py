@@ -1,5 +1,6 @@
 """Each ``examples_torch/`` script (the reference examples that call
-``sim.fast_sim_config``, on the port) runs at ``--smoke --device cpu``:
+``sim.fast_sim_config``, and the serving example on the hybrid family, on
+the port) runs at ``--smoke --device cpu``:
 exit 0 and its closing line. One intra-op thread each: the workers share
 the cores."""
 import os
@@ -17,6 +18,7 @@ SCRIPTS = {
     "tiered_scale.py": ([], "bitwise tiered == resident at N=50000"),
     "resumable_run.py": (["--dir", "{tmp}/ck"],
                          "resumed run is bitwise the uninterrupted"),
+    "serve_lm.py": (["--arch", "hymba-1.5b-smoke"], "serve OK"),
 }
 
 

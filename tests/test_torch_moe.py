@@ -418,13 +418,14 @@ def test_none_subtree_is_carried_by_the_tree_utilities():
 
 
 def test_cohort_loss_of_the_moe_family_raises(monkeypatch):
-    """The client-batched loss (the flat and wide rounds' cohort forward)
-    is not ported for moe: it raises, naming it, before any forward and
-    without reaching ``torch.func.vmap``."""
+    """The moe family's client-batched loss is ported
+    (``tests/test_torch_moe_cohort.py``); the ssm and hybrid families'
+    is not: it raises, naming the cohort, before any forward and without
+    reaching ``torch.func.vmap``."""
     def no_vmap(*a, **k):
         raise AssertionError("reached torch.func.vmap")
     monkeypatch.setattr(torch.func, "vmap", no_vmap)
-    for arch in SMOKES:
+    for arch in ("rwkv6-7b-smoke", "hymba-1.5b-smoke"):
         m = api.build(get_config(arch))
         p = m.init(prng.key(0), device="cpu")
         batch = {"tokens": torch.zeros((2, 1, 4), dtype=torch.int32),
