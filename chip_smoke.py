@@ -279,6 +279,44 @@ each of which raises on a failure (the script then exits non-zero):
    mask and the bound of the pairs the window keeps; rmsnorm over
    [4,096, 1,600] against ``F.rms_norm``.
 
+12. Phase "encdec, vlm and the ssm cohort" (budget 150 s), each part's
+   seconds and peak memory printed, each number with the card's name and
+   power limit; each model's kernels first held at its shapes against their
+   plain versions under phase 2's tolerances (the cross q and k norms'
+   rows a head dim wide, attention causal, non-causal over the memory, at
+   one query, the encoder's non-causal self-attention, and ragged).
+   (a) seamless-m4t-large-v2 (arXiv:2308.11596) at full width and depth in
+       bfloat16 through ``launch/serve.py`` (batch 2 x prompt 128 over
+       4,096 source frames, 8 greedy steps): init seconds, peak from before
+       the init, the cross cache's size, exact launches (a prefill 72
+       attention and 48 rmsnorm, a decode step 24 and 24), a warm loop,
+       decode against prefill within SERVE_BF16_TOL; then its cross-silo
+       train step in float32 at full width and depth, 2 flat steps (b2 8,
+       batch 2 x 128 and 4,096 frames), finite, exact launches, bitwise a
+       second run.
+   (b) llama-3.2-vision-90b at full width, reduced in depth only to 10 of
+       100 layers (2 groups of 4 self layers and one gated cross layer),
+       bfloat16: the 100-layer count on ``meta``, init, the gates set to
+       0.5 after the init (the reference's zero gates hide the cross path;
+       the logits then differ), prefill 2 x 128 over 1,600 patch
+       embeddings and 8 decode steps with exact launches, decode against
+       prefill.
+   (c) seamless-m4t-large-v2-smoke and llama-3.2-vision-90b-smoke (gates
+       0.5) in float32 on the card against the CPU: prefill, 4 decode
+       steps, the loss, one pytree train step, exact launches.
+   (d) ``fedzo.round_simulated`` through the ssm and hybrid cohort loss in
+       float32 (M 2, H 2, b2 8, batch 2 x 256 a client, mu 1e-3, plain mean
+       and AirComp) on hymba-1.5b at full width and depth and on rwkv6-7b at
+       full width cut to 2 of 32 layers: the reckoned peak first, exact
+       M-free launches, ms a round and peak, the mean round bitwise a
+       second run, the cohort loss against each client's own; then the
+       rwkv6 and hymba -smoke rounds (flat, AirComp, wide) on the card
+       against the CPU (``smoke_rounds_card_vs_cpu``).
+   (e) flash_attention non-causal at the encoder's [2, 4,096, 16, 64], the
+       two cross shapes at prefill and one query over 4,096 and 1,600 keys,
+       both dtypes, against SDPA without a mask and the bound; rmsnorm over
+       the cross norms' rows against ``F.rms_norm``.
+
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
 traces of one softmax round and one Qwen2-0.5B train step (kernel time by
@@ -697,7 +735,8 @@ def hold_attention(torch, ops, plain_flash, q, k, v, causal, window):
                                              window=window)
     dv = v.shape[3]
     tag = (f"attention {'fp32' if q.dtype == torch.float32 else 'bf16'} "
-           f"{list(q.shape[:2])} "
+           f"{list(q.shape[:2])}"
+           f"{'' if k.shape[1] == q.shape[1] else f' over Sk {k.shape[1]}'} "
            f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]}"
            f"{'' if dv == q.shape[3] else f' Dv={dv}'}"
            f"{'' if causal else ' non-causal'}"
@@ -716,6 +755,48 @@ def hold_attention(torch, ops, plain_flash, q, k, v, causal, window):
         note = (f"{tag}: {u:.2f} bf16 ulp from the plain version ({r:.2f} "
                 f"from float64; the kernel {t:.2f})")
     return float((got.float() - want.float()).abs().max()), note
+
+
+def hold_attention_long(torch, ops, plain_flash, q, k, v, causal, window):
+    """``hold_attention`` for the cross-attention families' long calls
+    (Sk 1,000 to 4,096 keys a query, non-causal). float32 as phase 2:
+    max |err| within 1e-5 of max |out|. bfloat16: each element within one
+    bf16 ulp of |want| plus that float32 tolerance. Both outputs are their
+    float32 values rounded once to bfloat16 (the kernel carries p in three
+    bf16 pieces, so its P.V is float32 arithmetic), and phase 2 holds the
+    two float32 values within 1e-5 of max |out| of each other; each
+    rounding moves a value by at most half an ulp. Phase 2's bfloat16 rule
+    (1 ulp, or 1 + r where the plain version is r ulps from float64)
+    assumes the kernel within 1 ulp of float64 everywhere; over thousands
+    of keys float32 sums put both versions 1.3-2.2 ulps from float64 at
+    outputs far below max |out|, whose ulp is fine (H100 80GB HBM3, phase
+    12 and the card tests), and the rule then fails on some draws: the
+    note prints its three distances beside the check. Returns (max abs
+    error, the printed note)."""
+    if q.dtype == torch.float32:
+        return hold_attention(torch, ops, plain_flash, q, k, v, causal,
+                              window)
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = plain_flash.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+    tag = (f"attention bf16 {list(q.shape[:2])} over Sk {k.shape[1]} "
+           f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]}"
+           f"{'' if causal else ' non-causal'}")
+    check(got.dtype == q.dtype and got.shape == q.shape[:3] + v.shape[3:],
+          f"{tag}: output {got.dtype} {tuple(got.shape)}")
+    w = want.float()
+    tol = 1e-5 * float(w.abs().max())
+    err = (got.float() - w).abs()
+    _, e = torch.frexp(w.abs().clamp_min(1e-30))   # |w| = m * 2**e
+    spacing = torch.ldexp(torch.ones_like(w), e - 8)
+    worst = float((err / (spacing + tol)).max())
+    check(worst <= 1, f"{tag}: |err| up to {worst:.3f} of one bf16 ulp + "
+          f"1e-5 max |out|")
+    u, r, t = bf16_attention_errs(torch, q, k, v, got, want, causal, window)
+    note = (f"{tag}: |err| at most {worst:.3f} of one bf16 ulp + 1e-5 max "
+            f"|out| ({u:.2f} bf16 ulp from the plain version, {r:.2f} "
+            f"from float64; the kernel {t:.2f})")
+    return float(err.max()), note
 
 
 def check_lm_kernels(torch, ops, plain_rms, plain_flash):
@@ -1460,13 +1541,14 @@ def run_track_rounds(torch, ops, neural, FedZOConfig):
     return total
 
 
-def lm_setup(arch, dtype):
-    """(model, train-step config, token stream) of the cross-silo train
-    step as ``repro/launch/train.py`` sets it up, for ``arch``."""
+def lm_setup(arch, dtype, **overrides):
+    """(model, token stream) of the cross-silo train step as
+    ``repro/launch/train.py`` sets it up, for ``arch`` (its config's
+    ``overrides`` applied: a depth cut)."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_token_stream
     from repro_torch.models import api
-    cfg = get_config(arch).replace(dtype=dtype)
+    cfg = get_config(arch).replace(dtype=dtype, **overrides)
     model = api.build(cfg)
     # the launcher's synthetic stream: 200k tokens over a 4096-token subset
     toks = lm_token_stream(200_000, min(cfg.vocab, 4096), seed=0)
@@ -3596,6 +3678,31 @@ def layer_norms(cfg):
     return 2 + 2 * (cfg.qk_norm or cfg.mla is not None)
 
 
+def xattn_launches(cfg, kind):
+    """rmsnorm and flash_attention launches of one ``kind`` ("prefill", the
+    train forward's too, or "decode") forward of an encdec or vlm model.
+    encdec (E encoder, L decoder layers): a prefill makes E + 2L attentions
+    (the non-causal encoder, the causal self, the non-causal cross) and 2L
+    cross q and k norms, a decode step L cross attentions at one query and
+    L q norms (its self-attention is the plain one-token form); and under
+    rmsnorm 2E + 3L + 2 (prefill) or 3L + 1 block norms. vlm (G groups of
+    n_self self layers and one gated cross layer): per self layer two
+    norms and, in prefill, one attention; per cross layer its two norms,
+    the q norm, in prefill the k norm, and one attention; the final
+    norm."""
+    rms = cfg.norm == "rmsnorm"
+    if cfg.family == "encdec":
+        E, L = cfg.encoder_layers, cfg.n_layers
+        if kind == "prefill":
+            return {"rmsnorm": 2 * L + rms * (2 * E + 3 * L + 2),
+                    "flash_attention": E + 2 * L}
+        return {"rmsnorm": L + rms * (3 * L + 1), "flash_attention": L}
+    G, n = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+    pre = kind == "prefill"
+    return {"rmsnorm": G * (2 * rms * n + 1 + pre + 2 * rms) + rms,
+            "flash_attention": G * (pre * n + 1)}
+
+
 def serve_launches(cfg, prefills, decodes):
     """rmsnorm and flash_attention launches of ``prefills`` prefills and
     ``decodes`` decode steps of a served model: per layer two RMSNorms
@@ -3603,7 +3710,10 @@ def serve_launches(cfg, prefills, decodes):
     and, in prefill, one attention (none in an ssm layer); the final norm
     once per forward (none of these under layernorm). Decode's one-token
     attention (MLA's absorbed form too), the MoE layers and the ssm and
-    Mamba layers are plain torch."""
+    Mamba layers are plain torch. encdec and vlm: ``xattn_launches``."""
+    if cfg.family in ("encdec", "vlm"):
+        p, d = xattn_launches(cfg, "prefill"), xattn_launches(cfg, "decode")
+        return {k: prefills * p[k] + decodes * d[k] for k in p}
     per = layer_norms(cfg) * cfg.n_layers + (cfg.norm == "rmsnorm")
     attn = 0 if cfg.family == "ssm" else cfg.n_layers
     return {"rmsnorm": per * (prefills + decodes),
@@ -3636,7 +3746,7 @@ def decode_vs_prefill(torch, model, params, batch, tol_rel):
                        model.cfg.vocab).to("cuda")
     dec, _ = model.decode(params, {"tokens": nxt}, cache,
                           torch.tensor(S, device="cuda"))
-    ref, _ = model.prefill(params, {"tokens": torch.cat(
+    ref, _ = model.prefill(params, {**batch, "tokens": torch.cat(
         [batch["tokens"], nxt], 1)}, S + 5)
     # the padded vocabulary's columns hold -1e30 in both: left out
     v = model.cfg.vocab
@@ -4565,15 +4675,17 @@ SSM_SMOKE_GEN = 4   # the ssm and hybrid -smoke configs' decode steps
 def cohort_launches(ops, mcfg, fcfg):
     """Launches of one simulated round of the LM ``mcfg`` under ``fcfg``
     (flat or wide): ``round_launches``' ZO kernels, and per forward the
-    blocks' RMSNorms, the final norm and, under MTP, its norm and block;
-    one attention a layer (and the MTP block's)."""
+    blocks' RMSNorms, the final norm and, under MTP, its norm and block
+    (none under layernorm: rwkv6); one attention a layer (and the MTP
+    block's; none in an ssm layer)."""
     want = round_launches(ops, fcfg, 1)
     forwards = fcfg.local_iters * (2 if fcfg.batch_directions
                                    else fcfg.b2 + 1)
-    norms = (layer_norms(mcfg) * mcfg.n_layers + 1
+    rms = mcfg.norm == "rmsnorm"
+    norms = (layer_norms(mcfg) * mcfg.n_layers + rms
              + mcfg.mtp * (1 + layer_norms(mcfg)))
-    want.update(rmsnorm=forwards * norms,
-                flash_attention=forwards * (mcfg.n_layers + mcfg.mtp))
+    attn = 0 if mcfg.family == "ssm" else mcfg.n_layers + mcfg.mtp
+    want.update(rmsnorm=forwards * norms, flash_attention=forwards * attn)
     return want
 
 
@@ -4762,12 +4874,15 @@ def run_moe_cohort_round(torch, ops, FedZOConfig, smi, total, rows):
     torch.cuda.empty_cache()
 
 
-def moe_rounds_card_vs_cpu(torch, ops, FedZOConfig, total):
-    """Part (b): qwen3-moe-30b-a3b-smoke and deepseek-v3-671b-smoke in
-    float32, one flat round, one flat AirComp round and one wide round
-    (batch_directions, block directions) each (M = 3, H = COHORT_SMOKE_H,
-    b2 = 4, mu 1e-2, lr 1e-3), on the card against the same round on the
-    CPU: the weights within COHORT_SMOKE_TOL, the card's launches exact."""
+def smoke_rounds_card_vs_cpu(torch, ops, FedZOConfig, total,
+                             archs=("qwen3-moe-30b-a3b-smoke",
+                                    "deepseek-v3-671b-smoke")):
+    """Phase 11 part (b) (the moe -smoke configs; phase 12 part (d) the ssm
+    and hybrid ones): in float32, one flat round, one flat AirComp round
+    and one wide round (batch_directions, block directions) of each of
+    ``archs`` (M = 3, H = COHORT_SMOKE_H, b2 = 4, mu 1e-2, lr 1e-3), on the
+    card against the same round on the CPU: the weights within
+    COHORT_SMOKE_TOL, the card's launches exact."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import fedzo
@@ -4784,7 +4899,7 @@ def moe_rounds_card_vs_cpu(torch, ops, FedZOConfig, total):
              "wide": FedZOConfig(**base, batch_directions=True,
                                  direction_conv="block")}
     notes = []
-    for arch in ("qwen3-moe-30b-a3b-smoke", "deepseek-v3-671b-smoke"):
+    for arch in archs:
         model = api.build(get_config(arch))
         init = model.init(prng.key(0), device="cpu")
         spec = flat_spec(init)
@@ -4814,7 +4929,7 @@ def moe_rounds_card_vs_cpu(torch, ops, FedZOConfig, total):
             check(worst <= COHORT_SMOKE_TOL and moved >= 10 * COHORT_SMOKE_TOL,
                   f"{arch} {name} round card vs CPU {worst}, moved {moved}")
             notes.append(f"{arch} {name} {worst:.2e} (moved {moved:.3g})")
-    print(f"moe smoke rounds (float32) on the card against the CPU, max "
+    print(f"smoke rounds (float32) on the card against the CPU, max "
           f"|param diff| (bound {COHORT_SMOKE_TOL}): " + "; ".join(notes))
 
 
@@ -5043,21 +5158,27 @@ def serve_rwkv(torch, ops, smi, total):
     torch.cuda.empty_cache()
 
 
-def ssm_smoke_card_vs_cpu(torch, ops, FedZOConfig, total):
-    """Part (e): rwkv6-7b-smoke and hymba-1.5b-smoke in float32 on the card
-    against the same port on the CPU from the same weights
-    (``smoke_runs``): prefill and 4 decode steps on the CPU's greedy tokens
-    (logits and every cache leaf), the loss, one pytree FedZO train step
-    (b2 2, mu 1e-2) with exact launches."""
+def family_smoke_card_vs_cpu(torch, ops, FedZOConfig, total,
+                             archs=("rwkv6-7b-smoke", "hymba-1.5b-smoke")):
+    """Phase 11 part (e) (rwkv6-7b-smoke, hymba-1.5b-smoke; phase 12 part
+    (c) the encdec and vlm ones): in float32 on the card against the same
+    port on the CPU from the same weights (``smoke_runs``): prefill and 4
+    decode steps on the CPU's greedy tokens (logits and every cache leaf),
+    the loss, one pytree FedZO train step (b2 2, mu 1e-2) with exact
+    launches. A vlm's gates are set to VISION_GATE first: at zero the
+    cross layers add nothing."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.utils import prng
     from repro_torch.utils.flatparams import _leaves
     notes = []
-    for arch in ("rwkv6-7b-smoke", "hymba-1.5b-smoke"):
+    for arch in archs:
         model = api.build(get_config(arch))
         cfg = model.cfg
         init = model.init(prng.key(0), device="cpu")
+        if cfg.family == "vlm":
+            for g in ("gate_attn", "gate_mlp"):
+                init["cross_blocks"][g].fill_(VISION_GATE)
         fcfg = FedZOConfig(lr=1e-3, mu=1e-2, b2=2)
         out = smoke_runs(torch, ops, model, init, fcfg, SSM_SMOKE_GEN,
                          lambda p, tb: [float(model.loss(p, tb))])
@@ -5091,8 +5212,8 @@ def ssm_smoke_card_vs_cpu(torch, ops, FedZOConfig, total):
         notes.append(f"{arch}: serve card vs CPU {worst:.3e}, loss "
                      f"{lrel:.3e} (bound {SMOKE_CARD_REL}); step {diff:.3e} "
                      f"(bound {MOE_STEP_TOL}) against a move of {moved:.4g}")
-    print("ssm and hybrid smoke configs (float32) on the card against the "
-          "CPU: " + "; ".join(notes))
+    print("smoke configs (float32) on the card against the CPU: "
+          + "; ".join(notes))
 
 
 def run_cohort_ssm(torch, ops, FedZOConfig, smi, rows):
@@ -5105,13 +5226,15 @@ def run_cohort_ssm(torch, ops, FedZOConfig, smi, rows):
     for name, part in (
             ("(a) moe flat round", lambda: run_moe_cohort_round(
                 torch, ops, FedZOConfig, smi, total, rows)),
-            ("(b) moe smoke rounds card vs CPU", lambda: moe_rounds_card_vs_cpu(
-                torch, ops, FedZOConfig, total)),
+            ("(b) moe smoke rounds card vs CPU",
+             lambda: smoke_rounds_card_vs_cpu(torch, ops, FedZOConfig,
+                                              total)),
             ("(c) hymba-1.5b", lambda: serve_hymba(
                 torch, ops, FedZOConfig, smi, total, rows)),
             ("(d) rwkv6-7b", lambda: serve_rwkv(torch, ops, smi, total)),
-            ("(e) ssm smoke configs card vs CPU", lambda: ssm_smoke_card_vs_cpu(
-                torch, ops, FedZOConfig, total)),
+            ("(e) ssm smoke configs card vs CPU",
+             lambda: family_smoke_card_vs_cpu(torch, ops, FedZOConfig,
+                                              total)),
             ("windowed attention and rmsnorm timing", lambda: (
                 time_window_attention(torch, ops, smi, rows),
                 time_rmsnorm_1600(torch, ops, smi, rows)))):
@@ -5124,6 +5247,520 @@ def run_cohort_ssm(torch, ops, FedZOConfig, smi, rows):
     took = time.perf_counter() - t_phase
     print(f"moe cohort, ssm and hybrid: {took:.1f} s of the "
           f"{COHORT_BUDGET_S:.0f} s budget [{smi}]")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase "encdec, vlm and the ssm cohort": seamless-m4t-large-v2 and
+# llama-3.2-vision-90b served (cross-attention on the flash kernel), the
+# flat round on hymba-1.5b and rwkv6-7b through the ssm and hybrid cohort
+# loss, the -smoke configs on the card against the CPU, the kernels timed
+# at the new shapes
+
+XATTN_BUDGET_S = 150.0
+# seamless-m4t-large-v2 (arXiv:2308.11596) at full width and depth in
+# bfloat16 through launch/serve.py: batch 2 x prompt 128 over 4,096 source
+# frames, 8 greedy steps. Its cross cache: 24 layers x k and v x [2, 4,096,
+# 16, 64] bfloat16 = 0.75 GiB, written once at prefill.
+SEAMLESS_B, SEAMLESS_S, SEAMLESS_GEN = 2, 128, 8
+SEAMLESS_PARAMS = 1_632_295_936
+# then its cross-silo train step in float32 (6.08 GiB a copy), flat route,
+# b2 8, batch 2 x 128 of the synthetic stream and the launcher's 4,096
+# frames of 0.1.normal, 2 steps, twice
+SEAMLESS_STEPS = 2
+# llama-3.2-vision-90b at full width, reduced in depth only: 10 of 100
+# layers (2 groups of 4 self layers and one gated cross layer),
+# 10,892,780,036 parameters, 20.29 GiB of bfloat16 (the full depth's
+# 167.67 GiB does not fit one card); batch 2 x prompt 128 over 1,600 patch
+# embeddings, 8 greedy steps. The gates are set to VISION_GATE after the
+# init: the reference's zero gates give tanh(0) = 0, and the cross layers
+# would add nothing to the logits.
+VISION_LAYERS, VISION_PARAMS = 10, 10_892_780_036
+VISION_B, VISION_S, VISION_GEN = 2, 128, 8
+VISION_GATE = 0.5
+# the flat round through the ssm and hybrid cohort loss, float32: M 2, H
+# 2, b2 8, batch 2 x 256 a client, mu 1e-3. hymba-1.5b at full width and
+# depth (5.19 GiB a copy); rwkv6-7b at full width, reduced in depth only to
+# 2 of 32 layers (974,258,176 parameters, 3.63 GiB a copy). A round holds
+# about 2 + 4M copies (phase 11's moe round: 46-51 GiB for 10 copies of
+# 4.64 GiB), one more with AirComp: hymba's 52 GiB, rwkv6's 36 GiB.
+SSM_ROUND_M, SSM_ROUND_H, SSM_ROUND_B2 = 2, 2, 8
+SSM_ROUND_B, SSM_ROUND_S = 2, 256
+RWKV_ROUND_LAYERS, RWKV_ROUND_PARAMS = 2, 974_258_176
+# The ssm and hybrid -smoke rounds on the card against the CPU run
+# ``smoke_rounds_card_vs_cpu`` at COHORT_SMOKE_H = 1 and COHORT_SMOKE_TOL.
+# These families route nothing, so the chaos that COHORT_SMOKE_H argues
+# for the moe rounds does not arise (the port against the reference on the
+# CPU, tests/test_torch_ssm_cohort.py: one H = 2 round within 4.3e-4); one
+# iterate keeps the CPU half of the check (the plain kernels' Threefry
+# draws) within the phase's budget, and a loss ulp moves a weight by about
+# 1e-4 an iterate, so 1e-3 is about ten of them.
+# The new shapes: the cross norms' rows (a head dim wide on the q and k
+# side) and the flash kernel non-causal over Sk != Sq and at one query.
+XATTN_TIMED = (
+    # name, q [B, Sq, Hq, D], kv [Sk, Hkv]
+    ("encoder", (2, 4096, 16, 64), (4096, 16)),
+    ("seamless_cross", (2, 128, 16, 64), (4096, 16)),
+    ("vision_cross", (2, 128, 64, 128), (1600, 64)),
+    ("seamless_decode", (2, 1, 16, 64), (4096, 16)),
+    ("vision_decode", (2, 1, 64, 128), (1600, 64)),
+)
+XATTN_NORM_ROWS = (("seamless_q", 2 * 128 * 16, 64),
+                   ("seamless_k", 2 * 4096 * 16, 64),
+                   ("vision_q", 2 * 128 * 64, 128),
+                   ("vision_k", 2 * 1600 * 64, 128))
+
+
+def hold_xattn_kernels(torch, ops, cfg, b, s, rows):
+    """An encdec or vlm model's kernels at the shapes its prefill and
+    decode give them, against their plain versions under phase 2's
+    tolerances, in float32 and bfloat16: rmsnorm over the cross q and k
+    norms' rows (``[b.s.Hq, hd]``, ``[b.n_frontend.Hq, hd]``, decode's
+    ``[b.Hq, hd]``) and, under rmsnorm, the block norms' ``[b.s, d]`` and
+    ``[b, d]``; attention causal at ``[b, s, Hq/Hkv, hd]``, non-causal
+    over the memory at ``[b, s, Hq/Hq, hd]`` and at one query, the
+    encoder's non-causal ``[b, n_frontend, Hq/Hkv, hd]``, and a ragged
+    non-causal call (5 queries over 1,000 keys). The largest errors join
+    the kernels' ``max_abs_err``. Not counted: run before the served
+    path's counts are set to 0."""
+    from repro_torch.kernels import flash_attention as plain_flash
+    from repro_torch.kernels import rmsnorm as plain_rms
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    hq, hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    sm = cfg.n_frontend_tokens
+    widths = [(b * s * hq, hd), (b * sm * hq, hd), (b * hq, hd)]
+    if cfg.norm == "rmsnorm":
+        widths += [(b * s, d), (b, d)]
+    # (q rows, q heads, k rows, kv heads, causal): the causal self call
+    # under phase 2's rule, the long non-causal ones (over the memory, at one
+    # query, ragged, the encoder's) under ``hold_attention_long``'s
+    calls = [(s, hq, s, hkv, True), (s, hq, sm, hq, False),
+             (1, hq, sm, hq, False), (5, hq, 1000, hq, False)]
+    if cfg.family == "encdec":
+        calls.append((sm, hq, sm, hkv, False))
+    notes, err = [], dict.fromkeys(("rmsnorm", "flash_attention"), 0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        for r, w in widths:
+            _, e, note = hold_rmsnorm(torch, ops, plain_rms, rnd(
+                r, w, dtype=dt), (1.0 + 0.1 * rnd(w)).to(dt))
+            err["rmsnorm"] = max(err["rmsnorm"], e)
+            notes.append(note)
+        for sq, qh, sk, kh, causal in calls:
+            hold = hold_attention if causal else hold_attention_long
+            e, note = hold(torch, ops, plain_flash,
+                           rnd(b, sq, qh, hd, dtype=dt),
+                           rnd(b, sk, kh, hd, dtype=dt),
+                           rnd(b, sk, kh, hd, dtype=dt), causal, 0)
+            err["flash_attention"] = max(err["flash_attention"], e)
+            notes.append(note)
+    for k, e in err.items():
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
+    print(f"{cfg.name} served shapes against the plain versions: "
+          + "; ".join(notes))
+
+
+def flat_steps_twice(torch, ops, model, params, batches, fcfg, total, tag):
+    """The cross-silo flat train step (``fedzo.make_train_step``) over
+    ``batches``, twice from ``params``: exact launches every step (b2
+    zo_walk, one zo_replay and one zo_dirnorms; b2 + 1 forwards of the
+    model's prefill launches), finite, the second run bitwise the first.
+    Returns (ms a step of both runs, the losses, the largest weight
+    move)."""
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves
+    step = fedzo.make_train_step(model.loss, fcfg)
+    per = serve_launches(model.cfg, 1, 0)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0), "zo_walk": fcfg.b2,
+            "zo_replay": 1, "zo_dirnorms": 1,
+            **{k: (fcfg.b2 + 1) * n for k, n in per.items()}}
+    runs = []
+    for run in range(2):
+        p, losses, ms = params, [], []
+        for i, batch in enumerate(batches):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, met = step(p, batch, prng.key(10 + i))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts = dict(ops.LAUNCHES)
+            check(counts == want, f"{tag}: launches {counts} != {want}")
+            if run == 0:
+                for k in total:
+                    total[k] += counts[k]
+            losses.append(float(met["loss"]))
+        check(all(map(math.isfinite, losses)) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(p)),
+            f"{tag}: losses {losses}")
+        runs.append((p, losses, ms))
+    check(all(torch.equal(a, c) for a, c in zip(tree_leaves(runs[0][0]),
+                                                tree_leaves(runs[1][0]))),
+          f"{tag}: a second run differs")
+    moved = max(float((a - c).abs().max()) for a, c in
+                zip(tree_leaves(runs[0][0]), tree_leaves(params)))
+    return runs[0][2] + runs[1][2], runs[0][1], moved
+
+
+def serve_seamless(torch, ops, FedZOConfig, smi, total, rows):
+    """Part (a): seamless-m4t-large-v2 (arXiv:2308.11596) at full width and
+    depth in bfloat16 through ``launch/serve.py`` (batch 2 x prompt 128
+    over 4,096 source frames, 8 greedy steps), its kernels first held at
+    its shapes: init seconds, peak from before the init, exact launches,
+    a warm loop, decode against prefill within SERVE_BF16_TOL; then its
+    cross-silo train step at full width and depth in float32: 2 flat steps
+    (b2 8), finite, exact launches, bitwise a second run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import frontend_inputs
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_bytes, tree_size
+    cfg = get_config("seamless-m4t-large-v2")
+    hold_xattn_kernels(torch, ops, cfg, SEAMLESS_B, SEAMLESS_S, rows)
+    res, peak, pre_s, step_s, rel, agree = serve_full(
+        torch, ops, cfg.name, SEAMLESS_B, SEAMLESS_S, SEAMLESS_GEN, smi,
+        total)
+    n = tree_size(res.params)
+    check(n == SEAMLESS_PARAMS, f"seamless-m4t-large-v2: {n} parameters")
+    cache = res.model.init_cache(SEAMLESS_B, SEAMLESS_S + SEAMLESS_GEN,
+                                 device="meta")
+    cross = tree_bytes({k: cache[k] for k in ("cross_k", "cross_v")})
+    print(f"seamless_m4t_large_v2_serve (bfloat16, full width and depth, "
+          f"{n} parameters): init {res.init_s:.2f} s; peak {peak:.3f} GiB "
+          f"from before the init (cross cache {cross / 2**30:.3f} GiB); CLI "
+          f"prefill batch {SEAMLESS_B} x {SEAMLESS_S} over "
+          f"{cfg.n_frontend_tokens} frames {1e3 * res.prefill_s:.2f} ms, "
+          f"decode {1e3 * res.decode_s / SEAMLESS_GEN:.2f} ms a step; warm "
+          f"prefill {1e3 * pre_s:.2f} ms "
+          f"({SEAMLESS_B * SEAMLESS_S / pre_s:.1f} tok/s), decode "
+          f"{1e3 * step_s:.3f} ms a step (median after the first, "
+          f"{SEAMLESS_B / step_s:.1f} tok/s); decode vs prefill rel "
+          f"{rel:.3e} (bound {SERVE_BF16_TOL}), argmax agree {agree:.2f}; "
+          f"launches prefill {res.prefill_launches['rmsnorm']} rmsnorm "
+          f"{res.prefill_launches['flash_attention']} attention, a decode "
+          f"step {res.decode_launches['rmsnorm'] // SEAMLESS_GEN} rmsnorm "
+          f"{res.decode_launches['flash_attention'] // SEAMLESS_GEN} "
+          f"attention [{smi}]")
+    del res
+    torch.cuda.empty_cache()
+
+    model, toks = lm_setup(cfg.name, "float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(prng.key(0), device="cuda")
+    rng = np.random.default_rng(0)
+    key = prng.key(1)
+    batches = [{**lm_batch(torch, toks, rng, SEAMLESS_B, SEAMLESS_S, "cuda"),
+                **frontend_inputs(model.cfg, SEAMLESS_B, key, i,
+                                  torch.device("cuda"))}
+               for i in range(SEAMLESS_STEPS)]
+    fcfg = FedZOConfig(lr=1e-4, mu=1e-3, b2=SSM_ROUND_B2, flat_params=True)
+    ms, losses, moved = flat_steps_twice(torch, ops, model, params, batches,
+                                         fcfg, total, "seamless step")
+    print(f"seamless_m4t_large_v2_train (float32, full width and depth, "
+          f"flat route, b2 {fcfg.b2}, batch {SEAMLESS_B} x {SEAMLESS_S} and "
+          f"{cfg.n_frontend_tokens} frames): ms a step "
+          f"{[round(t, 1) for t in ms]}; losses {losses}; largest weight "
+          f"move {moved:.3e}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bitwise a "
+          f"second run; launches a step {serve_launches(model.cfg, 1, 0)} x "
+          f"{fcfg.b2 + 1} forwards [{smi}]")
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+def serve_vision(torch, ops, smi, total, rows):
+    """Part (b): llama-3.2-vision-90b at full width, depth cut to
+    VISION_LAYERS, in bfloat16: the 100-layer count on ``meta``, init, the
+    gates set to VISION_GATE (the logits then differ from the zero gates'),
+    prefill 2 x 128 over 1,600 patch embeddings and 8 decode steps with
+    exact launches, decode against prefill within SERVE_BF16_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api, vlm
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec
+    from repro_torch.utils.tree import tree_size
+    full = get_config("llama-3.2-vision-90b")
+    n_full = flat_spec(vlm.init_params(prng.key(0), full, device="meta")).d
+    cfg = full.replace(n_layers=VISION_LAYERS)
+    hold_xattn_kernels(torch, ops, cfg, VISION_B, VISION_S, rows)
+    model = api.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = tree_size(params)
+    check(n == VISION_PARAMS, f"llama-3.2-vision-90b 10L: {n} parameters")
+    batch = api.make_batch(model, ShapeConfig(
+        "serve", VISION_S, VISION_B, "prefill"), prng.key(1), device="cuda")
+    shut, _ = model.prefill(params, batch, VISION_S)
+    for g in ("gate_attn", "gate_mlp"):
+        params["cross_blocks"][g].fill_(VISION_GATE)
+    opened, _ = model.prefill(params, batch, VISION_S)
+    moved = float((opened.float() - shut.float()).abs().max())
+    check(moved > 0, "llama-3.2-vision-90b: the gates do not reach the "
+          "logits")
+    pre_s, steps = serve_moe_loop(torch, ops, model, params, batch, cfg,
+                                  total, s=VISION_S, gen=VISION_GEN)
+    rel, agree = decode_vs_prefill(torch, model, params, batch,
+                                   SERVE_BF16_TOL)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = 1e3 * sorted(steps[1:])[len(steps[1:]) // 2]
+    per_pre, per_dec = serve_launches(cfg, 1, 0), serve_launches(cfg, 0, 1)
+    print(f"llama_3_2_vision_90b_10l_serve (bfloat16, full width, reduced: "
+          f"depth only, n_layers {VISION_LAYERS} of {full.n_layers}; {n} "
+          f"parameters, {n_full} at full depth on meta): init {init_s:.2f} "
+          f"s; gates set to {VISION_GATE} after the init (the zero gates' "
+          f"logits differ by up to {moved:.3g}); prefill batch {VISION_B} x "
+          f"{VISION_S} over {cfg.n_frontend_tokens} patches "
+          f"{1e3 * pre_s:.2f} ms ({VISION_B * VISION_S / pre_s:.1f} tok/s); "
+          f"decode ms a step {[round(1e3 * t, 3) for t in steps]} "
+          f"({step_ms:.3f} median after the first); peak {peak:.3f} GiB from "
+          f"before the init; decode vs prefill rel {rel:.3e} (bound "
+          f"{SERVE_BF16_TOL}), argmax agree {agree:.2f}; launches prefill "
+          f"{per_pre}, a decode step {per_dec} [{smi}]")
+    del params
+    torch.cuda.empty_cache()
+
+
+def hold_cohort_kernels(torch, ops, cfg, m, b, s, rows):
+    """A hybrid cohort's kernels at its shapes against their plain versions
+    in float32: rmsnorm over the ``[M, B.S, d]`` rows with an ``[M, d]``
+    scale, attention over the ``[M.B, S, Hq/Hkv, hd]`` rows under the
+    window. Returns the printed notes."""
+    from repro_torch.kernels import flash_attention as plain_flash
+    from repro_torch.kernels import rmsnorm as plain_rms
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    _, e_rms, note = hold_rmsnorm(torch, ops, plain_rms,
+                                  rnd(m, b * s, cfg.d_model),
+                                  1.0 + 0.1 * rnd(m, cfg.d_model))
+    e_att, note2 = hold_attention(
+        torch, ops, plain_flash, rnd(m * b, s, cfg.n_heads, cfg.head_dim),
+        rnd(m * b, s, cfg.n_kv_heads, cfg.head_dim),
+        rnd(m * b, s, cfg.n_kv_heads, cfg.head_dim), True,
+        cfg.sliding_window)
+    rows["rmsnorm"]["max_abs_err"] = max(rows["rmsnorm"]["max_abs_err"],
+                                         e_rms)
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], e_att)
+    return [note + f" ({m} scales)", note2]
+
+
+def run_ssm_cohort_round(torch, ops, FedZOConfig, smi, total, rows, arch,
+                         layers=0):
+    """Part (d): ``fedzo.round_simulated`` on ``arch`` at full width (depth
+    cut to ``layers`` if given) in float32 (M 2, H 2, b2 8, batch 2 x 256 a
+    client, mu 1e-3), plain mean and AirComp, through the ssm and hybrid
+    cohort loss: the reckoned peak first; exact launches (those of one
+    client whatever M is), ms a round and peak; the mean round bitwise a
+    second run; the batched loss against each client's own."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+    from repro_torch.utils.tree import tree_leaves, tree_size
+    model, toks = lm_setup(arch, "float32",
+                           **({"n_layers": layers} if layers else {}))
+    cfg = model.cfg
+    m, h, b, s = SSM_ROUND_M, SSM_ROUND_H, SSM_ROUND_B, SSM_ROUND_S
+    if cfg.family == "hybrid":
+        print(f"{arch} cohort shapes against the plain versions: "
+              + "; ".join(hold_cohort_kernels(torch, ops, cfg, m, b, s,
+                                              rows)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(prng.key(0), device="cuda")
+    n = tree_size(params)
+    spec = flat_spec(params)
+    copy = 4 * spec.n_pad / 2**30
+    print(f"{arch} cohort round: {n} parameters, n_pad {spec.n_pad}; "
+          f"reckoned peak {(2 + 4 * m) * copy:.1f} GiB ({2 + 4 * m} float32 "
+          f"copies of {copy:.2f} GiB; one more with AirComp) [{smi}]")
+    rng = np.random.default_rng(1)
+    per = [lm_batch(torch, toks, rng, b, s, "cuda") for _ in range(m * h)]
+    batches = {k: torch.stack([x[k] for x in per]).reshape((m, h, b, s))
+               for k in ("tokens", "labels")}
+    keys = prng.split(prng.key(1), m)
+    base = dict(n_participating=m, local_iters=h, lr=1e-4, mu=1e-3,
+                b2=SSM_ROUND_B2, estimator="sphere", flat_params=True)
+    cfgs = {"mean": FedZOConfig(**base),
+            "aircomp": FedZOConfig(**base, aircomp=True,
+                                   channel_schedule=True, snr_db=5.0)}
+    first, lines = None, []
+    for name in ("mean", "aircomp", "mean"):
+        fcfg = cfgs[name]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = fedzo.round_simulated(model.loss, params, batches, keys,
+                                         fcfg, channel_rng=prng.key(2))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(ops.LAUNCHES)
+        want = cohort_launches(ops, cfg, fcfg)
+        check(counts == want, f"{arch} round {name}: launches {counts} != "
+              f"{want}")
+        for k in total:
+            total[k] += counts[k]
+        mets = {k: float(v) for k, v in met.items()}
+        check(all(map(math.isfinite, mets.values())) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+            f"{arch} round {name}: metrics {mets}")
+        moved = max(float((a - c).abs().max()) for a, c in
+                    zip(tree_leaves(new), tree_leaves(params)))
+        check(moved > 0, f"{arch} round {name}: no weight moved")
+        again = ""
+        if name == "mean" and first is None:
+            first = new
+        elif name == "mean":
+            check(all(torch.equal(a, c) for a, c in
+                      zip(tree_leaves(new), tree_leaves(first))),
+                  f"{arch} round: a second run differs")
+            again = "; bitwise the first mean round"
+            first = None
+        del new
+        lines.append(f"{name}: ms/round {ms:.1f}; peak "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                     f"metrics {json.dumps(mets)}; largest weight move "
+                     f"{moved:.3e}; launches {counts}{again}")
+        torch.cuda.empty_cache()
+    # each client's own weights: the server weights plus a per-client
+    # offset, as rows of one [M, n_pad] buffer
+    g = torch.Generator(device="cuda").manual_seed(23)
+    buf = flatten(params, spec)[None].repeat(m, 1)
+    buf += 1e-3 * torch.randn(buf.shape, generator=g, device="cuda")
+    b0 = {k: v[:, 0] for k, v in batches.items()}
+    got = model.loss_batched(unflatten(buf, spec), b0)
+    each = torch.stack([model.loss(unflatten(buf[i], spec),
+                                   {k: v[i] for k, v in b0.items()})
+                        for i in range(m)])
+    rel = float(((got - each).abs() / each.abs()).max())
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    ulps = float(((got - each).abs() / ulp).max())
+    check(rel <= 1e-5, f"{arch} cohort loss vs each client: rel {rel}")
+    tag = "full width and depth" if not layers else (
+        f"full width, reduced: depth only, n_layers {layers} of "
+        f"{get_config(arch).n_layers}")
+    print(f"{arch.replace('-', '_').replace('.', '_')}_flat_round (float32, "
+          f"{tag}; M {m}, H {h}, b2 {SSM_ROUND_B2}, batch {b} x {s} a "
+          f"client): " + " | ".join(lines) + f"; the cohort loss vs each "
+          f"client's own rel {rel:.2e} ({ulps:.1f} ulps) [{smi}]")
+    del buf, params, first
+    torch.cuda.empty_cache()
+
+
+def time_xattn_kernels(torch, ops, smi, rows):
+    """Part (e): flash_attention at the new shapes (XATTN_TIMED: the
+    encoder's non-causal [2, 4,096, 16, 64], the two cross shapes at
+    prefill, one query over 4,096 and 1,600 keys), both dtypes: the
+    kernel, its plain version, SDPA without a mask and the bound; rmsnorm
+    over the cross norms' rows (XATTN_NORM_ROWS) against ``F.rms_norm``.
+    Stored in the attention and rmsnorm rows' ``xattn`` entries."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as plain_flash
+    from repro_torch.kernels import rmsnorm as plain_rms
+    g = torch.Generator(device="cuda").manual_seed(24)
+    att, lines = {}, []
+    for name, (b, sq, hq, d), (sk, hkv) in XATTN_TIMED:
+        q = torch.randn(b, sq, hq, d, generator=g, device="cuda")
+        k, v = (torch.randn(b, sk, hkv, d, generator=g, device="cuda")
+                for _ in range(2))
+        flops = 4 * b * hq * sq * sk * d      # q.k and p.v multiply-adds
+        elems = b * (2 * sq * hq * d + 2 * sk * hkv * d)
+        att[name] = {}
+        for dt, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            reps = 200 if sq == 1 else 20
+            ms = median_ms(torch, lambda: ops.attention(qd, kd, vd,
+                                                        causal=False), reps)
+            lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)),
+                reps)
+            plain_ms = median_ms(torch, lambda: plain_flash
+                                 .flash_attention_plain(qd, kd, vd,
+                                                        causal=False), 3)
+            bd = bound(elems * qd.element_size(), flops, kind)
+            att[name][kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                   **bd)
+            lines.append(f"flash_attention {name} {kind} q [{b}, {sq}, {hq}, "
+                         f"{d}] over k/v [{b}, {sk}, {hkv}, {d}] non-causal: "
+                         f"ms {ms:.5f}, plain {plain_ms:.4f}, SDPA {lib:.5f} "
+                         f"({ms / lib:.2f}x), bound {bd['bound_ms']:.5f} "
+                         f"({bd['bound_by']}, {bd['bound_ms'] / ms:.1%} of "
+                         f"it) [{smi}]")
+    norms = {}
+    for name, r, d in XATTN_NORM_ROWS:
+        norms[name] = {}
+        for dt, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            x = torch.randn(r, d, generator=g, device="cuda").to(dt)
+            sc = (1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")) \
+                .to(dt)
+            ms = median_ms(torch, lambda: ops.rmsnorm(x, sc, eps=1e-6), 50)
+            lib = median_ms(torch, lambda: F.rms_norm(x, (d,), sc, eps=1e-6),
+                            50)
+            plain_ms = median_ms(torch, lambda: plain_rms.rmsnorm_plain(
+                x, sc, eps=1e-6), 10)
+            bd = bound((2 * r * d + d) * x.element_size(), 4 * r * d, "fp32")
+            norms[name][kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                     **bd)
+            lines.append(f"rmsnorm {name} {kind} [{r}, {d}]: ms {ms:.5f}, "
+                         f"plain {plain_ms:.4f}, F.rms_norm {lib:.5f}, bound "
+                         f"{bd['bound_ms']:.5f} ({bd['bound_by']}, "
+                         f"{bd['bound_ms'] / ms:.1%} of it) [{smi}]")
+    rows["flash_attention"]["xattn"] = att
+    rows["rmsnorm"]["xattn"] = norms
+    for line in lines:
+        print(line)
+
+
+def run_xattn_ssm_cohort(torch, ops, FedZOConfig, smi, rows):
+    """Phase "encdec, vlm and the ssm cohort": parts (a) to (e), each
+    part's seconds and peak memory printed; budget XATTN_BUDGET_S. Returns
+    the launches of its main-path runs."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    smokes = ("seamless-m4t-large-v2-smoke", "llama-3.2-vision-90b-smoke")
+    for name, part in (
+            ("(a) seamless-m4t-large-v2", lambda: serve_seamless(
+                torch, ops, FedZOConfig, smi, total, rows)),
+            ("(b) llama-3.2-vision-90b, 10 layers", lambda: serve_vision(
+                torch, ops, smi, total, rows)),
+            ("(c) encdec and vlm smoke configs card vs CPU",
+             lambda: family_smoke_card_vs_cpu(torch, ops, FedZOConfig, total,
+                                              smokes)),
+            ("(d) hymba-1.5b flat round", lambda: run_ssm_cohort_round(
+                torch, ops, FedZOConfig, smi, total, rows, "hymba-1.5b")),
+            ("(d) rwkv6-7b flat round, 2 layers", lambda: run_ssm_cohort_round(
+                torch, ops, FedZOConfig, smi, total, rows, "rwkv6-7b",
+                RWKV_ROUND_LAYERS)),
+            ("(d) ssm and hybrid smoke rounds card vs CPU",
+             lambda: smoke_rounds_card_vs_cpu(
+                 torch, ops, FedZOConfig, total,
+                 ("rwkv6-7b-smoke", "hymba-1.5b-smoke"))),
+            ("(e) cross-attention kernel timing", lambda: time_xattn_kernels(
+                torch, ops, smi, rows))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        part()
+        print(f"part {name}: {time.perf_counter() - t0:.1f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"encdec, vlm and the ssm cohort: {took:.1f} s of the "
+          f"{XATTN_BUDGET_S:.0f} s budget [{smi}]")
     return total
 
 
@@ -5303,6 +5940,10 @@ def main(argv):
         launches[k] += n
     for k, n in timed("moe cohort, ssm and hybrid", lambda: run_cohort_ssm(
             torch, ops, FedZOConfig, smi, rows)).items():
+        launches[k] += n
+    for k, n in timed("encdec, vlm and the ssm cohort",
+                      lambda: run_xattn_ssm_cohort(
+                          torch, ops, FedZOConfig, smi, rows)).items():
         launches[k] += n
     if args.profile:
         timed("profiles", lambda: (

@@ -2,10 +2,11 @@
 ``get_shape("<shape-id>")``, as in ``repro/configs/__init__.py``. The
 ``-smoke`` suffix gives the reduced variant (``ModelConfig.reduced``).
 
-The dense, MoE (``qwen3-moe-30b-a3b``; ``deepseek-v3-671b`` with MLA and
-MTP), ssm (``rwkv6-7b``) and hybrid (``hymba-1.5b``) architectures are
-registered; the enc-dec and VLM ids and any unknown id raise
-``NotImplementedError``.
+All ten of the reference's architectures are registered: dense, MoE
+(``qwen3-moe-30b-a3b``; ``deepseek-v3-671b`` with MLA and MTP), ssm
+(``rwkv6-7b``), hybrid (``hymba-1.5b``), enc-dec
+(``seamless-m4t-large-v2``) and VLM (``llama-3.2-vision-90b``); an unknown
+id raises ``KeyError``, as the reference's.
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ _ARCH_MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "rwkv6-7b": "rwkv6_7b",
     "hymba-1.5b": "hymba_1_5b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
 }
-# the reference's other architectures: families the port does not build
-_UNPORTED = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 SHAPE_IDS = tuple(INPUT_SHAPES)
@@ -35,9 +36,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch.endswith("-smoke"):
         return get_config(arch[: -len("-smoke")]).reduced()
     if arch not in _ARCH_MODULES:
-        what = "is not ported" if arch in _UNPORTED else "is unknown"
-        raise NotImplementedError(f"arch {arch!r} {what}; the port has "
-                                  f"{ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
 

@@ -3,10 +3,10 @@
 (``repro/configs/base.py``).
 
 The field sets and defaults are the reference's, so a config built for one
-package means the same run in the other. The port builds the dense, moe
-(MLA, MTP), ssm and hybrid model families; fields that select a route it does not have yet
-are rejected where they are used (``core/fedzo.py``, ``models/api.py``),
-never silently ignored.
+package means the same run in the other. The port builds all six model
+families (dense, moe with MLA and MTP, ssm, hybrid, encdec, vlm); fields
+that select a route it does not have yet are rejected where they are used
+(``core/fedzo.py``, ``models/api.py``), never silently ignored.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Serving CLI: one batched prefill, then a decode loop, on a registered
-architecture (dense, moe, ssm or hybrid), in PyTorch.
+architecture (dense, moe, ssm, hybrid, encdec or vlm), in PyTorch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b-smoke \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
@@ -26,7 +26,13 @@ are plain torch, as the reference's. An ssm model (rwkv6-7b, layernorms,
 no attention) launches no kernel at all; a hybrid one (hymba-1.5b)
 launches them as a dense one does, its attention under its sliding window
 of 1,024. qwen3-moe-30b-a3b at full width holds 56.89 GiB of bfloat16
-weights: one 80 GB card serves it with its cache.
+weights: one 80 GB card serves it with its cache. An encdec or vlm
+model's prompt batch carries its stubbed frontend's embeddings
+(``src_embeds`` or ``vision_embeds``, drawn by ``make_batch``): the
+prefill encodes them (seamless-m4t-large-v2's bidirectional encoder, one
+non-causal flash attention a layer) and writes every cross layer's K/V
+into the cache once; a decode batch holds the tokens only, and each step's
+cross-attentions are the flash kernel at one query over the cached K/V.
 
 ``--device`` (default ``cuda``; the CPU only when asked) is the port's
 addition. ``main(argv)`` returns a ``ServeResult``.

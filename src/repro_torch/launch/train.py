@@ -8,7 +8,9 @@ same printed lines, the same key chain and synthetic LM stream, and with
 ``--out`` the same ``history.json`` (with ``algo``) and ``final/``
 checkpoint (the format both packages read, ``checkpoint/checkpoint.py``).
 ``--arch`` takes any registered architecture: the dense, moe, ssm
-(``rwkv6-7b``) and hybrid (``hymba-1.5b``) families, each step one
+(``rwkv6-7b``), hybrid (``hymba-1.5b``), encdec (``seamless-m4t-large-v2``,
+each step's ``src_embeds`` drawn from the step's key) and vlm
+(``llama-3.2-vision-90b``, zero ``vision_embeds``) families, each step one
 client's loss.
 
 - ``--algo fedzo`` (default, lr 1e-4) runs one local iterate per step on
@@ -59,6 +61,24 @@ class TrainResult(NamedTuple):
 def make_lm_data(cfg, n_tokens=200_000, seed=0):
     vocab = min(cfg.vocab, 4096)  # synthetic stream over a vocab subset
     return lm_token_stream(n_tokens, vocab, seed=seed)
+
+
+def frontend_inputs(cfg, batch, key, step, dev) -> dict:
+    """The stubbed modality frontend's inputs of one step, as the
+    reference's CLI makes them: zero ``vision_embeds`` for a vlm model,
+    ``0.1·normal(fold_in(key, step))`` ``src_embeds`` for an encdec one
+    (drawn from the step's key before its split), ``[batch,
+    n_frontend_tokens, d_model]`` in the model's dtype; none otherwise."""
+    shape = (batch, cfg.n_frontend_tokens, cfg.d_model)
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.family == "encdec":
+        # 0.1 rounded to the dtype, as jax's weakly typed scalar is
+        scale = float(torch.tensor(0.1, dtype=dtype))
+        return {"src_embeds": prng.normal(prng.fold_in(key, step), shape,
+                                          dtype=dtype, device=dev) * scale}
+    return {}
 
 
 def _parser():
@@ -145,6 +165,7 @@ def main(argv=None) -> TrainResult:
     for step in range(start, start + args.steps):
         b = lm_batches(toks, args.batch, args.seq, rng)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        batch.update(frontend_inputs(cfg, args.batch, key, step, dev))
         ks = prng.split(key, 2)
         key, sub = ks[0], ks[1]
         _sync(dev)

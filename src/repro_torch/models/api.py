@@ -1,4 +1,4 @@
-"""Unified model API: the dense, moe, ssm and hybrid families.
+"""Unified model API over all ten reference architectures' families.
 
 Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
 ``Model`` bundle of functions,
@@ -8,9 +8,9 @@ Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
                                          means with n_groups > 1)
   loss_batched(params, batch) -> [M]    (``loss`` per client of a cohort:
                                          leaves and batch with a leading
-                                         ``[M]`` client axis; dense and
-                                         moe families, ssm and hybrid
-                                         raise)
+                                         ``[M]`` client axis; the
+                                         decoder-only families, encdec
+                                         and vlm raise)
   prefill(params, batch, width) -> (logits [B, V], cache)
   decode(params, batch, cache, pos, window=0) -> (logits [B, V], cache)
   init_cache(batch_size, width, device="cuda") -> zeroed cache
@@ -21,17 +21,21 @@ FedZO round (``core/fedzo.batched_loss``) runs the cohort through it.
 
 LM batches are ``{"tokens": [B, S], "labels": [B, S]}`` integer tensors on
 the parameters' device; a decode batch's ``tokens`` is ``[B, 1]`` and
-``pos`` a 0-d int tensor (the decode cache is written in place,
-``models/transformer.py``). ``make_batch`` draws a batch bitwise the
-reference's. The moe family (``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``
-with MLA and MTP), the ssm family (``rwkv6-7b``) and the hybrid family
-(``hymba-1.5b``) build through the same ``transformer`` functions. The moe
-family's cohort loss routes each client's tokens with its own router, so
-flat and wide rounds run on it; the ssm and hybrid families' cohort loss
-is not ported, so ``loss_batched`` (and with it ``fedzo.batched_loss``)
-raises ``NotImplementedError`` for them before any forward runs, while
-their ``loss``, prefill, decode and train step run. The encdec and vlm
-families raise at ``build``, and with them their prefill and decode.
+``pos`` a 0-d int tensor (the decode cache is written in place). The
+dense, moe (``qwen3-moe-30b-a3b``, ``deepseek-v3-671b`` with MLA and MTP),
+ssm (``rwkv6-7b``) and hybrid (``hymba-1.5b``) families build through the
+decoder-only ``transformer`` functions, and their cohort loss runs flat
+and wide rounds. The encdec family (``seamless-m4t-large-v2``,
+``models/encdec.py``) adds ``src_embeds`` ``[B, n_frontend_tokens,
+d_model]`` to a train or prefill batch, the vlm family
+(``llama-3.2-vision-90b``, ``models/vlm.py``) ``vision_embeds`` to every
+batch shape, as the reference's: the stubbed modality frontends, in the
+model's dtype. Decode reads only the tokens (the cross K/V is cached).
+Their loss, prefill, decode and train step run; their cohort loss is not
+ported, so ``loss_batched`` (and with it
+``fedzo.batched_loss``) raises ``NotImplementedError`` naming the cohort
+before any forward runs. ``make_batch`` draws a batch bitwise the
+reference's.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer, vlm
 from repro_torch.utils import prng
 
 
@@ -68,9 +72,51 @@ def _lm_batch_shapes(cfg, shape: ShapeConfig):
     return {"tokens": ((B, 1), torch.int32)}  # decode
 
 
+# the modality frontend stub of each family with one: its batch key
+_FRONTEND = {"encdec": "src_embeds", "vlm": "vision_embeds"}
+
+
 def build(cfg: ModelConfig) -> Model:
     transformer.check_family(cfg)
+    frontend = _FRONTEND.get(cfg.family)
+    if frontend is None:
+        return _decoder_model(cfg)
+    mod = {"encdec": encdec, "vlm": vlm}[cfg.family]
+    dtype = transformer._dtype(cfg)
 
+    def loss(p, b, n_groups=1):
+        return mod.loss_fn(p, b, cfg, n_groups)
+
+    def loss_batched(p, b):
+        transformer.check_batched(cfg)   # raises: not ported for encdec, vlm
+
+    def batch_shapes(shape):
+        d = _lm_batch_shapes(cfg, shape)
+        # an encdec decode runs off the cached cross K/V alone; the vlm
+        # keeps its patches in every shape, as the reference's
+        if shape.kind != "decode" or cfg.family == "vlm":
+            d[frontend] = ((shape.global_batch, cfg.n_frontend_tokens,
+                            cfg.d_model), dtype)
+        return d
+
+    loss.batched = loss_batched
+    return Model(
+        cfg=cfg,
+        init=lambda rng, device="cuda": mod.init_params(
+            rng, cfg, device=resolve_device(device)),
+        loss=loss,
+        loss_batched=loss_batched,
+        prefill=lambda p, b, width: mod.prefill(
+            p, b["tokens"], b[frontend], cfg, width),
+        decode=lambda p, b, cache, pos, window=0: mod.decode_step(
+            p, b["tokens"], cache, pos, cfg, window),
+        init_cache=lambda batch, width, device="cuda": mod.init_cache(
+            cfg, batch, width, device=resolve_device(device)),
+        batch_shapes=batch_shapes,
+    )
+
+
+def _decoder_model(cfg: ModelConfig) -> Model:
     def loss(p, b, n_groups=1):
         return transformer.loss_fn(p, b, cfg, n_groups)
 

@@ -37,7 +37,17 @@ tensor on the cache's device, so a decode step never waits for the host.
 
 MLA's ``c_kv`` is the first ``kv_lora`` columns of each ``[kv_lora +
 rope]`` row (a strided view); it is made contiguous before the RMSNorm,
-whose kernel takes contiguous rows. Cross-attention is not ported.
+whose kernel takes contiguous rows.
+
+Cross-attention (``init_cross_attention``, ``cross_kv``,
+``cross_attention_fwd``; reference ``attention.py:134-160``): K and V of
+the memory with ``n_heads`` heads, q and k RMS-normed over the head dim
+(kernel launches whatever ``cfg.norm`` is), and the attention the flash
+kernel without a causal mask over Sk ≠ Sq (the memory's length). One-token
+decode attends with the same kernel at Sq = 1 over the cached cross K/V
+(the reference's ``chunked_attention``, the jnp twin of its Pallas
+kernel). ``attention_fwd(causal=False)`` is the enc-dec encoder's
+bidirectional self-attention.
 """
 from __future__ import annotations
 
@@ -87,15 +97,18 @@ def _qkv(p, cfg, x):
     return q, k, v
 
 
-def attention_fwd(p, cfg, x):
-    """Full-sequence causal attention (the train forward). x [B, S, d]."""
+def attention_fwd(p, cfg, x, *, causal=True):
+    """Full-sequence attention (the train forward; ``causal=False``: the
+    bidirectional encoder, which drops the window as the reference does).
+    x [B, S, d]."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, cfg, x)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = ops.attention(q, k, v, causal=causal,
+                        window=cfg.sliding_window if causal else 0)
     return out.reshape(B, S, -1) @ p["wo"]
 
 
@@ -188,6 +201,55 @@ def attention_fwd_batched(p, cfg, x):
     k = apply_rope(k, cos, sin)
     out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
     return (out.reshape(M, B * S, -1) @ p["wo"]).reshape(M, B, S, -1)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the VLM's image layers; the enc-dec decoder)
+
+
+def init_cross_attention(rng, cfg, dtype, kv_dim=None, *, device="cpu"):
+    d, hq, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    kv_dim = kv_dim or d
+    ks = prng.split(rng, 4)
+    return {"wq": dense_init(ks[0], d, hq * hd, dtype, device=device),
+            "wk": dense_init(ks[1], kv_dim, hq * hd, dtype, device=device),
+            "wv": dense_init(ks[2], kv_dim, hq * hd, dtype, device=device),
+            "wo": dense_init(ks[3], hq * hd, d, dtype, device=device),
+            "q_norm": init_norm(hd, "rmsnorm", dtype, device=device),
+            "k_norm": init_norm(hd, "rmsnorm", dtype, device=device)}
+
+
+def cross_kv(p, cfg, memory):
+    """Cross K/V of the encoder or vision memory ``[B, Sm, kv_dim]``:
+    ``n_heads`` heads each (no grouping), k RMS-normed over the head dim
+    (a kernel launch whatever ``cfg.norm`` is), v not."""
+    B, Sm, _ = memory.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    k = norm_fwd(p["k_norm"], (memory @ p["wk"]).reshape(B, Sm, hq, hd))
+    v = (memory @ p["wv"]).reshape(B, Sm, hq, hd)
+    return {"k": k, "v": v}
+
+
+def cross_q(p, cfg, x):
+    """The RMS-normed cross queries ``[B, S, Hq, hd]`` of x ``[B, S, d]``."""
+    B, S, _ = x.shape
+    return norm_fwd(p["q_norm"], (x @ p["wq"]).reshape(
+        B, S, cfg.n_heads, cfg.head_dim))
+
+
+def cross_attend(p, q, k, v):
+    """Non-causal attention of q ``[B, S, Hq, hd]`` over the memory's k, v
+    ``[B, Sm, Hq, hd]`` (one kernel launch, Sq ≠ Sk) and the output
+    projection -> ``[B, S, d]``."""
+    B, S = q.shape[:2]
+    out = ops.attention(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_attention_fwd(p, cfg, x, kv):
+    """x ``[B, S, d]`` attends over the precomputed cross K/V (no
+    causality, no window)."""
+    return cross_attend(p, cross_q(p, cfg, x), kv["k"], kv["v"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,185 @@
+"""Encoder-decoder backbone (SeamlessM4T style): a bidirectional encoder
+over stubbed audio-frame embeddings and a causal decoder with a
+cross-attention in every layer.
+
+Counterpart of ``repro/models/encdec.py:19-155``. The audio frontend (mel
+spectrogram and conv codec) is the reference's stub: the batch carries
+frame embeddings ``src_embeds`` ``[B, n_frames, d_model]``. The tree is
+the reference's: ``embed``, ``enc_blocks`` and ``dec_blocks`` stacked over
+their layers (``transformer._stack_init``, layer i from ``fold_in(rng,
+i)``), ``enc_norm`` and ``final_norm``. The reference scans each stack;
+here a Python loop runs over layer slices (views).
+
+Kernels: each encoder layer's self-attention is one non-causal flash
+launch over the source frames; each decoder layer launches its causal
+self-attention, the cross K norm (``cross_kv``) and the cross q norm
+(RMSNorm over the head dim, whatever ``cfg.norm`` is) and the non-causal
+cross-attention over the memory. The block norms follow ``cfg.norm``
+(seamless-m4t-large-v2: layernorm, plain torch). A prefill of an L-layer
+decoder over an E-layer encoder thus makes E + 2L attention and 2L RMSNorm
+launches (+ the block norms under rmsnorm); a decode step L cross
+attentions at Sq = 1 and L q norms (its self-attention is the plain
+``layers.decode_attention``, as the reference's).
+
+Serving: ``prefill`` encodes the source once and returns the last token's
+logits and the cache ``{"self": {"k", "v"} [L, B, W, Hkv, hd], "cross_k",
+"cross_v" [L, B, n_frames, Hq, hd]}``: the self ring cache and each
+layer's cross K/V, written once. ``decode_step`` reads the cross K/V and
+writes the self cache's slot in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed_fwd, init_embed, init_mlp,
+                                       init_norm, mlp_fwd, norm_fwd,
+                                       softmax_xent, unembed_fwd)
+from repro_torch.models.transformer import (_dtype, _layer, _stack,
+                                            _stack_init, check_family)
+from repro_torch.utils import prng
+
+
+def init_enc_block(rng, cfg, dtype, *, device="cpu"):
+    ks = prng.split(rng, 2)
+    return {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+            "norm2": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+            "attn": attn.init_attention(ks[0], cfg, dtype, device=device),
+            "mlp": init_mlp(ks[1], cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                            device=device)}
+
+
+def init_dec_block(rng, cfg, dtype, *, device="cpu"):
+    ks = prng.split(rng, 3)
+    return {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+            "norm2": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+            "norm3": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+            "attn": attn.init_attention(ks[0], cfg, dtype, device=device),
+            "xattn": attn.init_cross_attention(ks[1], cfg, dtype,
+                                               device=device),
+            "mlp": init_mlp(ks[2], cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                            device=device)}
+
+
+def init_params(rng, cfg, *, device="cpu"):
+    check_family(cfg)
+    dtype = _dtype(cfg)
+    ks = prng.split(rng, 4)
+    return {
+        "embed": init_embed(ks[0], cfg.vocab, cfg.d_model, dtype,
+                            cfg.tie_embeddings, device=device),
+        "enc_blocks": _stack_init(ks[1], cfg.encoder_layers, lambda k:
+                                  init_enc_block(k, cfg, dtype,
+                                                 device=device)),
+        "dec_blocks": _stack_init(ks[2], cfg.n_layers, lambda k:
+                                  init_dec_block(k, cfg, dtype,
+                                                 device=device)),
+        "enc_norm": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+        "final_norm": init_norm(cfg.d_model, cfg.norm, dtype, device=device),
+    }
+
+
+def encode(params, cfg, src_embeds):
+    """The bidirectional encoder over frame embeddings ``[B, S_src, d]``."""
+    h = src_embeds
+    for i in range(cfg.encoder_layers):
+        lp = _layer(params["enc_blocks"], i)
+        hn = norm_fwd(lp["norm1"], h, cfg.norm)
+        h = h + attn.attention_fwd(lp["attn"], cfg, hn, causal=False)
+        hn = norm_fwd(lp["norm2"], h, cfg.norm)
+        h = h + mlp_fwd(lp["mlp"], hn, cfg.act)
+    return norm_fwd(params["enc_norm"], h, cfg.norm)
+
+
+def _dec_block(lp, cfg, h, memory_kv):
+    hn = norm_fwd(lp["norm1"], h, cfg.norm)
+    h = h + attn.attention_fwd(lp["attn"], cfg, hn)
+    hn = norm_fwd(lp["norm2"], h, cfg.norm)
+    h = h + attn.cross_attention_fwd(lp["xattn"], cfg, hn, memory_kv)
+    hn = norm_fwd(lp["norm3"], h, cfg.norm)
+    return h + mlp_fwd(lp["mlp"], hn, cfg.act)
+
+
+def loss_fn(params, batch, cfg, n_groups=1):
+    """Mean next-token cross entropy of the decoder over the encoded
+    ``src_embeds`` (``[G]`` group means with ``n_groups > 1``)."""
+    memory = encode(params, cfg, batch["src_embeds"])
+    h = embed_fwd(params["embed"], batch["tokens"])
+    for i in range(cfg.n_layers):
+        lp = _layer(params["dec_blocks"], i)
+        h = _dec_block(lp, cfg, h, attn.cross_kv(lp["xattn"], cfg, memory))
+    hf = norm_fwd(params["final_norm"], h, cfg.norm)
+    logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
+    return softmax_xent(logits, batch["labels"], n_groups)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+
+
+def init_cache(cfg, batch, width, *, device="cpu"):
+    """The zeroed decode cache: ``{"self": {"k", "v"}}`` ``[L, B, W, Hkv,
+    hd]`` and ``"cross_k"``, ``"cross_v"`` ``[L, B, n_frames, Hq, hd]``, in
+    the model's dtype."""
+    check_family(cfg)
+    dtype, L = _dtype(cfg), cfg.n_layers
+    kv = attn.init_kv_cache(cfg, batch, width, dtype, device=device)
+    xkv = (L, batch, cfg.n_frontend_tokens, cfg.n_heads, cfg.head_dim)
+    return {"self": {k: v.expand((L,) + tuple(v.shape)).contiguous()
+                     for k, v in kv.items()},
+            "cross_k": torch.zeros(xkv, dtype=dtype, device=device),
+            "cross_v": torch.zeros(xkv, dtype=dtype, device=device)}
+
+
+def prefill(params, tokens, src_embeds, cfg, width):
+    """Encode the source and prefill the decoder's self and cross caches:
+    tokens ``[B, S]``, src_embeds ``[B, S_src, d]`` -> (last-token logits
+    ``[B, V]``, cache)."""
+    check_family(cfg)
+    memory = encode(params, cfg, src_embeds)
+    h = embed_fwd(params["embed"], tokens)
+    selfs, xk, xv = [], [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["dec_blocks"], i)
+        kv = attn.cross_kv(lp["xattn"], cfg, memory)
+        hn = norm_fwd(lp["norm1"], h, cfg.norm)
+        o, c = attn.attention_prefill(lp["attn"], cfg, hn, width)
+        h = h + o
+        hn = norm_fwd(lp["norm2"], h, cfg.norm)
+        h = h + attn.cross_attention_fwd(lp["xattn"], cfg, hn, kv)
+        hn = norm_fwd(lp["norm3"], h, cfg.norm)
+        h = h + mlp_fwd(lp["mlp"], hn, cfg.act)
+        selfs.append(c)
+        xk.append(kv["k"])
+        xv.append(kv["v"])
+    hf = norm_fwd(params["final_norm"], h, cfg.norm)
+    logits = unembed_fwd(params["embed"], hf[:, -1:], cfg.tie_embeddings,
+                         cfg.vocab)
+    return logits[:, 0], {"self": _stack(selfs), "cross_k": torch.stack(xk),
+                          "cross_v": torch.stack(xv)}
+
+
+def decode_step(params, token, cache, pos, cfg, window=0):
+    """token ``[B, 1]``; ``pos`` a 0-d int tensor on the parameters' device
+    (an int is moved there) -> (logits ``[B, V]``, cache), the self cache's
+    slot written in place. The cross-attention is the flash kernel at Sq =
+    1 over the cached cross K/V."""
+    check_family(cfg)
+    h = embed_fwd(params["embed"], token)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["dec_blocks"], i)
+        hn = norm_fwd(lp["norm1"], h, cfg.norm)
+        o, _ = attn.attention_decode(lp["attn"], cfg, hn,
+                                     _layer(cache["self"], i), pos,
+                                     window=window)
+        h = h + o
+        hn = norm_fwd(lp["norm2"], h, cfg.norm)
+        q = attn.cross_q(lp["xattn"], cfg, hn)
+        h = h + attn.cross_attend(lp["xattn"], q, cache["cross_k"][i],
+                                  cache["cross_v"][i])
+        hn = norm_fwd(lp["norm3"], h, cfg.norm)
+        h = h + mlp_fwd(lp["mlp"], hn, cfg.act)
+    hf = norm_fwd(params["final_norm"], h, cfg.norm)
+    logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
+    return logits[:, 0], cache

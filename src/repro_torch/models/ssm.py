@@ -25,6 +25,17 @@ evens fixed up) ``associative_scan`` below repeats step for step, so the
 order of products is the reference's; the chunks are then chained by the
 state, again a loop of one multiply-add per chunk.
 
+The ``*_batched`` forms run one layer per client of a cohort (the flat
+round's ``[M, ...]`` leaves, views into the cohort buffer, and x ``[M, B,
+T, d]``), the reference's layer under ``jax.vmap``: the projections are
+batched GEMMs, each client's elementwise leaves broadcast over its own
+rows, and the WKV chunk loop and the selective scan run once over all M·B
+rows, so the Python loops do not grow with M. Each product keeps the
+one-client order: on the CPU a client's rows are bitwise its own layer's
+where its tensors fill whole vector groups of PyTorch's elementwise
+kernels, and otherwise an exp or log can take the vectorized path in one
+and the scalar tail in the other (an ulp).
+
 ``ln_x`` normalises over all of d (``norm_fwd(..., "layernorm")`` on
 ``[B, T, d]``), as the reference's code does. ``jax.nn.softplus`` is
 ``logaddexp(x, 0)``, and so is ``_softplus``. The leaves ``w0``, ``u``,
@@ -35,7 +46,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, init_norm, norm_fwd
+from repro_torch.models.layers import (dense_init, init_norm, norm_fwd,
+                                       norm_fwd_batched)
 from repro_torch.utils import prng
 
 WKV_CHUNK = 16
@@ -91,8 +103,9 @@ def _tmix_project(p, cfg, x, x_prev):
 
 
 def wkv_chunked(r, k, v, logw, u, s0):
-    """Chunked WKV. r/k/v/logw ``[B, T, H, hd]``; u ``[H, hd]``; s0 ``[B,
-    H, hd, hd]``. Returns (out ``[B, T, H, hd]`` float32, s_final)."""
+    """Chunked WKV. r/k/v/logw ``[B, T, H, hd]``; u ``[H, hd]``, or ``[B,
+    H, hd]`` (a bonus per row: the cohort's rows); s0 ``[B, H, hd, hd]``.
+    Returns (out ``[B, T, H, hd]`` float32, s_final)."""
     B, T, H, hd = r.shape
     C = min(WKV_CHUNK, T)
     pad = (-T) % C
@@ -114,7 +127,7 @@ def wkv_chunked(r, k, v, logw, u, s0):
     A = torch.einsum("nbhtd,nbhjd->nbhtj", r_dec, k_grow)
     A = torch.where(tri, A, 0.0)
     intra = torch.einsum("nbhtj,nbhjv->nbhtv", A, vc)
-    diag = torch.einsum("nbhtd,nbhtd->nbht", rc, kc * u[:, None])
+    diag = torch.einsum("nbhtd,nbhtd->nbht", rc, kc * u[..., None, :])
     l_tot = l_inc[:, :, :, -1:, :]              # [n, B, H, 1, hd]
     kv = torch.einsum("nbhjd,nbhjv->nbhdv", kc * torch.exp(l_tot - l_inc),
                       vc)
@@ -182,6 +195,66 @@ def rwkv_cmix_fwd(p, x, x_prev):
     xr = x + delta * p["mu_r"]
     h = torch.square(F.relu(xk @ p["wk"]))
     return torch.sigmoid(xr @ p["wr"]) * (h @ p["wv"])
+
+
+# ---------------------------------------------------------------------------
+# client-batched forms (the flat round's cohort)
+
+
+def _bmm(x, w):
+    """x ``[M, ..., d_in]`` against client m's weight ``w[m]`` ``[d_in,
+    d_out]``: one batched GEMM over ``[M, T, d_in]`` rows."""
+    M = x.shape[0]
+    out = x.reshape(M, -1, x.shape[-1]) @ w
+    return out.reshape(x.shape[:-1] + out.shape[-1:])
+
+
+def _per_client(leaf, x):
+    """A ``[M, *s]`` leaf broadcast over x ``[M, ..., *s]``: client m's
+    elementwise leaf over its own rows."""
+    lead = x.dim() - leaf.dim()
+    return leaf.reshape(leaf.shape[:1] + (1,) * lead + leaf.shape[1:])
+
+
+def _rows(leaf, b):
+    """``[M, ...]`` -> ``[M·b, ...]``: client m's leaf for each of its b
+    batch rows (the rows the chunk loops run over)."""
+    return leaf.repeat_interleave(b, 0)
+
+
+def rwkv_tmix_fwd_batched(p, cfg, x):
+    """``rwkv_tmix_fwd`` per client from a zero state and a zero token
+    shift: x ``[M, B, T, d]``, leaves ``[M, ...]`` -> ``[M, B, T, d]``. The
+    projections are batched GEMMs; the chunked WKV runs once over the
+    ``[M·B]`` rows, each with its client's bonus ``u``."""
+    M, B, T, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    x_prev = torch.cat([x.new_zeros((M, B, 1, d)), x[:, :, :-1]], dim=2)
+    delta = x_prev - x
+    mu = p["mu"]
+    xr, xk, xv, xg, xw = (x + delta * _per_client(mu[:, i], x)
+                          for i in range(5))
+    r, k, v = (_bmm(a, p[w]).reshape(M * B, T, H, hd)
+               for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
+    g = F.silu(_bmm(xg, p["wg"]))
+    lora = _bmm(torch.tanh(_bmm(xw, p["w_lora_a"])), p["w_lora_b"])
+    w_raw = _per_client(p["w0"], x) + lora.to(_F32)
+    logw = torch.clamp(-torch.exp(w_raw), -DECAY_CLAMP, -1e-6)
+    s0 = torch.zeros((M * B, H, hd, hd), dtype=_F32, device=x.device)
+    out, _ = wkv_chunked(r, k, v, logw.reshape(M * B, T, H, hd),
+                         _rows(p["u"], B), s0)
+    out = norm_fwd_batched(p["ln_x"], out.reshape(M, B, T, d).to(x.dtype),
+                           "layernorm")
+    return _bmm(out * g, p["wo"])
+
+
+def rwkv_cmix_fwd_batched(p, x, x_prev):
+    """``rwkv_cmix_fwd`` per client: x, x_prev ``[M, B, T, d]``."""
+    delta = x_prev - x
+    xk = x + delta * _per_client(p["mu_k"], x)
+    xr = x + delta * _per_client(p["mu_r"], x)
+    h = torch.square(F.relu(_bmm(xk, p["wk"])))
+    return torch.sigmoid(_bmm(xr, p["wr"])) * _bmm(h, p["wv"])
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +379,27 @@ def mamba_step(p, cfg, x, state):
     y = torch.einsum("bdn,bn->bd", s_new, Cm[:, 0].to(_F32))
     y = y + p["d_skip"] * xs[:, 0].to(_F32)
     return (y[:, None].to(x.dtype) * F.silu(z)) @ p["w_out"], s_new
+
+
+def mamba_fwd_batched(p, cfg, x):
+    """``mamba_fwd`` per client from a zero state: x ``[M, B, T, d]``,
+    leaves ``[M, ...]`` -> ``[M, B, T, d]``. The projections are batched
+    GEMMs, ``a_log``, ``dt_bias`` and ``d_skip`` each client's own over
+    its rows, and the selective scan runs once over the ``[M·B]`` rows."""
+    M, B, T, d = x.shape
+    n = cfg.ssm_state
+    xz = _bmm(x, p["w_in"])
+    xs, z = F.silu(xz[..., :d]), xz[..., d:]
+    bcdt = _bmm(xs, p["w_bcdt"])
+    Bm, Cm, dt = bcdt[..., :n], bcdt[..., n:2 * n], bcdt[..., 2 * n]
+    bias = p["dt_bias"].mean(dim=-1).reshape(M, 1, 1)
+    dt = _softplus(dt.to(_F32) + bias)[..., None]           # [M, B, T, 1]
+    A = -torch.exp(p["a_log"])                              # [M, d, n]
+    a = torch.exp(dt[..., None] * A.reshape(M, 1, 1, d, n))  # [M, B, T, d, n]
+    b = (dt * Bm.to(_F32))[..., None, :] * xs.to(_F32)[..., None]
+    s0 = torch.zeros((M * B, d, n), dtype=_F32, device=x.device)
+    h, _ = diag_ssm_scan(a.reshape(M * B, T, d, n),
+                         b.reshape(M * B, T, d, n), s0)
+    y = torch.einsum("btdn,btn->btd", h, Cm.reshape(M * B, T, n).to(_F32))
+    y = y.reshape(M, B, T, d) + _per_client(p["d_skip"], x) * xs.to(_F32)
+    return _bmm(y.to(x.dtype) * F.silu(z), p["w_out"])

@@ -28,8 +28,8 @@ layer runs the attention (under the config's sliding window) and a Mamba
 branch on the same normed input and averages them, ``0.5·(o + o2)``.
 
 ``loss_fn_batched`` is ``loss_fn`` per client of a cohort, the reference's
-loss under ``jax.vmap`` as the flat round maps it, for the dense and moe
-families: every leaf carries a leading ``[M]`` client axis (what
+loss under ``jax.vmap`` as the flat round maps it, for the dense, moe,
+ssm and hybrid families: every leaf carries a leading ``[M]`` client axis (what
 ``unflatten`` of the ``[M, n_pad]`` buffer gives, views into it), the
 batch leaves ``[M, B, S]``, and it returns ``[M]`` losses. A layer is the
 slice ``leaf[:, i]`` (a view), the dense products are batched GEMMs, and
@@ -38,7 +38,11 @@ each RMSNorm and attention is one kernel launch over the whole cohort:
 forward, whatever M is. A MoE layer routes each client's tokens with its
 own router (``moe.moe_fwd_batched``), MLA runs per client
 (``attention.mla_fwd_batched``), and each row adds its own aux and MTP
-term. The ssm and hybrid families' cohort loss is not ported: it raises.
+term. An ssm layer runs the batched RWKV time and channel mix
+(``ssm.rwkv_tmix_fwd_batched``, ``rwkv_cmix_fwd_batched``: batched GEMMs,
+the WKV chunk loop once over the M·B rows; no kernel), a hybrid layer its
+attention as one launch over the cohort beside the batched Mamba branch
+(``ssm.mamba_fwd_batched``).
 
 The classifier head (``init_classifier``, ``classifier_logits``,
 ``classifier_loss``, ``classifier_accuracy``) is the neural FedZO
@@ -60,7 +64,11 @@ decode step takes one token per row and a 0-d position tensor, and writes
 each layer's slot (and state) of that cache in place.
 
 FedZO never calls a gradient: the forward is all the train step needs.
-The encdec and vlm families are not ported and raise.
+The encdec and vlm families are ``models/encdec.py`` and ``models/vlm.py``
+(``check_decoder`` rejects them here; the vlm's self layers are this
+module's ``init_block``, ``block_fwd``, ``block_prefill`` and
+``block_decode``, its nested ``[G, n_self, ...]`` stack ``_stack_init`` of
+``_stack_init``); their cohort loss raises (``check_batched``).
 """
 from __future__ import annotations
 
@@ -81,7 +89,8 @@ from repro_torch.utils import prng
 from repro_torch.utils.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = DECODER_FAMILIES + ("encdec", "vlm")
 
 
 def _dtype(cfg):
@@ -89,13 +98,24 @@ def _dtype(cfg):
 
 
 def check_family(cfg):
-    """Reject every architecture the port cannot build as asked: the
-    dense, moe (with MoE layers, MLA and MTP), ssm and hybrid families are
-    ported; encdec and vlm raise."""
+    """Reject a family the port does not build: all ten reference
+    architectures' families (dense, moe with MoE layers, MLA and MTP, ssm,
+    hybrid, encdec, vlm) are ported."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family={cfg.family!r} not "
                                   f"ported; the port runs the {FAMILIES} "
                                   f"families")
+
+
+def check_decoder(cfg):
+    """This module's whole-model functions assemble the decoder-only
+    families; encdec and vlm models are ``models/encdec.py`` and
+    ``models/vlm.py`` (``models/api.build`` picks the module)."""
+    check_family(cfg)
+    if cfg.family not in DECODER_FAMILIES:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is built by "
+                         f"models/{cfg.family}.py (models/api.build), not "
+                         f"by the decoder-only assembly")
 
 
 def _groups(cfg):
@@ -170,7 +190,7 @@ def _stack_init(rng, n, init_fn):
 
 
 def init_params(rng, cfg, *, device="cpu"):
-    check_family(cfg)
+    check_decoder(cfg)
     dtype = _dtype(cfg)
     ks = prng.split(rng, 6)
     p = {"embed": init_embed(ks[0], cfg.vocab, cfg.d_model, dtype,
@@ -316,7 +336,7 @@ def init_cache(cfg, batch, width, *, device="cpu"):
     the float32 SSM state ``"s"`` ``[L, B, d, n]``; an ssm layer holds only
     ``"s"`` ``[L, B, H, hd, hd]`` (float32) and the token shifts
     ``"ts_att"``, ``"ts_ffn"`` ``[L, B, d]``, whatever the width."""
-    check_family(cfg)
+    check_decoder(cfg)
     c = _layer_cache(cfg, batch, width, _dtype(cfg), device)
     return {ckey: None if n == 0 else
             {k: v.expand((n,) + tuple(v.shape)).contiguous()
@@ -382,7 +402,7 @@ def block_decode(p, cfg, h, cache, pos, *, moe_layer=False, window=0):
 def prefill(params, tokens, cfg, width):
     """tokens [B, S] -> (last-token logits [B, V], cache of width
     ``width``)."""
-    check_family(cfg)
+    check_decoder(cfg)
     h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
     cache = {}
     for name, ckey, moe_layer, n in _groups(cfg):
@@ -402,7 +422,7 @@ def decode_step(params, token, cache, pos, cfg, window=0):
     """token [B, 1] int; ``pos`` the absolute position (a 0-d int tensor on
     the parameters' device; an int is moved there) -> (logits [B, V],
     cache), the cache updated in place."""
-    check_family(cfg)
+    check_decoder(cfg)
     h = _embed_scale(embed_fwd(params["embed"], token), cfg)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
     for name, ckey, moe_layer, n in _groups(cfg):
@@ -419,14 +439,32 @@ def decode_step(params, token, cache, pos, cfg, window=0):
 # client-batched forward (the flat round's cohort)
 
 
+def _rwkv_block_batched(p, cfg, h):
+    """``_rwkv_block`` per client (the train forward): each client row's
+    token shifts start from a zero row."""
+    hn = norm_fwd_batched(p["norm1"], h, cfg.norm)
+    h = h + ssm.rwkv_tmix_fwd_batched(p["tmix"], cfg, hn)
+    hn = norm_fwd_batched(p["norm2"], h, cfg.norm)
+    M, B, _, d = hn.shape
+    prev = torch.cat([hn.new_zeros((M, B, 1, d)), hn[:, :, :-1]], dim=2)
+    return h + ssm.rwkv_cmix_fwd_batched(p["cmix"], hn, prev)
+
+
 def block_fwd_batched(p, cfg, h, *, moe_layer=False):
     """``block_fwd`` per client: h ``[M, B, S, d]``, leaves ``[M, ...]`` ->
-    (h, aux ``[M]`` of a MoE layer, else None)."""
+    (h, aux ``[M]`` of a MoE layer, else None). A hybrid layer's attention
+    is one launch over the ``[M·B]`` rows (under the sliding window)
+    beside the batched Mamba branch."""
+    if cfg.family == "ssm":
+        return _rwkv_block_batched(p, cfg, h), None
     hn = norm_fwd_batched(p["norm1"], h, cfg.norm)
     if cfg.mla is not None:
-        h = h + attn.mla_fwd_batched(p["attn"], cfg, hn)
+        o = attn.mla_fwd_batched(p["attn"], cfg, hn)
     else:
-        h = h + attn.attention_fwd_batched(p["attn"], cfg, hn)
+        o = attn.attention_fwd_batched(p["attn"], cfg, hn)
+    if cfg.family == "hybrid":
+        o = 0.5 * (o + ssm.mamba_fwd_batched(p["mamba"], cfg, hn))
+    h = h + o
     hn = norm_fwd_batched(p["norm2"], h, cfg.norm)
     if moe_layer:
         o, aux = moe_fwd_batched(p["moe"], cfg, hn)
@@ -453,11 +491,11 @@ def backbone_batched(params, cfg, h):
 
 
 def check_batched(cfg):
-    """The client-batched forward runs the dense and moe families (MoE
-    layers, MLA, MTP); the ssm and hybrid families raise before any kernel
-    or ``torch.func.vmap`` is reached."""
+    """The client-batched forward runs the decoder-only families (dense,
+    moe with MoE layers, MLA and MTP, ssm, hybrid); the encdec and vlm
+    families raise before any kernel or ``torch.func.vmap`` is reached."""
     check_family(cfg)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the client-batched cohort loss of the "
             f"{cfg.family} family is not ported; the single-client loss "

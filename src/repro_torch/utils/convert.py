@@ -5,10 +5,12 @@ The reference's parameters, fetched to the host (``jax.device_get``), are
 layouts (HWIO conv weights, ``[d_in, d_out]`` dense weights, a leading
 ``[L]`` axis on stacked transformer blocks), so a conversion is a copy per
 leaf. The tests start both packages from the same weights this way.
-Every dense, moe, ssm and hybrid config's tree converts: tied or untied
-embeddings, q/k/v biases, ``qk_norm`` scales, routers and experts, the
-float32 SSM leaves among bfloat16 ones (each leaf keeps its own dtype) are
-leaves like any other, an empty group is None in both trees, and bfloat16
+Every config's tree converts: tied or untied embeddings, q/k/v biases,
+``qk_norm`` scales, routers and experts, the float32 SSM leaves among
+bfloat16 ones (each leaf keeps its own dtype), the cross-attention
+families' stacks (the vlm's nested ``[G, n_self, ...]`` self layers and
+its float32 0-d gates) are leaves like any other, an empty group is None
+in both trees, and bfloat16
 leaves (numpy's ``bfloat16`` extension dtype, which ``torch.from_numpy``
 does not take) are carried bit for bit through their 16-bit words.
 """

@@ -14,7 +14,10 @@ walked by the kernels and is part of the client deltas; ``unflatten`` drops
 it.
 
 The buffer is float32 whatever the leaves' dtypes; ``unflatten`` casts each
-leaf back to its own dtype (a no-op view for float32 leaves). Buffers may
+leaf back to its own dtype (a no-op view for float32 leaves). A 0-d leaf
+(the vlm's float32 gates among bfloat16 ones) is one element of the
+buffer at its place in the reference's leaf order, and comes back 0-d, or
+``[M]`` under a leading client axis. Buffers may
 carry leading batch dimensions (``[M, n_pad]`` for the M clients of a
 round): ``unflatten`` slices the last dimension and keeps the leading ones
 on every leaf.

@@ -32,8 +32,12 @@ with exact launches; the one-rank sharded round bitwise the unsharded one
 on the card, two gloo ranks sharing the card within 1e-3 of it; the pod
 step on the card against the CPU. The moe family's client-batched loss on
 the card against the CPU and each client's own; the ssm and hybrid smoke
-configs' serving and loss on the card against the CPU. ``chip_smoke.py`` repeats these at the main path's full shapes and times
-them.
+configs' serving and loss on the card against the CPU, and their
+client-batched loss. The cross-attention families: the non-causal kernel
+at the encoder, cross and one-query shapes and ragged, RMSNorm over the
+cross norms' rows, the enc-dec and VLM smoke configs on the card against
+the CPU. ``chip_smoke.py`` repeats these at the main path's full shapes
+and times them.
 """
 import itertools
 import math
@@ -1345,3 +1349,128 @@ def test_ssm_and_hybrid_serve_and_loss_on_card_match_the_cpu(gen, arch):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
     torch.testing.assert_close(outs["cuda"][3], outs["cpu"][3], rtol=1e-5,
                                atol=0)
+
+
+# (name, q [B, Sq, Hq, D], k/v [Sk, Hkv]): the cross-attention families'
+# new shapes, and a ragged non-causal call
+XATTN_SHAPES = chip_smoke.XATTN_TIMED + (
+    ("ragged", (2, 5, 16, 64), (1000, 16)),)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c[0] for c in XATTN_SHAPES])
+def test_non_causal_attention_at_cross_shapes_on_card(gen, case, dtype):
+    """The flash kernel without a causal mask at the encoder's [2, 4,096,
+    16, 64], the two cross shapes at prefill (Sk 4,096 and 1,600), one
+    query over 4,096 and 1,600 keys, and 5 queries over 1,000 keys:
+    against its plain version (``chip_smoke.hold_attention_long``: float32
+    within 1e-5 of max |out|, phase 2's tolerance; bfloat16 within one
+    bf16 ulp plus that float32 tolerance, the reason beside the
+    function)."""
+    _, (b, sq, hq, d), (sk, hkv) = next(c for c in XATTN_SHAPES
+                                        if c[0] == case)
+    q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    chip_smoke.hold_attention_long(torch, ops, fa, q, k, v, False, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.XATTN_NORM_ROWS])
+def test_rmsnorm_at_cross_norm_rows_on_card(gen, case, dtype):
+    """rmsnorm over the cross q and k norms' rows (a head dim wide:
+    seamless-m4t-large-v2's 64, llama-3.2-vision-90b's 128) against its
+    plain version (``chip_smoke.hold_rmsnorm``) and bitwise its summation
+    order's torch twin."""
+    _, r, d = next(c for c in chip_smoke.XATTN_NORM_ROWS if c[0] == case)
+    x = torch.randn(r, d, generator=gen, device="cuda").to(dtype)
+    sc = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    got, _, _ = chip_smoke.hold_rmsnorm(torch, ops, rn, x, sc)
+    assert torch.equal(got, rn.rmsnorm_kernel_order(x, sc, eps=1e-6))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2-smoke",
+                                  "llama-3.2-vision-90b-smoke"])
+def test_encdec_and_vlm_smoke_on_card_match_the_cpu(gen, arch):
+    """The encdec and vlm smoke configs (the vlm's gates at 0.5) on the
+    card against the CPU from the same weights: prefill, 3 decode steps
+    (logits and every cache leaf) and the loss within 1e-5 of their
+    largest magnitude; the launches ``chip_smoke.xattn_launches`` derives
+    (the cross-attention non-causal over the memory, at one query in
+    decode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.utils import convert
+    from repro_torch.utils.flatparams import _leaves
+    cfg = get_config(arch)
+    m = api.build(cfg)
+    cpu = m.init(prng.key(0), device="cpu")
+    if cfg.family == "vlm":
+        for g in ("gate_attn", "gate_mlp"):
+            cpu["cross_blocks"][g].fill_(chip_smoke.VISION_GATE)
+    card = convert.to_torch(convert.to_numpy(cpu), device="cuda")
+    outs = {}
+    for dev, p in (("cpu", cpu), ("cuda", card)):
+        b = api.make_batch(m, ShapeConfig("p", 32, 2, "prefill"),
+                           prng.key(1), device=dev)
+        tb = api.make_batch(m, ShapeConfig("t", 32, 2, "train"),
+                            prng.key(2), device=dev)
+        ops.reset_launches()
+        lg, c = m.prefill(p, b, 36)
+        pre = dict(ops.LAUNCHES)
+        logits = [lg.cpu()]
+        ops.reset_launches()
+        for i in range(3):
+            tok = torch.argmax(logits[-1], -1)[:, None].to(torch.int32)
+            lg, c = m.decode(p, {"tokens": tok.to(dev)}, c,
+                             torch.tensor(32 + i, device=dev))
+            logits.append(lg.cpu())
+        outs[dev] = (logits + [t.cpu() for _, t in _leaves(c)], pre,
+                     dict(ops.LAUNCHES), m.loss(p, tb).cpu())
+    for got, want in ((outs["cuda"][1], chip_smoke.serve_launches(cfg, 1, 0)),
+                      (outs["cuda"][2], chip_smoke.serve_launches(cfg, 0, 3))):
+        assert {k: got[k] for k in want} == want
+    for g, w in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    torch.testing.assert_close(outs["cuda"][3], outs["cpu"][3], rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b-smoke", "hymba-1.5b-smoke"])
+def test_ssm_cohort_loss_on_card_matches_the_cpu(gen, arch):
+    """The ssm and hybrid families' client-batched loss (M = 3 clients' own
+    weights as views of one ``[M, n_pad]`` buffer) on the card: the
+    launches of one forward whatever M is (hymba: 2L + 1 RMSNorms and L
+    windowed attentions over the cohort's rows; rwkv6: none), within 1e-5
+    of the same loss on the CPU and within 4 float32 ulps of each client's
+    own ``Model.loss`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+    cfg = get_config(arch)
+    model = api.build(cfg)
+    init = model.init(prng.key(0), device="cpu")
+    spec = flat_spec(init)
+    m = 3
+    buf = flatten(init, spec)[None].repeat(m, 1)
+    buf = buf + 1e-2 * torch.randn(buf.shape, generator=torch.Generator()
+                                   .manual_seed(1))
+    tok = torch.randint(0, cfg.vocab, (m, 2, 33),
+                        generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+    cpu = model.loss_batched(unflatten(buf, spec), batch)
+    bc = buf.cuda()
+    bb = {k: v.cuda() for k, v in batch.items()}
+    ops.reset_launches()
+    got = model.loss_batched(unflatten(bc, spec), bb)
+    torch.cuda.synchronize()
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    assert ops.LAUNCHES["rmsnorm"] == (2 * cfg.n_layers + 1) * (attn > 0)
+    assert ops.LAUNCHES["flash_attention"] == attn
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=0)
+    each = torch.stack([model.loss(unflatten(bc[i], spec),
+                                   {k: t[i] for k, t in bb.items()})
+                        for i in range(m)])
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    assert float(((got - each).abs() / ulp).max()) <= 4

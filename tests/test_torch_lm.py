@@ -87,29 +87,34 @@ def test_config_is_the_reference_config(arch):
 
 
 def test_unported_architectures_and_routes_raise():
-    """The enc-dec and VLM architectures and families raise (rwkv6-7b and
-    hymba-1.5b, the ssm and hybrid families, are ported: their config is
-    the reference's, ``tests/test_torch_ssm.py``)."""
-    for arch in ("seamless-m4t-large-v2", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError):
-            get_config(arch)
-    with pytest.raises(NotImplementedError):
-        get_config("no-such-arch")
-    for arch in ("rwkv6-7b", "hymba-1.5b"):
-        assert get_config(arch).family in ("ssm", "hybrid")
+    """All ten reference architectures register, each with the reference's
+    config (the enc-dec and VLM families are ported:
+    ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``), and an
+    unknown id raises the reference's KeyError. The decoder-only assembly
+    (``models/transformer.py``) rejects an enc-dec or VLM config: those
+    build through ``api.build``."""
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+    assert sorted(ARCH_IDS) == sorted(JARCH_IDS) and len(ARCH_IDS) == 10
+    for arch in JARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
+    for get in (get_config, jget_config):
+        with pytest.raises(KeyError):
+            get("no-such-arch")
     cfg = get_config(SMOKE)
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            api.build(cfg.replace(family=family))
-    # prefill and decode of an unported family (build rejects the family,
-    # and the serving functions reject it themselves)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            ttf.prefill({}, toks, cfg.replace(family=family), 16)
-        with pytest.raises(NotImplementedError):
-            ttf.decode_step({}, toks[:, :1], {}, 4, cfg.replace(
-                family=family))
+    for arch in ("seamless-m4t-large-v2-smoke", "llama-3.2-vision-90b-smoke"):
+        other = get_config(arch)
+        assert api.build(other).cfg is other
+        with pytest.raises(ValueError, match="api.build"):
+            ttf.init_params(prng.key(0), other)
+        with pytest.raises(ValueError, match="api.build"):
+            ttf.prefill({}, toks, other, 16)
+        with pytest.raises(ValueError, match="api.build"):
+            ttf.decode_step({}, toks[:, :1], {}, 4, other)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        api.build(cfg.replace(family="diffusion"))
     model = api.build(cfg)
     # the wireless channel model is ported; the train step ignores it, as
     # the reference's does

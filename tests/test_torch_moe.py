@@ -419,17 +419,19 @@ def test_none_subtree_is_carried_by_the_tree_utilities():
 
 def test_cohort_loss_of_the_moe_family_raises(monkeypatch):
     """The moe family's client-batched loss is ported
-    (``tests/test_torch_moe_cohort.py``); the ssm and hybrid families'
-    is not: it raises, naming the cohort, before any forward and without
-    reaching ``torch.func.vmap``."""
+    (``tests/test_torch_moe_cohort.py``), and so are the ssm and hybrid
+    families' (``tests/test_torch_ssm_cohort.py``); the encdec and vlm
+    families' is not: it raises, naming the cohort, before any forward and
+    without reaching ``torch.func.vmap``."""
     def no_vmap(*a, **k):
         raise AssertionError("reached torch.func.vmap")
     monkeypatch.setattr(torch.func, "vmap", no_vmap)
-    for arch in ("rwkv6-7b-smoke", "hymba-1.5b-smoke"):
+    for arch in ("seamless-m4t-large-v2-smoke", "llama-3.2-vision-90b-smoke"):
         m = api.build(get_config(arch))
         p = m.init(prng.key(0), device="cpu")
-        batch = {"tokens": torch.zeros((2, 1, 4), dtype=torch.int32),
-                 "labels": torch.zeros((2, 1, 4), dtype=torch.int32)}
+        batch = {k: torch.stack([v, v]) for k, v in api.make_batch(
+            m, ShapeConfig("t", 4, 1, "train"), prng.key(1),
+            device="cpu").items()}
         params = ttree.tree_map(lambda x: torch.stack([x, x]), p)
         with pytest.raises(NotImplementedError, match="cohort"):
             m.loss_batched(params, batch)
