@@ -4677,10 +4677,15 @@ def cohort_launches(ops, mcfg, fcfg):
     (flat or wide): ``round_launches``' ZO kernels, and per forward the
     blocks' RMSNorms, the final norm and, under MTP, its norm and block
     (none under layernorm: rwkv6); one attention a layer (and the MTP
-    block's; none in an ssm layer)."""
+    block's; none in an ssm layer). An encdec or vlm cohort forward makes
+    a one-client train forward's launches (``xattn_launches``)."""
     want = round_launches(ops, fcfg, 1)
     forwards = fcfg.local_iters * (2 if fcfg.batch_directions
                                    else fcfg.b2 + 1)
+    if mcfg.family in ("encdec", "vlm"):
+        per = xattn_launches(mcfg, "prefill")
+        want.update({k: forwards * n for k, n in per.items()})
+        return want
     rms = mcfg.norm == "rmsnorm"
     norms = (layer_norms(mcfg) * mcfg.n_layers + rms
              + mcfg.mtp * (1 + layer_norms(mcfg)))
@@ -4876,13 +4881,15 @@ def run_moe_cohort_round(torch, ops, FedZOConfig, smi, total, rows):
 
 def smoke_rounds_card_vs_cpu(torch, ops, FedZOConfig, total,
                              archs=("qwen3-moe-30b-a3b-smoke",
-                                    "deepseek-v3-671b-smoke")):
+                                    "deepseek-v3-671b-smoke"), lr=1e-3):
     """Phase 11 part (b) (the moe -smoke configs; phase 12 part (d) the ssm
-    and hybrid ones): in float32, one flat round, one flat AirComp round
-    and one wide round (batch_directions, block directions) of each of
-    ``archs`` (M = 3, H = COHORT_SMOKE_H, b2 = 4, mu 1e-2, lr 1e-3), on the
-    card against the same round on the CPU: the weights within
-    COHORT_SMOKE_TOL, the card's launches exact."""
+    and hybrid ones; phase 13 part (c) the encdec and vlm ones, their
+    frontend stubs' embeddings 0.1·normal, a vlm's gates at VISION_GATE):
+    in float32, one flat round, one flat AirComp round and one wide round
+    (batch_directions, block directions) of each of ``archs`` (M = 3, H =
+    COHORT_SMOKE_H, b2 = 4, mu 1e-2, ``lr``), on the card against the same
+    round on the CPU: the weights within COHORT_SMOKE_TOL while the round
+    moves a weight by at least 10x that, the card's launches exact."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import fedzo
@@ -4891,7 +4898,7 @@ def smoke_rounds_card_vs_cpu(torch, ops, FedZOConfig, total,
     from repro_torch.utils import prng
     from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
     m, h = 3, COHORT_SMOKE_H
-    base = dict(n_participating=m, local_iters=h, lr=1e-3, mu=1e-2, b2=4,
+    base = dict(n_participating=m, local_iters=h, lr=lr, mu=1e-2, b2=4,
                 flat_params=True)
     fcfgs = {"flat": FedZOConfig(**base),
              "aircomp": FedZOConfig(**base, aircomp=True,
@@ -4901,13 +4908,23 @@ def smoke_rounds_card_vs_cpu(torch, ops, FedZOConfig, total,
     notes = []
     for arch in archs:
         model = api.build(get_config(arch))
+        cfg = model.cfg
         init = model.init(prng.key(0), device="cpu")
+        if cfg.family == "vlm":
+            for g in ("gate_attn", "gate_mlp"):
+                init["cross_blocks"][g].fill_(VISION_GATE)
         spec = flat_spec(init)
         toks = lm_token_stream(20_000, 512, seed=0)
         rng = np.random.default_rng(0)
         per = [lm_batch(torch, toks, rng, 2, 16, "cpu") for _ in range(m * h)]
         batches = {k: torch.stack([x[k] for x in per]).reshape((m, h, 2, 16))
                    for k in ("tokens", "labels")}
+        frontend = {"encdec": "src_embeds",
+                    "vlm": "vision_embeds"}.get(cfg.family)
+        if frontend:
+            batches[frontend] = torch.from_numpy((0.1 * rng.standard_normal(
+                (m, h, 2, cfg.n_frontend_tokens, cfg.d_model))).astype(
+                np.float32))
         for name, fcfg in fcfgs.items():
             out = {}
             for dev in ("cuda", "cpu"):
@@ -4919,7 +4936,7 @@ def smoke_rounds_card_vs_cpu(torch, ops, FedZOConfig, total,
                     prng.split(prng.key(1), m), fcfg,
                     channel_rng=prng.key(2))
                 out[dev] = (flatten(new, spec).cpu(), dict(ops.LAUNCHES))
-            want = cohort_launches(ops, model.cfg, fcfg)
+            want = cohort_launches(ops, cfg, fcfg)
             check(out["cuda"][1] == want, f"{arch} {name} round: launches "
                   f"{out['cuda'][1]} != {want}")
             for k in total:
@@ -5764,6 +5781,402 @@ def run_xattn_ssm_cohort(torch, ops, FedZOConfig, smi, rows):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase "encdec and vlm cohort, strategy sweeps"
+
+XCOHORT_BUDGET_S = 150.0
+# seamless-m4t-large-v2 (arXiv:2308.11596) at full width and depth through
+# the enc-dec cohort loss, float32 (6.08 GiB a copy): M 2, H 2, b2 8, mu
+# 1e-3, each client 2 x 128 tokens of the launcher's stream over its 4,096
+# stub frames (0.1.normal). A round holds about 2 + 4M copies (phase 12's
+# hymba round: 52 GiB for 10 copies of 5.19 GiB), one more with AirComp:
+# about 61 and 67 GiB, and 2 GiB of activations.
+XC_M, XC_H, XC_B2, XC_B, XC_S = 2, 2, 8, 2, 128
+# llama-3.2-vision-90b at full width, reduced in depth only to one group:
+# 5 of 100 layers (4 self layers and one gated cross layer) over its 1,600
+# stub patches, 6,497,067,266 parameters, float32 (24.20 GiB a copy); a
+# flat round's 2 + 4M copies do not fit one card even at M 1, so the
+# cohort loss alone at M 2 (48.41 GiB of stacked weights, initialised in
+# bfloat16 and widened), gates VISION_GATE, each client's weights offset
+# by 1e-3.normal
+VISION_COHORT_LAYERS, VISION_COHORT_PARAMS = 5, 6_497_067_266
+XC_LOSS_ULPS = 2
+# the encdec and vlm -smoke rounds on the card against the CPU at twice
+# the other families' lr: at 1e-3 seamless-m4t-large-v2-smoke's wide round
+# (block directions) moves its largest weight by 9.0e-3, under the
+# 10 x COHORT_SMOKE_TOL that makes the comparison mean something, while
+# the card reads 5.4e-5 from the CPU (H100 80GB HBM3)
+XC_SMOKE_LR = 2e-3
+# the strategy sweeps: the paper's Sec. V-B softmax model (784 x 10 + 10
+# = 7,850 weights) at N 50, M 10, H 5, b1 25, b2 20, flat route (4-row
+# blocks: n_pad 8,192), unsafe_rbg, AirComp; S = 4 scenarios over {lr,
+# snr_db} a group, 2 rounds; a ZO group's lr {1e-3, 5e-4}, FedAvg's
+# {5e-2, 2.5e-2}
+SWEEP_SNRS = (0.0, 20.0)
+SWEEP_ROUNDS = 2
+# the first round's records on the card against the CPU: the losses
+# within FAST_ATOL, the other float records (delta_max, the noise's std)
+# within a relative SWEEP_REL, m_effective bitwise. A loss ulp moves a
+# coefficient by d·ulp/mu = 7,850 x 1.2e-7 / 1e-3, about 0.9, so the
+# card's other summation orders move a row's delta within the round
+# (delta_max, about 7.8, 2.7e-4 to 3.4e-4 apart relative, the noise's std
+# 1.4e-4 to 1.7e-4, on an H100 80GB HBM3), as in the attack sweep
+# (ATTACK_LOSS_RTOL)
+SWEEP_LOSSES = ("mean_local_loss", "first_loss")
+SWEEP_REL = 5e-3
+SWEEP_STRATEGIES = (("fedzo", {}), ("fedprox", dict(prox_mu=0.01)),
+                    ("feddyn", dict(dyn_alpha=0.01)), ("scaffold", {}),
+                    ("fedavg", dict(lr=5e-2)))
+
+
+def hold_xcohort_kernels(torch, ops, rows):
+    """The enc-dec cohort's new kernel shapes against the plain versions in
+    float32 under phase 2's rules: the non-causal encoder attention over
+    the ``[M.B = 4, 4,096, 16, 64]`` rows, and the cross q and k norms'
+    rows (``[2, 4,096, 64]`` and ``[2, 131,072, 64]``) under ``[2, 64]``
+    group scales. Returns the printed notes."""
+    from repro_torch.kernels import flash_attention as plain_flash
+    from repro_torch.kernels import rmsnorm as plain_rms
+    g = torch.Generator(device="cuda").manual_seed(25)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    notes, e_rms = [], 0.0
+    for r in (XC_B * XC_S * 16, XC_B * 4096 * 16):
+        _, e, note = hold_rmsnorm(torch, ops, plain_rms, rnd(XC_M, r, 64),
+                                  1.0 + 0.1 * rnd(XC_M, 64))
+        e_rms = max(e_rms, e)
+        notes.append(note + f" ({XC_M} scales)")
+    e_att, note = hold_attention_long(
+        torch, ops, plain_flash, *(rnd(XC_M * XC_B, 4096, 16, 64)
+                                   for _ in range(3)), False, 0)
+    notes.append(note)
+    rows["rmsnorm"]["max_abs_err"] = max(rows["rmsnorm"]["max_abs_err"],
+                                         e_rms)
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], e_att)
+    return notes
+
+
+def loss_ulps(torch, got, each):
+    """(max relative difference, max ulps of ``each``) of two loss rows."""
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    return (float(((got - each).abs() / each.abs()).max()),
+            float(((got - each).abs() / ulp).max()))
+
+
+def run_seamless_cohort_round(torch, ops, FedZOConfig, smi, total, rows):
+    """Part (a): ``fedzo.round_simulated`` on seamless-m4t-large-v2 at full
+    width and depth in float32 through the enc-dec cohort loss: a warm-up
+    mean round, a mean round bitwise the warm-up's, an AirComp round
+    (channel scheduling at 5 dB); each with its ms, peak and exact
+    launches (one client's forward launches whatever M is); the reckoned
+    peak first; then the cohort loss against each client's own within
+    XC_LOSS_ULPS."""
+    import numpy as np
+    from repro_torch.core import fedzo
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+    from repro_torch.utils.tree import tree_leaves, tree_size
+    model, toks = lm_setup("seamless-m4t-large-v2", "float32")
+    cfg = model.cfg
+    m, h, b, s = XC_M, XC_H, XC_B, XC_S
+    print("seamless-m4t-large-v2 cohort shapes against the plain versions: "
+          + "; ".join(hold_xcohort_kernels(torch, ops, rows)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(prng.key(0), device="cuda")
+    n = tree_size(params)
+    check(n == SEAMLESS_PARAMS, f"seamless-m4t-large-v2: {n} parameters")
+    spec = flat_spec(params)
+    copy = 4 * spec.n_pad / 2**30
+    print(f"seamless-m4t-large-v2 cohort round: {n} parameters, n_pad "
+          f"{spec.n_pad}; reckoned peak {(2 + 4 * m) * copy:.1f} GiB "
+          f"({2 + 4 * m} float32 copies of {copy:.2f} GiB; one more with "
+          f"AirComp) [{smi}]")
+    rng = np.random.default_rng(1)
+    per = [lm_batch(torch, toks, rng, b, s, "cuda") for _ in range(m * h)]
+    batches = {k: torch.stack([x[k] for x in per]).reshape((m, h, b, s))
+               for k in ("tokens", "labels")}
+    g = torch.Generator(device="cuda").manual_seed(26)
+    batches["src_embeds"] = 0.1 * torch.randn(
+        (m, h, b, cfg.n_frontend_tokens, cfg.d_model), generator=g,
+        device="cuda")
+    keys = prng.split(prng.key(1), m)
+    base = dict(n_participating=m, local_iters=h, lr=1e-4, mu=1e-3,
+                b2=XC_B2, estimator="sphere", flat_params=True)
+    cfgs = {"mean": FedZOConfig(**base),
+            "aircomp": FedZOConfig(**base, aircomp=True,
+                                   channel_schedule=True, snr_db=5.0)}
+    first, lines = None, []
+    for name in ("warm-up mean", "mean", "aircomp"):
+        fcfg = cfgs[name.split()[-1]]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = fedzo.round_simulated(model.loss, params, batches, keys,
+                                         fcfg, channel_rng=prng.key(2))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(ops.LAUNCHES)
+        want = cohort_launches(ops, cfg, fcfg)
+        check(counts == want, f"seamless round {name}: launches {counts} "
+              f"!= {want}")
+        for k in total:
+            total[k] += counts[k]
+        mets = {k: float(v) for k, v in met.items()}
+        check(all(map(math.isfinite, mets.values())) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+            f"seamless round {name}: metrics {mets}")
+        moved = max(float((a - c).abs().max()) for a, c in
+                    zip(tree_leaves(new), tree_leaves(params)))
+        check(moved > 0, f"seamless round {name}: no weight moved")
+        again = ""
+        if first is None:
+            first = [t.cpu() for t in tree_leaves(new)]
+        elif name == "mean":
+            check(all(torch.equal(a.cpu(), c) for a, c in
+                      zip(tree_leaves(new), first)),
+                  "seamless round: a second run differs")
+            again = "; bitwise the warm-up round"
+        del new
+        lines.append(f"{name}: ms/round {ms:.1f}; peak "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                     f"metrics {json.dumps(mets)}; largest weight move "
+                     f"{moved:.3e}; launches {counts}{again}")
+        torch.cuda.empty_cache()
+    del first
+    # each client's own weights: the server weights plus a per-client
+    # offset, as rows of one [M, n_pad] buffer
+    buf = flatten(params, spec)[None].repeat(m, 1)
+    buf += 1e-3 * torch.randn(buf.shape, generator=g, device="cuda")
+    b0 = {k: v[:, 0] for k, v in batches.items()}
+    got = model.loss_batched(unflatten(buf, spec), b0)
+    each = torch.stack([model.loss(unflatten(buf[i], spec),
+                                   {k: v[i] for k, v in b0.items()})
+                        for i in range(m)])
+    rel, ulps = loss_ulps(torch, got, each)
+    check(ulps <= XC_LOSS_ULPS, f"seamless cohort loss vs each client: "
+          f"{ulps} ulps")
+    print(f"seamless_m4t_large_v2_flat_round (float32, full width and depth; "
+          f"M {m}, H {h}, b2 {XC_B2}, batch {b} x {s} a client over "
+          f"{cfg.n_frontend_tokens} frames): " + " | ".join(lines)
+          + f"; the cohort loss vs each client's own rel {rel:.2e} "
+          f"({ulps:.1f} ulps, bound {XC_LOSS_ULPS}) [{smi}]")
+    del buf, params, batches
+    torch.cuda.empty_cache()
+
+
+def run_vision_cohort_loss(torch, ops, smi, rows):
+    """Part (b): llama-3.2-vision-90b at full width, cut to one group
+    (VISION_COHORT_LAYERS), float32: its cohort loss at M 2 (each client's
+    weights a row of one ``[2, n_pad]`` buffer, the gates VISION_GATE plus
+    the offset), 2 x 128 tokens each over 1,600 patch embeddings: against
+    each client's own loss within XC_LOSS_ULPS, and its RMSNorm and
+    attention launches at M 2 those at M 1 and a one-client forward's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.utils import prng
+    from repro_torch.utils.flatparams import _leaves, flat_spec, unflatten
+    cfg = get_config("llama-3.2-vision-90b").replace(
+        n_layers=VISION_COHORT_LAYERS, dtype="float32")
+    model = api.build(cfg)
+    m, b, s = XC_M, XC_B, XC_S
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = flat_spec(model.init(prng.key(0), device="meta"))
+    check(spec.d == VISION_COHORT_PARAMS, f"vision 5L: {spec.d} parameters")
+    t0 = time.perf_counter()
+    half = api.build(cfg.replace(dtype="bfloat16")).init(prng.key(0),
+                                                         device="cuda")
+    buf = torch.empty((m, spec.n_pad), device="cuda")
+    buf[0, spec.d:] = 0.0
+    for (_, dst), (_, src) in zip(_leaves(unflatten(buf[0], spec)),
+                                  _leaves(half)):
+        dst.copy_(src)
+    del half
+    unflatten(buf[0], spec)["cross_blocks"]["gate_attn"].fill_(VISION_GATE)
+    unflatten(buf[0], spec)["cross_blocks"]["gate_mlp"].fill_(VISION_GATE)
+    g = torch.Generator(device="cuda").manual_seed(27)
+    chunk = 1 << 28
+    for i in range(0, spec.n_pad, chunk):
+        c = min(chunk, spec.n_pad - i)
+        buf[1, i:i + c] = buf[0, i:i + c] + 1e-3 * torch.randn(
+            c, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    per = [api.make_batch(model, ShapeConfig("t", s, b, "train"),
+                          prng.key(10 + i), device="cuda") for i in range(m)]
+    for i, x in enumerate(per):   # patches of 0.1.normal (make_batch's: 1)
+        x["vision_embeds"] = 0.1 * x["vision_embeds"]
+    batch = {k: torch.stack([x[k] for x in per]) for k in per[0]}
+    seen = []
+    for rows_m in (m, 1):
+        ops.reset_launches()
+        got = model.loss_batched(unflatten(buf[:rows_m], spec),
+                                 {k: v[:rows_m] for k, v in batch.items()})
+        torch.cuda.synchronize()
+        seen.append({k: ops.LAUNCHES[k] for k in ("rmsnorm",
+                                                  "flash_attention")})
+        if rows_m == m:
+            cohort = got
+    ops.reset_launches()
+    each = torch.stack([model.loss(unflatten(buf[i], spec), per[i])
+                        for i in range(m)])
+    torch.cuda.synchronize()
+    single = {k: ops.LAUNCHES[k] // m for k in ("rmsnorm",
+                                                 "flash_attention")}
+    want = xattn_launches(cfg, "prefill")
+    check(seen[0] == seen[1] == single == want, f"vision cohort launches "
+          f"M {m} {seen[0]}, M 1 {seen[1]}, one client {single} != {want}")
+    rel, ulps = loss_ulps(torch, cohort, each)
+    check(ulps <= XC_LOSS_ULPS and bool(torch.isfinite(cohort).all()),
+          f"vision cohort loss vs each client: {ulps} ulps")
+    print(f"llama_3_2_vision_90b_1g_cohort_loss (float32, full width, "
+          f"reduced: depth only, n_layers {VISION_COHORT_LAYERS} of 100, "
+          f"{spec.d} parameters; M {m}, batch {b} x {s} a client over "
+          f"{cfg.n_frontend_tokens} patches, gates {VISION_GATE}): stacked "
+          f"weights {4 * m * spec.n_pad / 2**30:.2f} GiB built in "
+          f"{init_s:.2f} s; losses {[round(float(v), 4) for v in cohort]}; "
+          f"vs each client's own rel {rel:.2e} ({ulps:.1f} ulps, bound "
+          f"{XC_LOSS_ULPS}); launches a cohort forward {seen[0]} at M {m} "
+          f"and at M 1; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB [{smi}]")
+    del buf, batch, per
+    torch.cuda.empty_cache()
+
+
+def sweep_launches(ops, cfg, S, rounds):
+    """ZO launches of a batched flat AirComp group of S scenarios: per
+    iterate b2 walks, one replay and one norms launch over all S.M rows;
+    per round each scenario's aircomp_reduce and noise walk. FedAvg
+    launches no ZO kernel (its AirComp is the pytree route's)."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if cfg.strategy != "fedavg":
+        iters = rounds * cfg.local_iters
+        want.update(zo_walk=iters * cfg.b2 + rounds * S, zo_replay=iters,
+                    zo_dirnorms=iters, aircomp_reduce=rounds * S)
+    return want
+
+
+def run_strategy_sweeps(torch, ops, FedZOConfig, smi, total):
+    """Part (d): ``sim.run_sweep`` on the Sec. V-B softmax model (N 50, M
+    10, H 5, b1 25, b2 20, flat route, unsafe_rbg, AirComp), one group of
+    S = 4 scenarios over {lr, snr_db} per strategy, each one batched loop
+    over the [S.M] cohort: fedzo, then fedprox, feddyn, scaffold and
+    fedavg (which raised under rbg keys before). Per group: the seconds on
+    the card of a first and a second call, the second's exact ZO launches
+    (``sweep_launches``), the
+    philox_bits launches (each ZO group's the fedzo group's), and every
+    scenario's first-round records of the four strategies against the
+    same group's on the CPU (m_effective bitwise, the losses within
+    FAST_ATOL, the rest within a relative SWEEP_REL)."""
+    import numpy as np
+    from repro_torch import sim
+    from repro_torch.workloads import neural
+    kw = dict(n_features=784, n_classes=10, n_clients=50)
+    tasks = {dev: neural.make_task("softmax", device=dev, **kw)
+             for dev in ("cuda", "cpu")}
+    lines, philox = [], None
+    for name, extra in SWEEP_STRATEGIES:
+        cfg = neural.default_config(
+            tasks["cuda"], n_participating=10, local_iters=5, b1=25, b2=20,
+            flat_params=True, flat_block_rows=4, aircomp=True,
+            prng_impl="unsafe_rbg", strategy=name, **extra)
+        scen = sim.scenario_grid(lr=(cfg.lr, cfg.lr / 2), snr_db=SWEEP_SNRS)
+        recs, secs = {}, []
+        # the card's group twice (the first call's seconds beside the
+        # warm one's), then the CPU's first round (fedzo's group is the
+        # timing baseline; phase "fast strategy and batched sweeps" holds
+        # its batched records)
+        runs = [("cuda", SWEEP_ROUNDS)] * 2 + [("cpu", 1)] * (name != "fedzo")
+        for dev, rounds in runs:
+            task = tasks[dev]
+            ops.reset_launches()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs[dev] = sim.run_sweep(task.loss, neural.params_init(task, 0),
+                                      task.store, cfg, scen, rounds)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                counts = dict(ops.LAUNCHES)
+        want = sweep_launches(ops, cfg, len(scen), SWEEP_ROUNDS)
+        zo = {k: counts[k] for k in want if k != "philox_bits"}
+        check(zo == {k: v for k, v in want.items() if k != "philox_bits"},
+              f"{name} sweep launches {counts} != {want}")
+        if name == "fedzo":
+            philox = counts["philox_bits"]
+        elif name != "fedavg":
+            check(counts["philox_bits"] == philox, f"{name} sweep: "
+                  f"{counts['philox_bits']} philox_bits, fedzo's {philox}")
+        for k in total:
+            total[k] += counts[k]
+        worst = {}
+        for a, c in zip(recs["cuda"], recs.get("cpu", ())):
+            check(a["strategy"] == name and np.array_equal(
+                a["metrics"]["m_effective"][:1],
+                c["metrics"]["m_effective"]), f"{name} sweep: m_effective")
+            for k, v in c["metrics"].items():
+                got = a["metrics"][k]
+                check(np.isfinite(got).all(), f"{name} sweep: {k} {got}")
+                if k == "m_effective":
+                    continue
+                d = np.abs(got[:1] - v)
+                if k not in SWEEP_LOSSES:
+                    d = d / np.abs(v)
+                worst[k] = max(worst.get(k, 0.0), float(d.max()))
+        check(all(v <= (FAST_ATOL if k in SWEEP_LOSSES else SWEEP_REL)
+                  for k, v in worst.items()),
+              f"{name} sweep card vs CPU {worst}")
+        per_round = {k: v / SWEEP_ROUNDS for k, v in counts.items() if v}
+        vs = ({k: float(f"{v:.3g}") for k, v in worst.items()} if worst
+              else "the timing baseline")
+        lines.append(f"{name} {secs[1]:.3f} s (first call {secs[0]:.3f}; "
+                     f"card vs CPU {vs}; launches a round {per_round})")
+    print(f"strategy sweeps (softmax 784x10, N 50, M 10, H 5, b1 25, b2 20, "
+          f"flat, unsafe_rbg, AirComp; S {len(scen)} over lr x snr_db, "
+          f"{SWEEP_ROUNDS} rounds; first-round records card vs CPU, the "
+          f"losses absolute (bound {FAST_ATOL}), the rest relative (bound "
+          f"{SWEEP_REL})): " + "; ".join(lines) + f" [{smi}]")
+
+
+def run_xattn_cohort_sweeps(torch, ops, FedZOConfig, smi, rows):
+    """Phase "encdec and vlm cohort, strategy sweeps": parts (a) to (d),
+    each part's seconds and peak memory printed; budget XCOHORT_BUDGET_S.
+    Returns the launches of its main-path runs."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for name, part in (
+            ("(a) seamless-m4t-large-v2 flat round",
+             lambda: run_seamless_cohort_round(torch, ops, FedZOConfig, smi,
+                                               total, rows)),
+            ("(b) llama-3.2-vision-90b one-group cohort loss",
+             lambda: run_vision_cohort_loss(torch, ops, smi, rows)),
+            ("(c) encdec and vlm smoke rounds card vs CPU",
+             lambda: smoke_rounds_card_vs_cpu(
+                 torch, ops, FedZOConfig, total,
+                 ("seamless-m4t-large-v2-smoke",
+                  "llama-3.2-vision-90b-smoke"), lr=XC_SMOKE_LR)),
+            ("(d) strategy sweeps under unsafe_rbg",
+             lambda: run_strategy_sweeps(torch, ops, FedZOConfig, smi,
+                                         total))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        part()
+        print(f"part {name}: {time.perf_counter() - t0:.1f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"encdec and vlm cohort, strategy sweeps: {took:.1f} s of the "
+          f"{XCOHORT_BUDGET_S:.0f} s budget [{smi}]")
+    return total
+
+
 def profile_call(torch, fn, out_dir, tag, timeline=True):
     """torch.profiler trace of one ``fn()`` after a warm-up call: kernel
     time by name and the device busy share (kernel time over wall time),
@@ -5943,6 +6356,10 @@ def main(argv):
         launches[k] += n
     for k, n in timed("encdec, vlm and the ssm cohort",
                       lambda: run_xattn_ssm_cohort(
+                          torch, ops, FedZOConfig, smi, rows)).items():
+        launches[k] += n
+    for k, n in timed("encdec and vlm cohort, strategy sweeps",
+                      lambda: run_xattn_cohort_sweeps(
                           torch, ops, FedZOConfig, smi, rows)).items():
         launches[k] += n
     if args.profile:

@@ -23,6 +23,7 @@ are computed from detached tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import FedZOConfig
@@ -63,10 +64,29 @@ def cohort_phase(loss_fn, server_params, client_batches, cfg: FedZOConfig):
     (``client_batches`` leaves ``[M, H, ...]``): returns (stacked final
     params ``[M, ...]``, losses ``[M, H]``)."""
     M = next(iter(_leaves(client_batches)))[1].shape[0]
-    p = tree_map(lambda x: x.expand((M,) + x.shape).clone(), server_params)
+    return cohort_rows(loss_fn, tree_map(
+        lambda x: x.expand((M,) + x.shape).clone(), server_params),
+        client_batches, cfg)
+
+
+def cohort_rows(loss_fn, p, client_batches, cfg: FedZOConfig, lr=None):
+    """The local phases of the R rows of the stacked params ``p`` (leaves
+    ``[R, ...]``), row r on ``client_batches[r]`` (leaves ``[R, H, ...]``):
+    a batched sweep's ``[S·M]`` scenarios × clients, each row from its
+    scenario's params, with ``lr`` float64 ``[R]`` its step size (None:
+    ``cfg.lr``), rounded to float32 as a Python scalar would be. Returns
+    (final params ``[R, ...]``, losses ``[R, H]``)."""
     fn = getattr(loss_fn, "batched", None)
     vg = (None if fn is not None else
           torch.func.vmap(torch.func.grad_and_value(loss_fn)))
+    rows = None if lr is None else torch.tensor(
+        np.asarray(-lr, np.float32), device=_leaves(p)[0][1].device)
+
+    def sgd(g, v):   # tree_axpy_plain's y + a·x, a per row
+        a = -cfg.lr if rows is None else rows.reshape(
+            (-1,) + (1,) * (v.dim() - 1))
+        return (v + a * g).to(v.dtype)
+
     losses = []
     for h in range(cfg.local_iters):
         batch = tree_map(lambda v: v[:, h], client_batches)
@@ -74,7 +94,7 @@ def cohort_phase(loss_fn, server_params, client_batches, cfg: FedZOConfig):
             loss, g = value_and_grad(fn, p, batch)
         else:
             g, loss = vg(p, batch)
-        p = tree_axpy_plain(-cfg.lr, g, p)
+        p = tree_map(sgd, g, p)
         losses.append(loss)
     return p, torch.stack(losses, 1)
 

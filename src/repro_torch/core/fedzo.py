@@ -117,11 +117,11 @@ def batched_loss(loss_fn):
     losses, row m·r + j client m's copy j on client m's batch (r = 1: one
     row a client).
 
-    A loss that carries its client-batched form as ``loss_fn.batched`` (the
-    dense and moe LMs', ``models/api.py``; the transformer track's) runs
-    through
-    it: one kernel launch per RMSNorm and attention for the whole cohort,
-    and the batch is not copied r times. Any other loss goes through
+    A loss that carries its client-batched form as ``loss_fn.batched``
+    (every ``models/api.py`` model's, all ten architectures; the
+    transformer track's; a strategy's wrap of either) runs through it: one
+    kernel launch per RMSNorm and attention for the whole cohort, and the
+    batch is not copied r times. Any other loss goes through
     ``torch.func.vmap`` (two levels when r > 1, the inner one sharing the
     client's batch), which cannot trace a kernel launch (a vmapped tensor
     has no storage to hand the kernel) and serves the losses that launch

@@ -23,8 +23,11 @@ AirComp, channel scheduling, size weighting) serves every algorithm:
 - **server update**: SCAFFOLD's global control, FedDyn's ``x ← x̄ − h/α``,
   from the aggregate ``Δ̄ = x' − x_t``.
 
-``AlgoStrategy`` is FedZO. ZO-FedProx with ``prox_mu=0`` and ZO-FedDyn with
-``dyn_alpha=0`` elide their hooks and run the base round unchanged. The
+``AlgoStrategy`` is FedZO. ``HookedZO`` builds a round's hooks from its
+server parameters, config and state (``hooks``, ``server_step``), so a
+batched sweep (``sim/sweep.py``) runs them per scenario of one cohort.
+ZO-FedProx with ``prox_mu=0`` and ZO-FedDyn with ``dyn_alpha=0`` elide
+their hooks and run the base round unchanged. The
 registry (``register``, ``get``, ``resolve``) is what
 ``sim.engine.make_round_step`` dispatches on.
 """
@@ -84,7 +87,8 @@ def _per_row(cst, params):
 def _wrap(lf, add, add_rows):
     """The loss ``add(lf(p, b), p)`` of one client, carrying ``.batched``:
     ``add_rows`` of the cohort's losses (``fedzo.batched_loss``) and its
-    stacked weights."""
+    stacked weights; and ``.add_rows`` itself, which a batched sweep adds
+    to each scenario's rows of one cohort loss."""
     cohort = fedzo.batched_loss(lf)
 
     def wrapped(p, b):
@@ -94,6 +98,7 @@ def _wrap(lf, add, add_rows):
         return add_rows(cohort(p, b), p)
 
     wrapped.batched = batched
+    wrapped.add_rows = add_rows
     return wrapped
 
 
@@ -164,21 +169,66 @@ class FedAvgStrategy(AlgoStrategy):
         return params, metrics, momentum, zstate
 
 
-class ZOFedProx(AlgoStrategy):
-    """ZO-FedProx: the FedZO round with the proximal term
-    (prox_mu/2)·‖x − x_t‖² in every local ZO loss query. Stateless;
-    composes with server momentum. ``prox_mu=0`` elides the wrap."""
-    name = "fedprox"
+class HookedZO(AlgoStrategy):
+    """The FedZO round with a strategy's hooks, each built per round from
+    the server parameters ``params`` and ``cfg`` (``hooks``): a loss wrap,
+    a delta transform on the cohort's state, and the server step after the
+    aggregate (``server_step``). ``active(cfg)`` False elides them all: the
+    plain FedZO round. A batched sweep (``sim/sweep.py``) calls the same
+    hooks once per scenario of its ``[S·M]`` cohort."""
     supports_round_fn = False
+
+    def active(self, cfg) -> bool:
+        return True
+
+    def hooks(self, params, cfg, zstate):
+        """(loss_wrap | None, state_fn | None) of one round from
+        ``params``; ``loss_wrap(lf, cst)`` as ``fedzo.round_simulated``
+        takes it (its loss carries ``.batched`` and ``.add_rows``, the
+        per-row term alone)."""
+        return None, None
+
+    def server_step(self, params, params_new, cfg, zstate, idx, cohort,
+                    new_cohort):
+        """(params', zstate') from the aggregated ``params_new``."""
+        return params_new, zstate
 
     def run_round(self, loss_fn, params, batches, k_zo, cfg, *,
                   channel_rng=None, momentum=None, zstate=None, idx=None,
                   round_fn=None, impl=None, **wkw):
-        if cfg.prox_mu <= 0:
+        if not self.active(cfg):
             return super().run_round(
-                loss_fn, params, batches, k_zo, cfg, channel_rng=channel_rng, impl=impl,
-                momentum=momentum, zstate=zstate, idx=idx, round_fn=round_fn,
-                **wkw)
+                loss_fn, params, batches, k_zo, cfg, channel_rng=channel_rng,
+                impl=impl, momentum=momentum, zstate=zstate, idx=idx,
+                round_fn=round_fn, **wkw)
+        rngs = prng.split(k_zo, cfg.n_participating, impl)
+        loss_wrap, state_fn = self.hooks(params, cfg, zstate)
+        cohort = None
+        if self.stateful:
+            wkw["cstate"] = cohort = self._gather(zstate, idx)
+        if self.has_momentum(cfg):
+            wkw["momentum"] = momentum
+        out = fedzo.round_simulated(
+            loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng,
+            impl=impl, loss_wrap=loss_wrap, state_fn=state_fn, **wkw)
+        if self.has_momentum(cfg):
+            momentum = out[2]
+        params_new, zstate = self.server_step(
+            params, out[0], cfg, zstate, idx, cohort,
+            out[-1] if self.stateful else None)
+        return params_new, out[1], momentum, zstate
+
+
+class ZOFedProx(HookedZO):
+    """ZO-FedProx: the FedZO round with the proximal term
+    (prox_mu/2)·‖x − x_t‖² in every local ZO loss query. Stateless;
+    composes with server momentum. ``prox_mu=0`` elides the wrap."""
+    name = "fedprox"
+
+    def active(self, cfg):
+        return cfg.prox_mu > 0
+
+    def hooks(self, params, cfg, zstate):
         half_mu = 0.5 * cfg.prox_mu
 
         def loss_wrap(lf, cst):
@@ -187,23 +237,13 @@ class ZOFedProx(AlgoStrategy):
                 lf, lambda l, p: l + half_mu * _sq_diff(p, params),
                 lambda l, p: l + half_mu * _sq_diff_rows(p, params))
 
-        rngs = prng.split(k_zo, cfg.n_participating, impl)
-        if self.has_momentum(cfg):
-            params_new, metrics, momentum = fedzo.round_simulated(
-                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
-                momentum=momentum, loss_wrap=loss_wrap, **wkw)
-        else:
-            params_new, metrics = fedzo.round_simulated(
-                loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
-                loss_wrap=loss_wrap, **wkw)
-        return params_new, metrics, momentum, zstate
+        return loss_wrap, None
 
 
-class _StatefulZO(AlgoStrategy):
+class _StatefulZO(HookedZO):
     """Shared plumbing for strategies with a per-client and a server
     state."""
     stateful = True
-    supports_round_fn = False
 
     def validate(self, cfg):
         self.has_momentum(cfg)  # rejects cfg.server_momentum > 0
@@ -233,23 +273,17 @@ class ZOFedDyn(_StatefulZO):
     everything."""
     name = "feddyn"
 
+    def active(self, cfg):
+        return cfg.dyn_alpha > 0
+
     def init_state(self, params, cfg, n_clients):
         if cfg.dyn_alpha <= 0:
             return None
         return {"client": _stack_zeros(params, n_clients),
                 "server": tree_zeros_like(params)}
 
-    def run_round(self, loss_fn, params, batches, k_zo, cfg, *,
-                  channel_rng=None, momentum=None, zstate=None, idx=None,
-                  round_fn=None, impl=None, **wkw):
+    def hooks(self, params, cfg, zstate):
         a = cfg.dyn_alpha
-        if a <= 0:
-            return super().run_round(
-                loss_fn, params, batches, k_zo, cfg, channel_rng=channel_rng, impl=impl,
-                momentum=momentum, zstate=zstate, idx=idx, round_fn=round_fn,
-                **wkw)
-        rngs = prng.split(k_zo, cfg.n_participating, impl)
-        cohort = self._gather(zstate, idx)
 
         def loss_wrap(lf, h):
             return _wrap(
@@ -265,19 +299,21 @@ class ZOFedDyn(_StatefulZO):
                              d_tree)
             return deltas, new_h
 
-        params_new, metrics, new_cohort = fedzo.round_simulated(
-            loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
-            cstate=cohort, loss_wrap=loss_wrap, state_fn=state_fn, **wkw)
+        return loss_wrap, state_fn
+
+    def server_step(self, params, params_new, cfg, zstate, idx, cohort,
+                    new_cohort):
         # the server step from the aggregate Δ̄ = x' − x_t, whatever the
         # aggregation (AirComp noise, masking, weighting) made of it
+        a = cfg.dyn_alpha
         agg = tree_sub(params_new, params)
         frac = cfg.n_participating / cfg.n_devices
         hs = tree_map(lambda h, d: (h - (a * frac) * d).to(h.dtype),
                       zstate["server"], agg)
         params_new = tree_map(lambda p, h: (p - h / a).to(p.dtype),
                               params_new, hs)
-        return params_new, metrics, momentum, {
-            "client": self._scatter(zstate, idx, new_cohort), "server": hs}
+        return params_new, {"client": self._scatter(zstate, idx, new_cohort),
+                            "server": hs}
 
 
 class ZOScaffold(_StatefulZO):
@@ -293,11 +329,7 @@ class ZOScaffold(_StatefulZO):
         return {"client": _stack_zeros(params, n_clients),
                 "server": tree_zeros_like(params)}
 
-    def run_round(self, loss_fn, params, batches, k_zo, cfg, *,
-                  channel_rng=None, momentum=None, zstate=None, idx=None,
-                  round_fn=None, impl=None, **wkw):
-        rngs = prng.split(k_zo, cfg.n_participating, impl)
-        cohort = self._gather(zstate, idx)
+    def hooks(self, params, cfg, zstate):
         c = zstate["server"]
         eta = cfg.lr * cfg.local_iters  # total local step length lr·H
 
@@ -317,19 +349,19 @@ class ZOScaffold(_StatefulZO):
                     c_i, deltas)
             return new_deltas, new_ci
 
-        params_new, metrics, new_cohort = fedzo.round_simulated(
-            loss_fn, params, batches, rngs, cfg, channel_rng=channel_rng, impl=impl,
-            cstate=cohort, state_fn=state_fn, **wkw)
+        return None, state_fn
+
+    def server_step(self, params, params_new, cfg, zstate, idx, cohort,
+                    new_cohort):
         frac = cfg.n_participating / cfg.n_devices
         dmean = tree_map(
             lambda n_, o: torch.mean(n_.to(torch.float32) -
                                      o.to(torch.float32), dim=0),
             new_cohort, cohort)
-        c_new = tree_map(lambda cc, d: (cc + frac * d).to(cc.dtype), c,
-                         dmean)
-        return params_new, metrics, momentum, {
-            "client": self._scatter(zstate, idx, new_cohort),
-            "server": c_new}
+        c_new = tree_map(lambda cc, d: (cc + frac * d).to(cc.dtype),
+                         zstate["server"], dmean)
+        return params_new, {"client": self._scatter(zstate, idx, new_cohort),
+                            "server": c_new}
 
 
 # ---------------------------------------------------------------------------

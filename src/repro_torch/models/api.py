@@ -8,34 +8,31 @@ Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
                                          means with n_groups > 1)
   loss_batched(params, batch) -> [M]    (``loss`` per client of a cohort:
                                          leaves and batch with a leading
-                                         ``[M]`` client axis; the
-                                         decoder-only families, encdec
-                                         and vlm raise)
+                                         ``[M]`` client axis; every
+                                         family)
   prefill(params, batch, width) -> (logits [B, V], cache)
   decode(params, batch, cache, pos, window=0) -> (logits [B, V], cache)
   init_cache(batch_size, width, device="cuda") -> zeroed cache
   batch_shapes(shape_cfg) -> {name: (shape, dtype)}
 
-``loss`` carries ``loss_batched`` as its attribute ``batched``, so the flat
-FedZO round (``core/fedzo.batched_loss``) runs the cohort through it.
+``loss`` carries ``loss_batched`` as its attribute ``batched``, so the flat,
+AirComp and wide FedZO rounds (``core/fedzo.batched_loss``) run the cohort
+through it, every RMSNorm and attention one launch over the cohort, and
+never reach ``torch.func.vmap``.
 
 LM batches are ``{"tokens": [B, S], "labels": [B, S]}`` integer tensors on
 the parameters' device; a decode batch's ``tokens`` is ``[B, 1]`` and
 ``pos`` a 0-d int tensor (the decode cache is written in place). The
 dense, moe (``qwen3-moe-30b-a3b``, ``deepseek-v3-671b`` with MLA and MTP),
 ssm (``rwkv6-7b``) and hybrid (``hymba-1.5b``) families build through the
-decoder-only ``transformer`` functions, and their cohort loss runs flat
-and wide rounds. The encdec family (``seamless-m4t-large-v2``,
-``models/encdec.py``) adds ``src_embeds`` ``[B, n_frontend_tokens,
-d_model]`` to a train or prefill batch, the vlm family
-(``llama-3.2-vision-90b``, ``models/vlm.py``) ``vision_embeds`` to every
-batch shape, as the reference's: the stubbed modality frontends, in the
-model's dtype. Decode reads only the tokens (the cross K/V is cached).
-Their loss, prefill, decode and train step run; their cohort loss is not
-ported, so ``loss_batched`` (and with it
-``fedzo.batched_loss``) raises ``NotImplementedError`` naming the cohort
-before any forward runs. ``make_batch`` draws a batch bitwise the
-reference's.
+decoder-only ``transformer`` functions. The encdec family
+(``seamless-m4t-large-v2``, ``models/encdec.py``) adds ``src_embeds``
+``[B, n_frontend_tokens, d_model]`` to a train or prefill batch, the vlm
+family (``llama-3.2-vision-90b``, ``models/vlm.py``) ``vision_embeds``
+to every batch shape, as the reference's: the stubbed modality frontends,
+in the model's dtype; their cohort loss is ``encdec.loss_fn_batched`` and
+``vlm.loss_fn_batched``. Decode reads only the tokens (the cross K/V is
+cached). ``make_batch`` draws a batch bitwise the reference's.
 """
 from __future__ import annotations
 
@@ -88,7 +85,7 @@ def build(cfg: ModelConfig) -> Model:
         return mod.loss_fn(p, b, cfg, n_groups)
 
     def loss_batched(p, b):
-        transformer.check_batched(cfg)   # raises: not ported for encdec, vlm
+        return mod.loss_fn_batched(p, b, cfg)
 
     def batch_shapes(shape):
         d = _lm_batch_shapes(cfg, shape)

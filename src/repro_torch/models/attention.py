@@ -21,7 +21,10 @@ GEMMs, and the attention is ONE kernel call over the ``[M·B, S, H, D]``
 rows. The kernel treats each batch row on its own, so its output is bit
 for bit that of M separate calls, and the launch count does not depend on
 M. ``mla_fwd_batched`` is MLA's: the latents' RMSNorms and the attention
-one launch each for the cohort.
+one launch each for the cohort. ``cross_kv_batched``, ``cross_q_batched``
+and ``cross_attention_fwd_batched`` are the cross-attention's: the k and q
+norms one launch each under ``[M, hd]`` group scales, the attention one
+non-causal launch with the cohort folded into the batch axis.
 
 Decode caches are ring buffers of width W: ``{"k": [B, W, Hkv, D], "v":
 [B, W, Hkv, D]}`` for GQA, ``{"latent": [B, W, kv_lora + rope]}`` (the
@@ -190,16 +193,18 @@ def _qkv_batched(p, cfg, x):
             v.reshape(M * B, S, hkv, hd))
 
 
-def attention_fwd_batched(p, cfg, x):
+def attention_fwd_batched(p, cfg, x, *, causal=True):
     """``attention_fwd`` per client: x ``[M, B, S, d]``, weights ``[M,
-    ...]`` -> ``[M, B, S, d]``, with one attention launch."""
+    ...]`` -> ``[M, B, S, d]``, with one attention launch (``causal=False``:
+    the enc-dec encoder, without the window)."""
     M, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv_batched(p, cfg, x)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = ops.attention(q, k, v, causal=causal,
+                        window=cfg.sliding_window if causal else 0)
     return (out.reshape(M, B * S, -1) @ p["wo"]).reshape(M, B, S, -1)
 
 
@@ -250,6 +255,39 @@ def cross_attention_fwd(p, cfg, x, kv):
     """x ``[B, S, d]`` attends over the precomputed cross K/V (no
     causality, no window)."""
     return cross_attend(p, cross_q(p, cfg, x), kv["k"], kv["v"])
+
+
+def cross_kv_batched(p, cfg, memory):
+    """``cross_kv`` per client: memory ``[M, B, Sm, kv_dim]``, weights
+    ``[M, ...]`` -> k, v ``[M·B, Sm, Hq, hd]``; the k norm is one launch
+    over the cohort, client m's rows under its own ``[M, hd]`` scale."""
+    M, B, Sm, _ = memory.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    mt = memory.reshape(M, B * Sm, -1)
+    k = norm_fwd_batched(p["k_norm"], (mt @ p["wk"]).reshape(
+        M, B, Sm, hq, hd))
+    v = mt @ p["wv"]
+    return {"k": k.reshape(M * B, Sm, hq, hd),
+            "v": v.reshape(M * B, Sm, hq, hd)}
+
+
+def cross_q_batched(p, cfg, x):
+    """``cross_q`` per client: x ``[M, B, S, d]`` -> ``[M·B, S, Hq, hd]``,
+    one q-norm launch over the cohort."""
+    M, B, S, d = x.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    q = (x.reshape(M, B * S, d) @ p["wq"]).reshape(M, B, S, hq, hd)
+    return norm_fwd_batched(p["q_norm"], q).reshape(M * B, S, hq, hd)
+
+
+def cross_attention_fwd_batched(p, cfg, x, kv):
+    """``cross_attention_fwd`` per client: x ``[M, B, S, d]`` over the
+    cohort's cross K/V (``cross_kv_batched``) -> ``[M, B, S, d]``, one
+    non-causal attention launch over the ``[M·B]`` rows."""
+    M, B, S, _ = x.shape
+    out = ops.attention(cross_q_batched(p, cfg, x), kv["k"], kv["v"],
+                        causal=False)
+    return (out.reshape(M, B * S, -1) @ p["wo"]).reshape(M, B, S, -1)
 
 
 # ---------------------------------------------------------------------------

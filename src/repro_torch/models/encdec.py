@@ -21,6 +21,13 @@ launches (+ the block norms under rmsnorm); a decode step L cross
 attentions at Sq = 1 and L q norms (its self-attention is the plain
 ``layers.decode_attention``, as the reference's).
 
+``loss_fn_batched`` is ``loss_fn`` per client of a cohort (the reference's
+loss under ``jax.vmap``, as the flat and wide FedZO rounds map it): leaves
+``[M, ...]``, batch leaves ``[M, B, ...]``, ``[M]`` losses. The products
+are batched GEMMs; each attention, cross k norm and cross q norm is one
+launch over the cohort (the norms under ``[M, hd]`` group scales), so a
+forward makes E + 2L attention and 2L RMSNorm launches whatever M is.
+
 Serving: ``prefill`` encodes the source once and returns the last token's
 logits and the cache ``{"self": {"k", "v"} [L, B, W, Hkv, hd], "cross_k",
 "cross_v" [L, B, n_frames, Hq, hd]}``: the self ring cache and each
@@ -32,11 +39,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (embed_fwd, init_embed, init_mlp,
-                                       init_norm, mlp_fwd, norm_fwd,
-                                       softmax_xent, unembed_fwd)
-from repro_torch.models.transformer import (_dtype, _layer, _stack,
-                                            _stack_init, check_family)
+from repro_torch.models.layers import (embed_fwd, embed_fwd_batched,
+                                       init_embed, init_mlp, init_norm,
+                                       mlp_fwd, mlp_fwd_batched, norm_fwd,
+                                       norm_fwd_batched, softmax_xent,
+                                       softmax_xent_batched, unembed_fwd,
+                                       unembed_fwd_batched)
+from repro_torch.models.transformer import (_dtype, _layer, _layer_batched,
+                                            _stack, _stack_init,
+                                            check_family, repeat_rows)
 from repro_torch.utils import prng
 
 
@@ -111,6 +122,56 @@ def loss_fn(params, batch, cfg, n_groups=1):
     hf = norm_fwd(params["final_norm"], h, cfg.norm)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
     return softmax_xent(logits, batch["labels"], n_groups)
+
+
+# ---------------------------------------------------------------------------
+# client-batched forward (the flat round's cohort)
+
+
+def encode_batched(params, cfg, src_embeds):
+    """``encode`` per client: leaves ``[M, ...]``, src_embeds ``[M, B,
+    S_src, d]``; each layer's attention one non-causal launch over the
+    ``[M·B]`` rows."""
+    h = src_embeds
+    for i in range(cfg.encoder_layers):
+        lp = _layer_batched(params["enc_blocks"], i)
+        hn = norm_fwd_batched(lp["norm1"], h, cfg.norm)
+        h = h + attn.attention_fwd_batched(lp["attn"], cfg, hn, causal=False)
+        hn = norm_fwd_batched(lp["norm2"], h, cfg.norm)
+        h = h + mlp_fwd_batched(lp["mlp"], hn, cfg.act)
+    return norm_fwd_batched(params["enc_norm"], h, cfg.norm)
+
+
+def _dec_block_batched(lp, cfg, h, memory_kv):
+    hn = norm_fwd_batched(lp["norm1"], h, cfg.norm)
+    h = h + attn.attention_fwd_batched(lp["attn"], cfg, hn)
+    hn = norm_fwd_batched(lp["norm2"], h, cfg.norm)
+    h = h + attn.cross_attention_fwd_batched(lp["xattn"], cfg, hn, memory_kv)
+    hn = norm_fwd_batched(lp["norm3"], h, cfg.norm)
+    return h + mlp_fwd_batched(lp["mlp"], hn, cfg.act)
+
+
+def loss_fn_batched(params, batch, cfg):
+    """``loss_fn`` per client: leaves ``[M', ...]``, batch leaves ``[M, B,
+    ...]`` -> ``[M']`` losses. M' = r·M on the wide route: rows m·r … m·r +
+    r − 1 take client m's tokens and frames, and the encoder runs once per
+    row, whose weights are its own. Per forward E + 2L attention and 2L
+    RMSNorm launches (the cross k and q norms; + the block norms under
+    rmsnorm), whatever M is."""
+    check_family(cfg)
+    r = params["final_norm"]["scale"].shape[0] // batch["tokens"].shape[0]
+    tokens, labels, src = (repeat_rows(batch[k], r) for k in (
+        "tokens", "labels", "src_embeds"))
+    memory = encode_batched(params, cfg, src)
+    h = embed_fwd_batched(params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer_batched(params["dec_blocks"], i)
+        h = _dec_block_batched(lp, cfg, h, attn.cross_kv_batched(
+            lp["xattn"], cfg, memory))
+    hf = norm_fwd_batched(params["final_norm"], h, cfg.norm)
+    logits = unembed_fwd_batched(params["embed"], hf, cfg.tie_embeddings,
+                                 cfg.vocab)
+    return softmax_xent_batched(logits, labels)
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,8 @@ The encdec and vlm families are ``models/encdec.py`` and ``models/vlm.py``
 (``check_decoder`` rejects them here; the vlm's self layers are this
 module's ``init_block``, ``block_fwd``, ``block_prefill`` and
 ``block_decode``, its nested ``[G, n_self, ...]`` stack ``_stack_init`` of
-``_stack_init``); their cohort loss raises (``check_batched``).
+``_stack_init``); their cohort losses are those modules' ``loss_fn_batched``
+over this module's ``_layer_batched`` and ``block_fwd_batched``.
 """
 from __future__ import annotations
 
@@ -490,16 +491,10 @@ def backbone_batched(params, cfg, h):
     return norm_fwd_batched(params["final_norm"], h, cfg.norm), aux
 
 
-def check_batched(cfg):
-    """The client-batched forward runs the decoder-only families (dense,
-    moe with MoE layers, MLA and MTP, ssm, hybrid); the encdec and vlm
-    families raise before any kernel or ``torch.func.vmap`` is reached."""
-    check_family(cfg)
-    if cfg.family not in DECODER_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the client-batched cohort loss of the "
-            f"{cfg.family} family is not ported; the single-client loss "
-            f"(make_train_step, launch/train.py) runs it")
+def repeat_rows(x, r):
+    """A batch leaf ``[M, ...]`` for ``[r·M]`` parameter rows (the wide
+    route's r perturbed copies of each client): row m·r + j is client m's."""
+    return x.repeat_interleave(r, 0) if r > 1 else x
 
 
 def loss_fn_batched(params, batch, cfg):
@@ -507,13 +502,12 @@ def loss_fn_batched(params, batch, cfg):
     B, S]`` -> ``[M]`` losses, each row's MoE aux and MTP term its own.
     Leaves ``[r·M, ...]`` (the wide route's r perturbed copies of each
     client) take client m's tokens for rows m·r … m·r + r − 1 (the token
-    ids are repeated, the weights read in place). Dense and moe families
-    (``check_batched``)."""
-    check_batched(cfg)
-    tokens, labels = batch["tokens"], batch["labels"]
-    r = params["final_norm"]["scale"].shape[0] // tokens.shape[0]
-    if r > 1:
-        tokens, labels = (t.repeat_interleave(r, 0) for t in (tokens, labels))
+    ids are repeated, the weights read in place). The decoder-only
+    families; the encdec and vlm families' are ``encdec.loss_fn_batched``
+    and ``vlm.loss_fn_batched``."""
+    check_decoder(cfg)
+    r = params["final_norm"]["scale"].shape[0] // batch["tokens"].shape[0]
+    tokens, labels = (repeat_rows(batch[k], r) for k in ("tokens", "labels"))
     h = _embed_scale(embed_fwd_batched(params["embed"], tokens), cfg)
     hf, aux = backbone_batched(params, cfg, h)
     logits = unembed_fwd_batched(params["embed"], hf, cfg.tie_embeddings,
@@ -539,7 +533,7 @@ def init_classifier(rng, cfg, *, n_patches, patch_dim, n_classes,
     """Patch embedding, a zero positional table, cfg.n_layers stacked
     blocks, the final norm and the head, from ``split(rng, 3)`` as the
     reference draws them."""
-    check_batched(cfg)
+    check_decoder(cfg)
     dtype = _dtype(cfg)
     ks = prng.split(rng, 3)
     return {"patch": dense_init(ks[0], patch_dim, cfg.d_model, dtype,

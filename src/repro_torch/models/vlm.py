@@ -25,6 +25,13 @@ patches (Sq = 1 in decode). The cross K/V is computed once per cross
 layer and forward (the reference's prefill computes it twice, for the
 cache and inside ``cross_block_fwd``: the same values).
 
+``loss_fn_batched`` is ``loss_fn`` per client of a cohort (the reference's
+loss under ``jax.vmap``, as the flat and wide FedZO rounds map it): leaves
+``[M, ...]`` (the gates ``[M]``: each client's ``tanh(gate)`` scales its
+own rows), batch leaves ``[M, B, ...]``, ``[M]`` losses. The self layers
+are ``transformer.block_fwd_batched``; every RMSNorm and attention is one
+launch over the cohort.
+
 Serving: the cache is ``{"self": {"k", "v"} [G, n_self, B, W, Hkv, hd],
 "cross_k", "cross_v" [G, B, n_img, Hq, hd]}``; prefill writes the cross
 K/V once, decode reads it and writes the self cache's slot in place.
@@ -35,9 +42,12 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (embed_fwd, init_embed, init_mlp,
-                                       init_norm, mlp_fwd, norm_fwd,
-                                       softmax_xent, unembed_fwd)
+from repro_torch.models.layers import (embed_fwd, embed_fwd_batched,
+                                       init_embed, init_mlp, init_norm,
+                                       mlp_fwd, mlp_fwd_batched, norm_fwd,
+                                       norm_fwd_batched, softmax_xent,
+                                       softmax_xent_batched, unembed_fwd,
+                                       unembed_fwd_batched)
 from repro_torch.utils import prng
 
 
@@ -89,10 +99,13 @@ def _gate(g, h):
     return torch.tanh(g).to(h.dtype)
 
 
-def _embed(params, tokens, cfg):
-    h = embed_fwd(params["embed"], tokens)
+def _embed_scale(h, cfg):
     # d_model ** 0.5 rounded to h's dtype, as a Python scalar (no host wait)
     return h * float(torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype))
+
+
+def _embed(params, tokens, cfg):
+    return _embed_scale(embed_fwd(params["embed"], tokens), cfg)
 
 
 def cross_block_fwd(p, cfg, h, kv):
@@ -126,6 +139,62 @@ def loss_fn(params, batch, cfg, n_groups=1):
     hf = backbone(params, cfg, h, batch["vision_embeds"])
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
     return softmax_xent(logits, batch["labels"], n_groups)
+
+
+# ---------------------------------------------------------------------------
+# client-batched forward (the flat round's cohort)
+
+
+def _gate_batched(g, h):
+    """Each client's tanh of its float32 gate (``g`` ``[M]``), cast to h's
+    dtype and shaped to broadcast over that client's rows of h ``[M,
+    ...]``."""
+    return torch.tanh(g).to(h.dtype).reshape((-1,) + (1,) * (h.dim() - 1))
+
+
+def cross_block_fwd_batched(p, cfg, h, kv):
+    """``cross_block_fwd`` per client: h ``[M, B, S, d]``, leaves ``[M,
+    ...]`` (the gates ``[M]``), over the cohort's cross K/V
+    (``attention.cross_kv_batched``)."""
+    hn = norm_fwd_batched(p["norm1"], h, cfg.norm)
+    h = h + _gate_batched(p["gate_attn"], h) * \
+        attn.cross_attention_fwd_batched(p["xattn"], cfg, hn, kv)
+    hn = norm_fwd_batched(p["norm2"], h, cfg.norm)
+    return h + _gate_batched(p["gate_mlp"], h) * mlp_fwd_batched(
+        p["mlp"], hn, cfg.act)
+
+
+def backbone_batched(params, cfg, h, vision):
+    """``backbone`` per client: h ``[M, B, S, d]`` over vision ``[M, B,
+    n_img, d]``, leaves ``[M, ...]`` -> the normed hidden states; the self
+    layers are ``transformer.block_fwd_batched``."""
+    n_self = cfg.cross_attn_every - 1
+    for g in range(_n_groups(cfg)):
+        selfs = tfm._layer_batched(params["self_blocks"], g)
+        for i in range(n_self):
+            h, _ = tfm.block_fwd_batched(tfm._layer_batched(selfs, i), cfg,
+                                         h)
+        cross = tfm._layer_batched(params["cross_blocks"], g)
+        h = cross_block_fwd_batched(cross, cfg, h, attn.cross_kv_batched(
+            cross["xattn"], cfg, vision))
+    return norm_fwd_batched(params["final_norm"], h, cfg.norm)
+
+
+def loss_fn_batched(params, batch, cfg):
+    """``loss_fn`` per client: leaves ``[M', ...]``, batch leaves ``[M, B,
+    ...]`` -> ``[M']`` losses (M' = r·M on the wide route: rows m·r … m·r +
+    r − 1 take client m's tokens and patches). Per forward L attention and
+    2L + 2G + 1 RMSNorm launches (the block norms, each cross layer's k
+    and q norms, the final norm), whatever M is."""
+    tfm.check_family(cfg)
+    r = params["final_norm"]["scale"].shape[0] // batch["tokens"].shape[0]
+    tokens, labels, vision = (tfm.repeat_rows(batch[k], r) for k in (
+        "tokens", "labels", "vision_embeds"))
+    h = _embed_scale(embed_fwd_batched(params["embed"], tokens), cfg)
+    hf = backbone_batched(params, cfg, h, vision)
+    logits = unembed_fwd_batched(params["embed"], hf, cfg.tie_embeddings,
+                                 cfg.vocab)
+    return softmax_xent_batched(logits, labels)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,8 @@ one dot product of the row with itself (no cohort-sized temporary). The
 norm runs over all ``n_pad`` columns, pad included, as the reference's
 does (``faults.py:197``). The tiered store's cohort round realizes a
 round's faults with ``realize`` from the availability slice its host
-stream replayed; the reference's sharded round is not ported.
+stream replayed; the sharded round (``sim/shard.py``) scrubs each rank's
+rows with ``FaultModel.scrub`` and all-reduces the survivors' counts.
 """
 from __future__ import annotations
 

@@ -35,10 +35,14 @@ reference's ``jax.jit(jax.vmap(one))`` over the group's S scenarios:
   scenario, advanced per scenario from its row of the round's channel
   keys (``prng.lanes``).
 
-The batched loop runs the FedZO strategy; the strategies with hooks or
-state run scenario by scenario through ``engine.run_experiment`` under
-threefry keys, where per-key draws make that the vmapped program's
-records, and raise under rbg keys. Momentum is rejected, as in the reference. The
+The batched loop runs every built-in strategy: for fedprox, feddyn and
+scaffold each scenario's loss wrap adds its per-row term to its rows of
+one cohort forward, and each scenario keeps its own client state, delta
+transform and server step; FedAvg runs the S·M rows' SGD phases side by
+side. A strategy of another class runs scenario by scenario through
+``engine.run_experiment`` under threefry keys, whose per-key draws make
+that the vmapped program's records, and raises under rbg keys. Momentum
+is rejected, as in the reference. The
 records and the long-format CSV (scenario, round, metric, value) are the
 reference's. ``store`` takes either tier: a tiered ``HostStore``
 materializes as a resident store, bitwise ``build_store``.
@@ -48,13 +52,14 @@ from __future__ import annotations
 import dataclasses
 import itertools
 from contextlib import nullcontext
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FedZOConfig
-from repro_torch.core import aircomp, estimator, fedzo
+from repro_torch.core import aircomp, estimator, fedavg, fedzo
 from repro_torch.core import strategy as strategy_mod
 from repro_torch.sim import channel as channel_lib
 from repro_torch.sim import engine, tiered
@@ -63,7 +68,7 @@ from repro_torch.sim.store import (ClientStore, sample_batches,
                                    sample_participants)
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import flatten
-from repro_torch.utils.tree import tree_add, tree_map, tree_stack
+from repro_torch.utils.tree import tree_add, tree_map, tree_stack, tree_sub
 
 # fields that only change numbers (everything else is static; the strategy
 # selectors cfg.strategy, prox_mu and dyn_alpha change the round and are
@@ -150,8 +155,8 @@ def run_sweep(loss_fn, params, store: ClientStore, base_cfg: FedZOConfig,
               if tracer is not None else nullcontext()):
             if batchable(cfg, strat):
                 runs = batched_group(loss_fn, params, store, cfg, dyns,
-                                     rounds, eval_fn=eval_fn,
-                                     eval_every=eval_every,
+                                     rounds, strategy=strat,
+                                     eval_fn=eval_fn, eval_every=eval_every,
                                      ring_size=ring_size)
             else:
                 runs = _scenario_by_scenario(
@@ -173,22 +178,30 @@ def run_sweep(loss_fn, params, store: ClientStore, base_cfg: FedZOConfig,
     return records
 
 
+# the strategies whose rounds the batched loop runs through their hooks
+_BATCHED = (strategy_mod.AlgoStrategy, strategy_mod.FedAvgStrategy,
+            strategy_mod.ZOFedProx, strategy_mod.ZOFedDyn,
+            strategy_mod.ZOScaffold)
+
+
 def batchable(cfg: FedZOConfig, strat) -> bool:
-    """Whether a group runs as one batched round loop: the FedZO strategy
-    (stateless, no loss or delta hooks)."""
-    return strat.name == "fedzo"
+    """Whether a group runs as one batched round loop: a built-in strategy
+    (fedzo, fedprox, feddyn, scaffold, fedavg), whose hooks the loop
+    calls. A strategy of another class runs scenario by scenario."""
+    return type(strat) in _BATCHED
 
 
 def _scenario_by_scenario(loss_fn, params, store, cfg, strat, dyns, rounds,
                           **kw) -> list:
-    """A group the batched loop does not cover, one ``run_experiment`` per
-    scenario: the vmapped program's records under threefry keys (drawn per
-    key), not under rbg keys (drawn from the first scenario's key)."""
+    """A group of a strategy the batched loop does not know, one
+    ``run_experiment`` per scenario: the vmapped program's records under
+    threefry keys (drawn per key), not under rbg keys (drawn from the
+    first scenario's key), which raise."""
     if prng.resolve(cfg.prng_impl) is not prng.THREEFRY:
         raise NotImplementedError(
-            f"a sweep group with strategy {strat.name!r} under "
-            f"prng_impl={cfg.prng_impl!r} is not ported: the batched loop "
-            f"runs the fedzo strategy")
+            f"a sweep group with strategy {strat.name!r} of class "
+            f"{type(strat).__name__} under prng_impl={cfg.prng_impl!r}: "
+            f"the batched loop runs the built-in strategies only")
     out = []
     for dyn in dyns:
         res = engine.run_experiment(
@@ -205,13 +218,43 @@ def _record(buf: dict, k, v, size: int, slot: int):
     buf[k][slot] = v
 
 
+def _group_loss(loss_fn, wraps):
+    """The cohort loss of S scenarios' ``[S·R']`` rows (scenario s's rows
+    ``[s·R', (s+1)·R')``): ONE batched forward of ``loss_fn`` over all
+    rows, then each scenario's wrapped loss adds its per-row term
+    (``add_rows``: the anchor and state of its own round) to its rows. A
+    cohort-only loss: it carries ``.batched`` alone."""
+    base = fedzo.batched_loss(loss_fn)
+
+    def batched(p, b):
+        losses = base(p, b)
+        n = losses.shape[0] // len(wraps)
+        return torch.cat([w.add_rows(losses[s * n:(s + 1) * n], tree_map(
+            lambda v: v[s * n:(s + 1) * n], p)) for s, w in enumerate(wraps)])
+
+    return SimpleNamespace(batched=batched)
+
+
 def batched_group(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
-                  dyns: Sequence[dict], rounds: int, *, eval_fn=None,
-                  eval_every: int = 0, ring_size: int = 0) -> list:
+                  dyns: Sequence[dict], rounds: int, *, strategy=None,
+                  eval_fn=None, eval_every: int = 0,
+                  ring_size: int = 0) -> list:
     """S scenarios of one static group as one round loop over an ``[S,
-    M]`` cohort. ``dyns`` holds each scenario's dynamic fields and seed.
-    Returns ``[(metrics ring, evals)]``, one per scenario, as
-    ``engine.run_experiment`` fills them."""
+    M]`` cohort. ``dyns`` holds each scenario's dynamic fields and seed;
+    ``strategy`` (a ``batchable`` one; None: fedzo) each scenario's
+    algorithm. Returns ``[(metrics ring, evals)]``, one per scenario, as
+    ``engine.run_experiment`` fills them.
+
+    A hooked ZO strategy builds its hooks per scenario from that
+    scenario's parameters, config and state (``HookedZO.hooks``): its
+    loss wrap's per-row term on the scenario's rows of the one cohort loss
+    (``_group_loss``; per row on the pytree route), its delta transform on
+    the scenario's ``[M, ...]`` deltas and gathered state, its server step
+    after the scenario's aggregate. Each scenario keeps its own ``[N,
+    ...]`` client state. FedAvg runs the S·M rows' SGD phases as one
+    cohort (``fedavg.cohort_rows``, the lr per row) and aggregates each
+    scenario's stacked delta tree."""
+    strat = strategy if strategy is not None else strategy_mod.get("fedzo")
     impl = prng.resolve(cfg.prng_impl)
     S, M = len(dyns), cfg.n_participating
     H, b1 = cfg.local_iters, cfg.b1
@@ -229,7 +272,11 @@ def batched_group(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
         # the stationary draw is the scenario vmap's batched draw
         cstates = [cm.init_state(store.n_clients, k, impl) for k in
                    prng.lanes(channel_lib.init_key(key, impl), impl)]
-    wide = cfg.flat_params or cfg.batch_directions
+    first_order = isinstance(strat, strategy_mod.FedAvgStrategy)
+    hooked = (isinstance(strat, strategy_mod.HookedZO)
+              and strat.active(cfg))
+    zs = [strat.init_state(params, c, store.n_clients) for c in cfgs]
+    wide = (cfg.flat_params or cfg.batch_directions) and not first_order
     spec, br = (fedzo.cohort_geometry(params, cfg) if wide
                 else (None, None))
     ps = [params] * S
@@ -242,6 +289,8 @@ def batched_group(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
             engine.split_round_keys(key, channel=cm is not None, impl=impl)
         idx = sample_participants(k_part, store.n_clients, M, impl)  # [S, M]
         batches = sample_batches(store, idx, k_batch, H, b1, impl)
+        rows_batches = tree_map(
+            lambda v: v.reshape((S * M,) + v.shape[2:]), batches)
         client_rngs = prng.split(k_zo, M, impl)               # [S, M, w]
         channel = None
         if cm is not None:
@@ -257,36 +306,64 @@ def batched_group(loss_fn, params, store: ClientStore, cfg: FedZOConfig,
         mask, noise = fedzo.round_schedule(cfg, k_chan, channel, M, dev,
                                            impl, h_min=h_min)
         noise = prng.lanes(noise, impl)                       # per scenario
-        if wide:
+        cohorts = ([strat._gather(zs[s], idx[s]) for s in range(S)]
+                   if hooked and strat.stateful else [None] * S)
+        hooks = ([strat.hooks(ps[s], cfgs[s], zs[s]) for s in range(S)]
+                 if hooked else [(None, None)] * S)
+        if first_order:
+            p_rows = tree_map(lambda *v: torch.stack(v).repeat_interleave(
+                M, dim=0), *ps)
+            p_fin, losses = fedavg.cohort_rows(loss_fn, p_rows, rows_batches,
+                                               cfg, lr=hyper.lr)
+            d_rows = tree_sub(p_fin, p_rows)
+            deltas = [tree_map(lambda v: v[s * M:(s + 1) * M], d_rows)
+                      for s in range(S)]
+        elif wide:
+            lf = loss_fn
+            if hooks[0][0] is not None:
+                lf = _group_loss(loss_fn, [w(loss_fn, c) for (w, _), c in
+                                           zip(hooks, cohorts)])
             buf0 = torch.stack([flatten(p, spec) for p in ps])
             bufs = buf0.repeat_interleave(M, dim=0)           # [S·M, n]
             buf, _, losses = fedzo.cohort_rows(
-                loss_fn, bufs, spec, br,
-                tree_map(lambda v: v.reshape((S * M,) + v.shape[2:]),
-                         batches),
+                lf, bufs, spec, br, rows_batches,
                 client_rngs.reshape(S * M, -1), cfg, like=params,
                 impl=impl, hyper=hyper)
             deltas = (buf - bufs).reshape(S, M, -1)
-            losses = losses.reshape(S, M, H)
         else:
+            lfs = []
+            for r in range(S * M):   # row r: client r % M of scenario r // M
+                wrap, c = hooks[r // M][0], cohorts[r // M]
+                lfs.append(loss_fn if wrap is None else wrap(
+                    loss_fn, None if c is None else tree_map(
+                        lambda v: v[r % M], c)))
             rows, _, losses = fedzo.tree_rows(
-                [loss_fn] * (S * M), [ps[r // M] for r in range(S * M)],
-                tree_map(lambda v: v.reshape((S * M,) + v.shape[2:]),
-                         batches),
+                lfs, [ps[r // M] for r in range(S * M)], rows_batches,
                 client_rngs.reshape(S * M, -1),
                 [cfgs[r // M] for r in range(S * M)], impl)
             deltas = [tree_stack(rows[s * M:(s + 1) * M]) for s in range(S)]
-            losses = losses.reshape(S, M, H)
+        losses = losses.reshape(S, M, H)
         for s in range(S):
+            d_s, new_cohort = deltas[s], cohorts[s]
+            state_fn = hooks[s][1]
+            if state_fn is not None:
+                d_s, new_cohort = state_fn(d_s, cohorts[s], spec)
             w = (aircomp.size_weights(store.sizes[idx[s]])
                  if cfg.weight_by_size else None)
             agg, stats = fedzo.aggregate(
-                deltas[s], spec, br, cfgs[s], noise_rng=noise[s],
+                d_s, spec, br, cfgs[s], noise_rng=noise[s],
                 mask=None if mask is None else mask[s], weights=w,
                 impl=impl, dev=dev)
-            ps[s] = tree_add(ps[s], agg)
+            p_new = tree_add(ps[s], agg)
+            if hooked:
+                p_new, zs[s] = strat.server_step(
+                    ps[s], p_new, cfgs[s], zs[s], idx[s], cohorts[s],
+                    new_cohort)
+            ps[s] = p_new
             metrics = {"mean_local_loss": torch.mean(losses[s]),
-                       "first_loss": torch.mean(losses[s][:, 0]), **stats}
+                       **({} if first_order else
+                          {"first_loss": torch.mean(losses[s][:, 0])}),
+                       **stats}
             for k, v in metrics.items():
                 _record(rings[s], k, v, ring_alloc, t % ring_alloc)
             if do_eval and t % eval_every == 0:

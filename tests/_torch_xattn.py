@@ -23,9 +23,12 @@ import repro  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.models import api as japi
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import fedzo
 from repro_torch.kernels import ops
 from repro_torch.models import api
-from repro_torch.utils import convert
+from repro_torch.utils import convert, prng
+from repro_torch.utils.tree import tree_map
 
 B, S = 2, 16
 GATE = 0.5
@@ -124,3 +127,28 @@ def same_bits(t, j):
 
 def to_jax(tree):
     return jax.tree.map(jnp.asarray, tree)
+
+
+def no_vmap(monkeypatch):
+    """Make ``torch.func.vmap`` raise: the cohort paths never reach it."""
+    def refuse(*a, **k):
+        raise AssertionError("reached torch.func.vmap")
+    monkeypatch.setattr(torch.func, "vmap", refuse)
+
+
+def cohort_loss_runs(tm, tp, monkeypatch):
+    """Two clients (the weights ``tp`` and a copy scaled by 0.99) on two
+    batches: ``tm.loss_batched`` equals each client's ``tm.loss`` within
+    rtol 2e-7, and ``fedzo.batched_loss`` takes it without reaching
+    ``torch.func.vmap``."""
+    no_vmap(monkeypatch)
+    rows = [tp, tree_map(lambda x: x * 0.99, tp)]
+    cohort = tree_map(lambda a, b: torch.stack([a, b]), *rows)
+    shape = ShapeConfig("t", 4, 1, "train")
+    bs = [api.make_batch(tm, shape, prng.key(i), device="cpu")
+          for i in (0, 1)]
+    batch = {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+    assert fedzo.batched_loss(tm.loss) is tm.loss_batched
+    got = fedzo.batched_loss(tm.loss)(cohort, batch)
+    each = torch.stack([tm.loss(p, b) for p, b in zip(rows, bs)])
+    torch.testing.assert_close(got, each, rtol=2e-7, atol=0)

@@ -16,7 +16,9 @@ within the trajectory tolerance of ``tests/test_torch_slice.py``:
 Plus: the dynamic fields lr, μ and h_min reach their rows; the launch count
 of the batched AirComp aggregation (one ``aircomp_reduce`` and one
 ``zo_walk`` per scenario and round, counted on the CPU as the dispatch
-reaches the plain version); the groups the batched loop does not cover.
+reaches the plain version); fedprox, feddyn, scaffold and fedavg groups
+under rbg and unsafe_rbg keys as one batched loop, every scenario against
+the reference sweep; the groups the batched loop does not cover.
 """
 import dataclasses
 
@@ -223,9 +225,56 @@ def test_aircomp_launches_once_per_scenario_and_round(tasks):
     assert counted["philox_bits"] >= tcfg.local_iters * ROUNDS
 
 
+# each strategy on both routes, and each route under both rbg impls
+STRATEGY_CASES = [("fedprox", "wide", "unsafe_rbg"),
+                  ("fedprox", "flat", "rbg"),
+                  ("feddyn", "wide", "rbg"),
+                  ("feddyn", "flat", "unsafe_rbg"),
+                  ("scaffold", "wide", "unsafe_rbg"),
+                  ("scaffold", "flat", "rbg"),
+                  ("fedavg", "wide", "rbg"),
+                  ("fedavg", "flat", "unsafe_rbg")]
+STRATEGY_KW = {"fedprox": dict(prox_mu=0.1), "feddyn": dict(dyn_alpha=0.05),
+               "scaffold": {}, "fedavg": dict(lr=0.1)}
+
+
+@pytest.mark.parametrize("strategy,route,impl", STRATEGY_CASES)
+def test_strategy_sweep_matches_reference_under_rbg(tasks, strategy, route,
+                                                    impl):
+    """A hooked or stateful strategy's group under rbg keys runs as ONE
+    batched loop over the ``[S·M]`` cohort (each scenario's loss wrap on
+    its own rows of one cohort forward, its own client state, delta
+    transform and server step; FedAvg's S·M SGD phases side by side, the
+    lr per row), and every scenario's records, over ``{seed} × {lr}``,
+    are the reference sweep's (``jax.vmap`` over the scenarios, its rbg
+    draws one batched draw); integer records bitwise. Worst readings over
+    the cases: delta_max 2.21e-3 on 2.53 (feddyn, flat, the third round;
+    its first round 5.3e-4, FedZO's own first round at lr 5e-2 3.7e-4: a
+    loss ulp's d·ulp/μ carried through the rounds), 8e-4 in every other
+    case; losses 1.5e-4; FedAvg 3e-8."""
+    jt, tt = tasks
+    jcfg, tcfg = _cfgs(jt, tt, route, impl)
+    kw = dict(strategy=strategy, **STRATEGY_KW[strategy])
+    jcfg = dataclasses.replace(jcfg, **kw)
+    tcfg = dataclasses.replace(tcfg, **kw)
+    p0 = jneural.params_init(jt, 0)
+    scen = jsim.scenario_grid(seed=(0, 1), lr=(tcfg.lr, 0.4 * tcfg.lr))
+    jrecs = jsim.run_sweep(jt.loss, p0, jt.store, jcfg, scen, ROUNDS)
+    trecs = tsim.run_sweep(tt.loss, convert.to_torch(jax.device_get(p0)),
+                           tt.store, tcfg, scen, ROUNDS)
+    assert len(trecs) == 4
+    for t, j in zip(trecs, jrecs):
+        assert t["strategy"] == j["strategy"] == strategy
+        _records_close(t, j)
+
+
 def test_unbatched_groups(tasks):
-    """A strategy with hooks runs scenario by scenario under threefry (its
-    single runs) and raises under rbg keys; momentum is rejected."""
+    """A strategy with hooks runs as the batched loop: under threefry its
+    records are its single runs bitwise (on the CPU), and under rbg keys
+    it runs (it raised before that was ported); a strategy of a class the
+    batched loop does not know runs scenario by scenario under threefry
+    and raises under rbg keys; momentum is rejected."""
+    from repro_torch.core import strategy as tstrategy
     _, tt = tasks
     _, tcfg = _cfgs(*tasks, "wide", "threefry2x32")
     p0 = tneural.params_init(tt, 0)
@@ -236,10 +285,22 @@ def test_unbatched_groups(tasks):
                               dataclasses.replace(pcfg, seed=1), 2)
     np.testing.assert_array_equal(recs[1]["metrics"]["mean_local_loss"],
                                   one.metrics["mean_local_loss"].numpy())
-    with pytest.raises(NotImplementedError, match="fedprox"):
-        tsim.run_sweep(tt.loss, p0, tt.store,
-                       dataclasses.replace(pcfg, prng_impl="unsafe_rbg"),
-                       scen, 1)
+    rbg = dataclasses.replace(pcfg, prng_impl="unsafe_rbg")
+    assert tsim.sweep.batchable(rbg, tstrategy.get("fedprox"))
+    assert len(tsim.run_sweep(tt.loss, p0, tt.store, rbg, scen, 1)) == 2
+
+    class Custom(tstrategy.ZOFedProx):
+        name = "custom"
+
+    assert not tsim.sweep.batchable(pcfg, Custom())
+
+    custom = tsim.run_sweep(tt.loss, p0, tt.store, pcfg, scen, 2,
+                            strategy=Custom())
+    np.testing.assert_array_equal(custom[1]["metrics"]["mean_local_loss"],
+                                  one.metrics["mean_local_loss"].numpy())
+    with pytest.raises(NotImplementedError, match="custom"):
+        tsim.run_sweep(tt.loss, p0, tt.store, rbg, scen, 1,
+                       strategy=Custom())
     with pytest.raises(ValueError, match="momentum-free"):
         tsim.run_sweep(tt.loss, p0, tt.store,
                        dataclasses.replace(tcfg, server_momentum=0.9),

@@ -36,8 +36,11 @@ configs' serving and loss on the card against the CPU, and their
 client-batched loss. The cross-attention families: the non-causal kernel
 at the encoder, cross and one-query shapes and ragged, RMSNorm over the
 cross norms' rows, the enc-dec and VLM smoke configs on the card against
-the CPU. ``chip_smoke.py`` repeats these at the main path's full shapes
-and times them.
+the CPU; their cohort: the cross norms under ``[M, hd]`` group scales, the
+non-causal encoder attention over the cohort's rows, the client-batched
+loss against the CPU and each client's own. Strategy sweep groups under
+unsafe_rbg keys on the card against the CPU. ``chip_smoke.py`` repeats
+these at the main path's full shapes and times them.
 """
 import itertools
 import math
@@ -1474,3 +1477,119 @@ def test_ssm_cohort_loss_on_card_matches_the_cpu(gen, arch):
                         for i in range(m)])
     ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
     assert float(((got - each).abs() / ulp).max()) <= 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [chip_smoke.XC_B * chip_smoke.XC_S * 16,
+                                  chip_smoke.XC_B * 4096 * 16])
+def test_cohort_cross_norm_rows_on_card(gen, rows, dtype):
+    """rmsnorm over an enc-dec cohort's cross q and k norm rows (seamless's
+    2 x 128 and 2 x 4,096 positions x 16 heads a client) under ``[2, 64]``
+    group scales, each client's rows under its own: against its plain
+    version (``chip_smoke.hold_rmsnorm``) and bitwise its summation
+    order's torch twin."""
+    m = chip_smoke.XC_M
+    x = torch.randn(m, rows, 64, generator=gen, device="cuda").to(dtype)
+    sc = (1.0 + 0.1 * torch.randn(m, 64, generator=gen, device="cuda")).to(
+        dtype)
+    got, _, _ = chip_smoke.hold_rmsnorm(torch, ops, rn, x, sc)
+    assert torch.equal(got, rn.rmsnorm_kernel_order(x, sc, eps=1e-6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cohort_encoder_attention_on_card(gen, dtype):
+    """The flash kernel non-causal over an enc-dec cohort's encoder rows,
+    ``[M.B = 4, 4,096, 16, 64]``, against its plain version
+    (``chip_smoke.hold_attention_long``), and each client's rows bitwise
+    the same call on that client's rows alone (the kernel treats each
+    batch row on its own)."""
+    q, k, v = (torch.randn(4, 4096, 16, 64, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    chip_smoke.hold_attention_long(torch, ops, fa, q, k, v, False, 0)
+    got = ops.attention(q, k, v, causal=False)
+    one = ops.attention(q[2:], k[2:], v[2:], causal=False)
+    assert torch.equal(got[2:], one)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2-smoke",
+                                  "llama-3.2-vision-90b-smoke"])
+def test_xattn_cohort_loss_on_card_matches_the_cpu(gen, arch):
+    """The enc-dec and VLM families' client-batched loss (M = 3 clients'
+    own weights as views of one ``[M, n_pad]`` buffer, the VLM's gates
+    0.5 plus the offset) on the card: a one-client train forward's
+    launches whatever M is (``chip_smoke.xattn_launches``), within 1e-5 of
+    the same loss on the CPU and within 4 float32 ulps of each client's
+    own ``Model.loss`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.utils.flatparams import flat_spec, flatten, unflatten
+    cfg = get_config(arch)
+    model = api.build(cfg)
+    init = model.init(prng.key(0), device="cpu")
+    if cfg.family == "vlm":
+        for g in ("gate_attn", "gate_mlp"):
+            init["cross_blocks"][g].fill_(chip_smoke.VISION_GATE)
+    spec = flat_spec(init)
+    m = 3
+    cg = torch.Generator().manual_seed(1)
+    buf = flatten(init, spec)[None].repeat(m, 1)
+    buf = buf + 1e-2 * torch.randn(buf.shape, generator=cg)
+    tok = torch.randint(0, cfg.vocab, (m, 2, 33), generator=cg)
+    front = "src_embeds" if cfg.family == "encdec" else "vision_embeds"
+    batch = {"tokens": tok[..., :-1], "labels": tok[..., 1:],
+             front: 0.1 * torch.randn((m, 2, cfg.n_frontend_tokens,
+                                       cfg.d_model), generator=cg)}
+    cpu = model.loss_batched(unflatten(buf, spec), batch)
+    bc = buf.cuda()
+    bb = {k: v.cuda() for k, v in batch.items()}
+    ops.reset_launches()
+    got = model.loss_batched(unflatten(bc, spec), bb)
+    torch.cuda.synchronize()
+    want = chip_smoke.xattn_launches(cfg, "prefill")
+    assert {k: ops.LAUNCHES[k] for k in want} == want
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=0)
+    each = torch.stack([model.loss(unflatten(bc[i], spec),
+                                   {k: t[i] for k, t in bb.items()})
+                        for i in range(m)])
+    ulp = torch.nextafter(each, torch.full_like(each, math.inf)) - each
+    assert float(((got - each).abs() / ulp).max()) <= 4
+
+
+@pytest.mark.parametrize("strategy", ["fedprox", "feddyn", "scaffold",
+                                      "fedavg"])
+def test_strategy_sweep_under_rbg_on_card_matches_the_cpu(gen, strategy):
+    """A hooked or stateful strategy's sweep group under unsafe_rbg keys
+    (the batched ``[S.M]`` loop; softmax 24 x 4, 8 clients, M 4, H 2, b2
+    4, flat 4-row blocks, AirComp, S 4 over lr x snr_db, 2 rounds) on the
+    card against the CPU: m_effective bitwise, the other records within
+    ``chip_smoke.FAST_ATOL``; the ZO launches ``chip_smoke.sweep_launches``
+    counts."""
+    from repro_torch import sim
+    from repro_torch.workloads import neural
+    kw = dict(n_train=320, n_test=64, n_clients=8, n_features=24,
+              n_classes=4, alpha=0.5)
+    extra = dict(chip_smoke.SWEEP_STRATEGIES)[strategy]
+    recs, counts = {}, None
+    for dev in ("cuda", "cpu"):
+        task = neural.make_task("softmax", device=dev, **kw)
+        cfg = neural.default_config(task, **{
+            **dict(n_participating=4, local_iters=2, b1=8, b2=4, lr=5e-2,
+                   mu=1e-3, flat_params=True, flat_block_rows=4,
+                   aircomp=True, prng_impl="unsafe_rbg", strategy=strategy),
+            **extra})
+        scen = sim.scenario_grid(lr=(cfg.lr, cfg.lr / 2), snr_db=(0.0, 20.0))
+        ops.reset_launches()
+        recs[dev] = sim.run_sweep(task.loss, neural.params_init(task, 0),
+                                  task.store, cfg, scen, 2)
+        if dev == "cuda":
+            counts = dict(ops.LAUNCHES)
+    want = chip_smoke.sweep_launches(ops, cfg, 4, 2)
+    assert {k: counts[k] for k in want if k != "philox_bits"} == {
+        k: v for k, v in want.items() if k != "philox_bits"}
+    for a, c in zip(recs["cuda"], recs["cpu"]):
+        assert a["strategy"] == strategy
+        np.testing.assert_array_equal(a["metrics"]["m_effective"],
+                                      c["metrics"]["m_effective"])
+        for k, v in c["metrics"].items():
+            np.testing.assert_allclose(a["metrics"][k], v, rtol=0,
+                                       atol=chip_smoke.FAST_ATOL)

@@ -4,7 +4,7 @@ cross-attention in every layer) against a live JAX run: the configs, the
 init tree, the full-width parameter count, the cross-attention and the
 encoder, the loss, prefill and decode (every cache leaf), the
 decode-against-prefill check, ``make_batch``, the flat and pytree train
-steps, the training and serving CLIs, and the cohort loss raising.
+steps, the training and serving CLIs, and the cohort loss running.
 
 Inputs come from numpy seeds; both packages start from the same weights at
 ``-smoke`` size (float32). The smoke encoder and decoder have 2 layers
@@ -335,18 +335,11 @@ def test_serve_cli_prints_the_reference_tokens(monkeypatch):
 
 
 def test_cohort_loss_raises(both, monkeypatch):
-    """The enc-dec family's client-batched loss is not ported: it raises,
-    naming the cohort, before any forward and without reaching
+    """The enc-dec family's client-batched loss runs (it raised before it
+    was ported; ``tests/test_torch_xattn_cohort.py`` holds it to the
+    reference): two clients' rows, each on its own batch, equal each
+    client's own loss within rtol 2e-7 (reading bitwise), and
+    ``fedzo.batched_loss`` takes it without reaching
     ``torch.func.vmap``."""
-    def no_vmap(*a, **k):
-        raise AssertionError("reached torch.func.vmap")
-    monkeypatch.setattr(torch.func, "vmap", no_vmap)
     _, tm, _, tp = both
-    cohort = tree_map(lambda x: torch.stack([x, x]), tp)
-    batch = api.make_batch(tm, ShapeConfig("t", 4, 1, "train"), prng.key(0),
-                           device="cpu")
-    batch = {k: torch.stack([v, v]) for k, v in batch.items()}
-    with pytest.raises(NotImplementedError, match="cohort"):
-        tm.loss_batched(cohort, batch)
-    with pytest.raises(NotImplementedError, match="cohort"):
-        fedzo.batched_loss(tm.loss)(cohort, batch)
+    xa.cohort_loss_runs(tm, tp, monkeypatch)

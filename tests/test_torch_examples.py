@@ -1,7 +1,6 @@
-"""Each ``examples_torch/`` script (the reference examples that call
-``sim.fast_sim_config``, and the serving example on the hybrid family, on
-the port) runs at ``--smoke --device cpu``:
-exit 0 and its closing line. One intra-op thread each: the workers share
+"""Each ``examples_torch/`` script (the port's counterpart of each of the
+reference's eleven examples; the serving one on the hybrid family) runs at
+``--smoke --device cpu``: exit 0 and its closing line. One intra-op thread each: the workers share
 the cores."""
 import os
 import subprocess
@@ -19,6 +18,10 @@ SCRIPTS = {
     "resumable_run.py": (["--dir", "{tmp}/ck"],
                          "resumed run is bitwise the uninterrupted"),
     "serve_lm.py": (["--arch", "hymba-1.5b-smoke"], "serve OK"),
+    "softmax_regression.py": ([], "FedZO  H=5 AirComp 0dB: test acc"),
+    "seed_compression.py": ([], "round 1: loss"),
+    "train_cnn.py": ([], "final test accuracy"),
+    "train_lm.py": ([], "done: loss"),
 }
 
 

@@ -89,10 +89,11 @@ def test_config_is_the_reference_config(arch):
 def test_unported_architectures_and_routes_raise():
     """All ten reference architectures register, each with the reference's
     config (the enc-dec and VLM families are ported:
-    ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``), and an
-    unknown id raises the reference's KeyError. The decoder-only assembly
+    ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``, their
+    cohort loss ``tests/test_torch_xattn_cohort.py``), and an unknown id
+    raises the reference's KeyError. The decoder-only assembly
     (``models/transformer.py``) rejects an enc-dec or VLM config: those
-    build through ``api.build``."""
+    build through ``api.build``. An unknown family raises."""
     from repro.configs import ARCH_IDS as JARCH_IDS
     from repro_torch.configs import ARCH_IDS
     assert sorted(ARCH_IDS) == sorted(JARCH_IDS) and len(ARCH_IDS) == 10

@@ -41,6 +41,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.utils import convert, prng
 from repro_torch.utils import tree as ttree
 from repro_torch.utils.flatparams import _leaves, flat_spec
+from tests import _torch_xattn as xa
 
 MOE = ("qwen3-moe-30b-a3b", "deepseek-v3-671b")
 SMOKES = tuple(a + "-smoke" for a in MOE)
@@ -420,20 +421,12 @@ def test_none_subtree_is_carried_by_the_tree_utilities():
 def test_cohort_loss_of_the_moe_family_raises(monkeypatch):
     """The moe family's client-batched loss is ported
     (``tests/test_torch_moe_cohort.py``), and so are the ssm and hybrid
-    families' (``tests/test_torch_ssm_cohort.py``); the encdec and vlm
-    families' is not: it raises, naming the cohort, before any forward and
-    without reaching ``torch.func.vmap``."""
-    def no_vmap(*a, **k):
-        raise AssertionError("reached torch.func.vmap")
-    monkeypatch.setattr(torch.func, "vmap", no_vmap)
+    families' (``tests/test_torch_ssm_cohort.py``) and the encdec and vlm
+    families' (``tests/test_torch_xattn_cohort.py``), which raised before:
+    at both of the latter's ``-smoke`` configs two clients' rows equal each
+    client's own loss within rtol 2e-7, without reaching
+    ``torch.func.vmap``."""
     for arch in ("seamless-m4t-large-v2-smoke", "llama-3.2-vision-90b-smoke"):
         m = api.build(get_config(arch))
-        p = m.init(prng.key(0), device="cpu")
-        batch = {k: torch.stack([v, v]) for k, v in api.make_batch(
-            m, ShapeConfig("t", 4, 1, "train"), prng.key(1),
-            device="cpu").items()}
-        params = ttree.tree_map(lambda x: torch.stack([x, x]), p)
-        with pytest.raises(NotImplementedError, match="cohort"):
-            m.loss_batched(params, batch)
-        with pytest.raises(NotImplementedError, match="cohort"):
-            fedzo.batched_loss(m.loss)(params, batch)
+        xa.cohort_loss_runs(m, m.init(prng.key(0), device="cpu"),
+                            monkeypatch)

@@ -6,7 +6,7 @@ the float32 0-d gates), the full-width parameter counts, the
 cross-attention and the gated cross layer, the loss, prefill and decode
 (every cache leaf), the decode-against-prefill check, ``make_batch``, the
 flat buffer with its 0-d gates, the flat and pytree train steps, the
-training and serving CLIs, and the cohort loss raising.
+training and serving CLIs, and the cohort loss running.
 
 Both trees' gates are 0.5 (``_torch_xattn.gated``): at the reference's
 zero gates ``tanh(0) = 0`` hides the cross path. Besides ``-smoke`` (G = 1
@@ -372,18 +372,11 @@ def test_serve_cli_prints_the_reference_tokens(monkeypatch):
 
 
 def test_cohort_loss_raises(both, monkeypatch):
-    """The VLM family's client-batched loss is not ported: it raises,
-    naming the cohort, before any forward and without reaching
+    """The VLM family's client-batched loss runs (it raised before it
+    was ported; ``tests/test_torch_xattn_cohort.py`` holds it to the
+    reference): two clients' rows, each on its own batch, equal each
+    client's own loss within rtol 2e-7 (reading bitwise), and
+    ``fedzo.batched_loss`` takes it without reaching
     ``torch.func.vmap``."""
-    def no_vmap(*a, **k):
-        raise AssertionError("reached torch.func.vmap")
-    monkeypatch.setattr(torch.func, "vmap", no_vmap)
     _, tm, _, tp = both
-    cohort = tree_map(lambda x: torch.stack([x, x]), tp)
-    batch = api.make_batch(tm, ShapeConfig("t", 4, 1, "train"), prng.key(0),
-                           device="cpu")
-    batch = {k: torch.stack([v, v]) for k, v in batch.items()}
-    with pytest.raises(NotImplementedError, match="cohort"):
-        tm.loss_batched(cohort, batch)
-    with pytest.raises(NotImplementedError, match="cohort"):
-        fedzo.batched_loss(tm.loss)(cohort, batch)
+    xa.cohort_loss_runs(tm, tp, monkeypatch)
