@@ -29,7 +29,9 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import _leaves
-from repro_torch.utils.tree import tree_size, tree_unflatten
+from repro_torch.utils.shardutil import is_dtensor
+from repro_torch.utils.tree import (leaf_normal_like, tree_size,
+                                    tree_unflatten)
 
 # per-round per-device energy budget is d·P with P normalized to 1;
 # SNR γ = P·h_min²/σ_w² is controlled through snr_db = 10·log10(P/σ_w²).
@@ -81,8 +83,14 @@ def _delta_sq_norms(deltas):
     """``[M]`` squared norms ‖Δ_i‖² of a stacked delta tree (leaves
     ``[M, ...]``): a float32 sum per leaf and row, summed over the leaves
     in order."""
-    return sum(torch.sum(torch.square(leaf.to(torch.float32)).reshape(
-        leaf.shape[0], -1), dim=1) for _, leaf in _leaves(deltas))
+    return sum(_row_sq(leaf) for _, leaf in _leaves(deltas))
+
+
+def _row_sq(leaf):
+    sq = torch.square(leaf.to(torch.float32))
+    if is_dtensor(leaf):   # a sum over the trailing dims: no reshape of
+        return torch.sum(sq, dim=tuple(range(1, leaf.ndim)))  # shards
+    return torch.sum(sq.reshape(leaf.shape[0], -1), dim=1)
 
 
 def aircomp_aggregate(deltas, key, *, snr_db, h_min, mask=None,
@@ -110,10 +118,16 @@ def aircomp_aggregate(deltas, key, *, snr_db, h_min, mask=None,
     noise_std = torch.sqrt(noise_var)
     out = []
     for i, (_, leaf) in enumerate(pairs):
-        mean = torch.einsum("m...,m->...", leaf.to(torch.float32),
-                            maskf) / m_div
-        g = prng.normal(prng.fold_in(key, i, impl), tuple(mean.shape),
-                        device=dev, impl=impl)
+        if is_dtensor(leaf):
+            # the row-weighted sum as a broadcast product and a sum over
+            # the rows, which DTensor partitions at once over a 3-axis mesh
+            w = maskf.reshape((M,) + (1,) * (leaf.ndim - 1))
+            mean = torch.sum(leaf.to(torch.float32) * w, dim=0) / m_div
+        else:
+            mean = torch.einsum("m...,m->...", leaf.to(torch.float32),
+                                maskf) / m_div
+        # a DTensor mean (the sharded delta program) draws its own shard
+        g = leaf_normal_like(prng.fold_in(key, i, impl), mean, impl=impl)
         out.append((mean + noise_std * g).to(leaf.dtype))
     stats = {"aircomp_noise_std": noise_std, "delta_max": delta_max,
              "m_effective": m_sched}

@@ -32,6 +32,7 @@ from repro_torch.core.aircomp import (aircomp_aggregate, mask_stats,
 from repro_torch.core.estimator import _device
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import _leaves
+from repro_torch.utils.shardutil import on_dtensors
 from repro_torch.utils.tree import (tree_add, tree_axpy_plain, tree_map,
                                     tree_scale, tree_sub, tree_unflatten)
 
@@ -43,7 +44,8 @@ def value_and_grad(loss_fn, params, batch):
     pairs = _leaves(params)
     leaves = [leaf.detach().requires_grad_() for _, leaf in pairs]
     loss = loss_fn(tree_unflatten([p for p, _ in pairs], leaves), batch)
-    grads = torch.autograd.grad(loss.sum(), leaves)
+    with on_dtensors(leaves):   # a sharded forward's backward
+        grads = torch.autograd.grad(loss.sum(), leaves)
     return loss.detach(), tree_unflatten([p for p, _ in pairs], list(grads))
 
 

@@ -78,8 +78,9 @@ from repro_torch.kernels.zo_axpy import LANES
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import (_leaves, flat_geometry, flat_spec,
                                           flatten, unflatten)
-from repro_torch.utils.tree import (tree_add, tree_map, tree_scale,
-                                    tree_stack, tree_sub)
+from repro_torch.utils.shardutil import on_dtensors
+from repro_torch.utils.tree import (tree_add, tree_leaves, tree_map,
+                                    tree_scale, tree_stack, tree_sub)
 
 _DIRECTION_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -749,7 +750,10 @@ def make_pod_round_step(loss_fn_grouped, cfg: FedZOConfig, mesh):
     signature: (params, batch, rng) -> (params, metrics)
     """
     n_pod = mesh.shape["pod"]
-    group = getattr(mesh, "group", None)
+    # a production mesh runs every pod in one DTensor program, as the
+    # reference's GSPMD step: its [n_pod] losses need no pack
+    group = None if getattr(mesh, "device_mesh", None) is not None \
+        else getattr(mesh, "group", None)
     ddt = _DIRECTION_DTYPES[cfg.direction_dtype]
 
     def pods(coeffs, base):
@@ -817,10 +821,11 @@ def make_delta_agg_step(cfg: FedZOConfig, n_pod: int):
     signature: (deltas, rng) -> tree
     """
     def step(deltas, rng):
-        if cfg.aircomp:
-            agg, _ = aircomp_aggregate(deltas, rng, snr_db=cfg.snr_db,
-                                       h_min=cfg.h_min)
-            return agg
-        return tree_map(lambda x: torch.mean(x, dim=0), deltas)
+        with on_dtensors(tree_leaves(deltas)):   # the sharded program's
+            if cfg.aircomp:
+                agg, _ = aircomp_aggregate(deltas, rng, snr_db=cfg.snr_db,
+                                           h_min=cfg.h_min)
+                return agg
+            return tree_map(lambda x: torch.mean(x, dim=0), deltas)
 
     return step

@@ -18,6 +18,13 @@ its main path went through the kernels.
 Kernels launch on PyTorch's current stream and do not synchronise; outputs
 and scratch are allocated here with ``torch.empty``.
 
+On the sharded model path (``launch/sharding.py``) ``rmsnorm`` and
+``attention`` take DTensors: each first lays its inputs out so that the
+work of a shard is whole (RMSNorm's last dim unsharded; attention sharded
+over batch and heads only, heads where both head counts divide), then runs
+the kernel (or on the CPU its plain version) on each rank's local shard,
+and returns a DTensor of that layout. A kernel never sees a DTensor.
+
 ``rmsnorm`` and ``attention`` are differentiable on both devices. No kernel
 has a backward (nor has the reference: ``jax.grad`` differentiates its jnp
 math), and a launch's output carries no ``grad_fn``; so when autograd is
@@ -31,6 +38,7 @@ that need no gradient (every ZO path) take the direct dispatch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -43,6 +51,7 @@ from repro_torch.kernels.zo_aircomp import aircomp_reduce_plain
 from repro_torch.kernels.zo_axpy import (dirnorm_geometry, zo_axpy2_plain,
                                          zo_axpy_plain, zo_dirnorms_plain,
                                          zo_replay_plain, zo_walk_plain)
+from repro_torch.utils.shardutil import as_dtensor, is_dtensor
 
 LAUNCHES = {"zo_walk": 0, "zo_replay": 0, "zo_dirnorms": 0,
             "aircomp_reduce": 0, "zo_axpy": 0, "zo_axpy2": 0, "rmsnorm": 0,
@@ -51,6 +60,38 @@ _KIND_CODE = {"normal": 0, "sign": 1}
 _TICKETS: dict = {}
 _AIR_GEOMETRY: dict = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# Called as ``META_WORK(name, flops, bytes)`` when a kernel's wrapper is
+# given ``meta`` tensors (the dry-run's shards, ``launch/dryrun.py``): the
+# wrapper allocates only the kernel's output, as the kernel would, and
+# reports the work the kernel would do. None: nothing is reported.
+META_WORK = None
+
+
+def _meta_work(name, flops, nbytes):
+    if META_WORK is not None:
+        META_WORK(name, float(flops), float(nbytes))
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+@functools.lru_cache(maxsize=64)
+def _attention_pairs(Sq, Sk, causal, window):
+    """The (query, key) pairs attention keeps: all of them, or under
+    ``causal`` those with ``0 <= q_pos - k_pos`` (query i at position ``i +
+    Sk - Sq``), and ``< window`` when a window is set."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq
+    total = 0
+    for i in range(Sq):
+        hi = min(i + off, Sk - 1)
+        lo = max(0, i + off - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
 
 
 def reset_launches():
@@ -122,11 +163,29 @@ def _axpy_operands(x, vecs):
     return codes
 
 
+def _axpy_shards(fn, x, vecs, scalars):
+    """``fn`` (``axpy`` or ``axpy2``) of DTensors on each rank's local
+    shard: the vectors laid out as x, the scalars whole."""
+    local = [_laid_out(t, x.placements).to_local() for t in vecs]
+    out = fn(x.to_local(), *local, *[_replicated(c) for c in scalars])
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def axpy(x, u, a):
     """x + a·u in float32, returned in x's dtype (``zo_axpy``). x and u of
     one shape, each float32 or bfloat16, ``a`` a scalar or
     a one-element tensor (on the card, best a float32 tensor there: it is
-    read by the kernel, so the host never waits for it)."""
+    read by the kernel, so the host never waits for it). DTensors run on
+    each rank's local shard (the kernel never sees a DTensor)."""
+    if is_dtensor(x):
+        return _axpy_shards(axpy, x, [u], [a])
+    if x.device.type == "meta":
+        out = torch.empty_like(x)
+        _meta_work("zo_axpy", 2 * x.numel(), _nbytes(x, u, out))
+        return out
     if _on_cpu(x):
         return zo_axpy_plain(x, u, a)
     xc, uc = _axpy_operands(x, [("u", u)])
@@ -143,7 +202,14 @@ def axpy(x, u, a):
 def axpy2(x, u, v, a, b):
     """x + a·u + b·v in float32, returned in x's dtype (``zo_axpy2``), for
     same-shaped x, u, v of any length, each float32 or bfloat16.
-    No padding: the kernel masks its own ragged edge."""
+    No padding: the kernel masks its own ragged edge. DTensors run on
+    each rank's local shard."""
+    if is_dtensor(x):
+        return _axpy_shards(axpy2, x, [u, v], [a, b])
+    if x.device.type == "meta":
+        out = torch.empty_like(x)
+        _meta_work("zo_axpy2", 4 * x.numel(), _nbytes(x, u, v, out))
+        return out
     if _on_cpu(x):
         return zo_axpy2_plain(x, u, v, (a, b))
     xc, uc, vc = _axpy_operands(x, [("u", u), ("v", v)])
@@ -451,12 +517,78 @@ class _AttentionFn(torch.autograd.Function):
             g) + (None, None, None)
 
 
+def _laid_out(t, want):
+    """DTensor ``t`` redistributed to the placements ``want``."""
+    if tuple(t.placements) == tuple(want):
+        return t
+    return t.redistribute(t.device_mesh, tuple(want))
+
+
+def _replicated(t, rows=None):
+    """The whole of ``t`` on every rank, as a local tensor. ``rows``: the
+    placements of the input it meets, whose shards over a mesh axis hold
+    distinct rows, so that the gradient of ``t`` is a partial sum over that
+    axis (and replicated over the others)."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Partial, Replicate
+    rep = [Replicate()] * t.device_mesh.ndim
+    grads = rep if rows is None else [Partial() if p.is_shard() else
+                                      Replicate() for p in rows]
+    return _laid_out(t, rep).to_local(grad_placements=grads)
+
+
+def _rmsnorm_shards(x, scale, eps):
+    """``rmsnorm`` of a DTensor: its last dim gathered (a partial sum
+    reduced), the kernel on each rank's rows, the scale whole."""
+    from torch.distributed.tensor import Replicate
+    nd = x.ndim
+    want = [Replicate() if p.is_partial()
+            or (p.is_shard() and p.dim % nd == nd - 1) else p
+            for p in x.placements]
+    x = _laid_out(x, want)
+    out = rmsnorm(x.to_local(), _replicated(scale, rows=want), eps=eps)
+    return as_dtensor(out, x.device_mesh, want, tuple(x.shape))
+
+
+def _attention_shards(q, k, v, causal, window, scale):
+    """``attention`` of DTensors: q, k and v laid out alike, over batch
+    and heads only (heads where both head counts divide over the mesh
+    axes that shard them; every other placement gathered), the kernel on
+    each rank's batch rows and heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    want, head_n = [], 1
+    for i, p in enumerate(q.placements):
+        if p.is_shard(0):
+            want.append(Shard(0))
+        elif p.is_shard(2):
+            want.append(Shard(2))
+            head_n *= mesh.size(i)
+        else:
+            want.append(Replicate())
+    if q.shape[2] % head_n or k.shape[2] % head_n:
+        want = [Replicate() if p.is_shard(2) else p for p in want]
+    q, k, v = (_laid_out(t, want) for t in (q, k, v))
+    out = attention(q.to_local(), k.to_local(), v.to_local(), causal=causal,
+                    window=window, scale=scale)
+    B, Sq, Hq = q.shape[:3]
+    return as_dtensor(out, q.device_mesh, want, (B, Sq, Hq, v.shape[3]))
+
+
 def rmsnorm(x, scale, *, eps=1e-6):
     """RMSNorm over the last dim of x ``[..., D]``: ``x · rsqrt(mean(x²) +
     eps) · scale`` in float32, returned in x's dtype (the ``rmsnorm``
     kernel on the card). ``scale`` is ``[D]``, or ``[G, D]`` for G equal
     contiguous groups of x's rows. Differentiable in x and scale (the
-    plain version's gradient, recomputed in the backward)."""
+    plain version's gradient, recomputed in the backward). A DTensor x
+    runs on its local shards (module docstring)."""
+    if is_dtensor(x):
+        return _rmsnorm_shards(x, scale, eps)
+    if x.device.type == "meta":
+        out = torch.empty_like(x)
+        _meta_work("rmsnorm", 4 * x.numel(), _nbytes(x, scale, out))
+        return out
     if _wants_grad(x, scale):
         return _RMSNormFn.apply(x, scale, eps)
     return _rmsnorm(x, scale, eps)
@@ -467,7 +599,18 @@ def attention(q, k, v, *, causal=True, window=0, scale=None):
     ``flash_attention`` kernel on the card): q ``[B, Sq, Hq, D]``, k ``[B,
     Sk, Hkv, D]``, v ``[B, Sk, Hkv, Dv]`` -> ``[B, Sq, Hq, Dv]`` in q's
     dtype, at ``scale`` (default 1/√D). Differentiable in q, k and v (the
-    plain version's gradient, recomputed in the backward)."""
+    plain version's gradient, recomputed in the backward). DTensors run
+    on their local shards (module docstring)."""
+    if is_dtensor(q):
+        return _attention_shards(q, k, v, causal, window, scale)
+    if q.device.type == "meta":
+        B, Sq, Hq, D = q.shape
+        Sk, Dv = k.shape[1], v.shape[3]
+        out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device="meta")
+        pairs = _attention_pairs(Sq, Sk, causal, window)
+        _meta_work("flash_attention", 2 * B * Hq * pairs * (D + Dv),
+                   _nbytes(q, k, v, out))
+        return out
     if _wants_grad(q, k, v):
         return _AttentionFn.apply(q, k, v, causal, window, scale)
     return _attention(q, k, v, causal, window, scale)

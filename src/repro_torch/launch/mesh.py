@@ -1,12 +1,16 @@
 """Meshes of the port on ``torch.distributed``: the clients mesh of the
-sharded fan-out and the pod mesh of the cross-silo round.
+sharded fan-out, the pod mesh of the cross-silo round, and the production
+and host meshes of the sharded model path.
 
-Counterpart of ``repro/launch/mesh.py:34-45, 52-53``. The reference's mesh
-is a ``jax.sharding.Mesh`` over local devices; here a mesh is the process
-group that runs one program per rank (SPMD over processes), described by a
-small ``Mesh``: its ``axis_names``, a ``shape`` mapping (``mesh.shape[axis]``
-as in the reference), this process's ``rank``, the ``group`` and the
-``device`` the rank computes on.
+Counterpart of ``repro/launch/mesh.py``. The reference's mesh is a
+``jax.sharding.Mesh`` over local devices; here a mesh is the process group
+that runs one program per rank (SPMD over processes), described by a small
+``Mesh``: its ``axis_names``, a ``shape`` mapping (``mesh.shape[axis]`` as
+in the reference), this process's ``rank``, the ``group``, the ``device``
+the rank computes on and, for a mesh of more than one axis, the
+``torch.distributed`` ``DeviceMesh`` of its axes (``device_mesh``): each
+axis has its own sub-group (``axis_group``), and DTensors are placed on it
+(``launch/sharding.py``).
 
 - With no process group initialised, ``make_clients_mesh()`` is a
   one-member mesh on the card: the reference's 1-device mesh.
@@ -20,13 +24,28 @@ as in the reference), this process's ``rank``, the ``group`` and the
 pods all live in this process, as the reference's GSPMD pod round computes
 every pod's loss group in one program (``core/fedzo.make_pod_round_step``).
 
+gloo runs ``all_reduce`` on CUDA tensors but not the other collectives
+DTensor redistributes with (its all-gather of a CUDA tensor ends the
+process), and one card holds no nccl group of more than one rank. So a
+mesh over a gloo group on the card calls ``bridge_gloo_cuda()``: it
+registers CUDA kernels for the functional all-gather, reduce-scatter and
+all-to-all built from ``all_reduce`` alone on the card (a zero-filled
+buffer each rank writes its part of; sums with zeros are exact), and DTensor
+then runs on the card unchanged.
+
 ``run_ranks(fn, n, backend=..., init_dir=...)`` spawns n processes, each
 of which joins an n-rank group (rendezvous through a file, no TCP port to
 pick) and calls ``fn(rank, n, *args)``; it joins them within a timeout and
 raises if a rank fails or hangs.
 
-The TPU v5e production meshes (``make_production_mesh``,
-``make_host_mesh``) are not ported.
+``make_production_mesh(multi_pod=False)`` is the reference's (16, 16)
+``("data", "model")`` mesh, or (2, 16, 16) ``("pod", "data", "model")``,
+over an initialised world of 256 or 512 ranks: in the dry-run
+(``launch/dryrun.py``) that world is torch's ``fake`` process group, one
+process standing for rank 0. ``make_host_mesh(model_axis)`` is ``(n //
+model_axis, model_axis)`` over the world's n ranks (several gloo ranks may
+share one card), or without a process group a one-member mesh. A world of
+another size raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -39,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.utils.shardutil import dp_axes as data_axes  # noqa: F401
 
 
 @dataclass(frozen=True)
@@ -48,6 +68,20 @@ class Mesh:
     rank: int
     group: Any            # the process group; None: no collective runs
     device: torch.device
+    device_mesh: Any = None   # the DeviceMesh of a multi-axis mesh
+
+    def axis_group(self, axis):
+        """The sub-group of the ranks that differ only along ``axis``
+        (None on a one-member mesh)."""
+        if self.device_mesh is None:
+            return self.group if self.axis_names == (axis,) else None
+        return self.device_mesh.get_group(axis)
+
+    def axis_rank(self, axis) -> int:
+        """This rank's coordinate along ``axis``."""
+        if self.device_mesh is None:
+            return self.rank if self.axis_names == (axis,) else 0
+        return self.device_mesh.get_local_rank(axis)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group's ranks, in place (nothing without a
@@ -98,8 +132,105 @@ def make_pod_mesh(n_pod: int = 0, *, group=None, device="cuda") -> Mesh:
     return _group_mesh("pod", n_pod, group, device)
 
 
-def data_axes(mesh):
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+_BRIDGE = []
+
+
+def bridge_gloo_cuda():
+    """CUDA kernels of ``_c10d_functional``'s all-gather, reduce-scatter
+    and all-to-all built from ``all_reduce``, for gloo groups on the card
+    (once a process). Each is exact: an all-gather is the sum of zero
+    buffers each holding one rank's part, a reduce-scatter this rank's
+    slice of the all-reduced input, an all-to-all (even splits) the
+    all-gathered chunks this rank receives."""
+    if _BRIDGE:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gathered(inp, group_size, group_name):
+        g = _resolve_process_group(group_name)
+        buf = inp.new_zeros((group_size,) + tuple(inp.shape))
+        buf[dist.get_rank(g)].copy_(inp)
+        dist.all_reduce(buf, group=g)
+        return buf, dist.get_rank(g)
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        buf, _ = gathered(inp, group_size, group_name)
+        return buf.reshape((group_size * inp.shape[0],)
+                           + tuple(inp.shape[1:]))
+
+    def reduce_scatter_tensor(inp, reduce_op, group_size, group_name):
+        if reduce_op.lower() != "sum":
+            raise NotImplementedError(f"reduce_scatter {reduce_op} on gloo "
+                                      f"CUDA tensors")
+        g = _resolve_process_group(group_name)
+        buf = inp.contiguous().clone()
+        dist.all_reduce(buf, group=g)
+        return buf.chunk(group_size)[dist.get_rank(g)].clone()
+
+    def all_to_all_single(inp, output_split_sizes, input_split_sizes,
+                          group_name):
+        if output_split_sizes is not None or input_split_sizes is not None:
+            raise NotImplementedError("uneven all_to_all on gloo CUDA "
+                                      "tensors")
+        g = _resolve_process_group(group_name)
+        n = dist.get_world_size(g)
+        buf, r = gathered(inp.contiguous(), n, group_name)
+        return torch.cat([c.chunk(n)[r] for c in buf.unbind(0)])
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    lib.impl("reduce_scatter_tensor", reduce_scatter_tensor, "CUDA")
+    lib.impl("all_to_all_single", all_to_all_single, "CUDA")
+    _BRIDGE.append(lib)
+
+
+def _make_mesh(shape, axes, *, device="cuda") -> Mesh:
+    """A mesh of ``shape`` with axis names ``axes`` over the initialised
+    world, its ranks in row-major order (the reference's ``jax.make_mesh``
+    order): a world of another size raises ``ValueError``."""
+    if not dist.is_initialized():
+        raise ValueError(f"a {shape} mesh needs an initialised "
+                         f"torch.distributed process group")
+    n, world = 1, dist.get_world_size()
+    for s in shape:
+        n *= s
+    if n != world:
+        raise ValueError(f"a {tuple(shape)} {tuple(axes)} mesh of {n} ranks "
+                         f"asked of a world of {world}")
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = _device(device)
+    if dev.type == "cuda" and dist.get_backend() == "gloo":
+        bridge_gloo_cuda()
+    dm = init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
+    return Mesh(tuple(axes), dict(zip(axes, shape)), dist.get_rank(),
+                dist.group.WORLD, dev, dm)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
+    "model")`` with ``multi_pod``: the ``pod`` axis is the federated one,
+    one FedZO client per pod (``core/fedzo.make_pod_round_step``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _make_mesh(shape, axes, device=device)
+
+
+def make_host_mesh(model_axis: int = 1, *, device="cuda") -> Mesh:
+    """``(n // model_axis, model_axis)`` ``("data", "model")`` over the
+    world's n ranks (tests, the card's smoke run); without a process group
+    a one-member mesh on ``device``."""
+    if not dist.is_initialized():
+        if model_axis != 1:
+            raise ValueError(f"a model axis of {model_axis} needs an "
+                             f"initialised process group")
+        return Mesh(("data", "model"), {"data": 1, "model": 1}, 0, None,
+                    _device(device))
+    n = dist.get_world_size()
+    if n % model_axis:
+        raise ValueError(f"a model axis of {model_axis} does not divide "
+                         f"{n} ranks")
+    return _make_mesh((n // model_axis, model_axis), ("data", "model"),
+                      device=device)
 
 
 def _rank_main(rank, fn, world_size, backend, init_file, args):

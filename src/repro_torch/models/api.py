@@ -4,14 +4,21 @@ Counterpart of ``repro/models/api.py:25-125``: ``build(cfg)`` returns a
 ``Model`` bundle of functions,
 
   init(rng, device="cuda") -> params    (nested dict, reference layout)
-  loss(params, batch, n_groups=1) -> scalar (what FedZO queries; [G] group
-                                         means with n_groups > 1)
+  param_specs() -> params on ``meta``   (paths, shapes, dtypes; no memory)
+  loss(params, batch, n_groups=1, mesh=None) -> scalar (what FedZO
+                                         queries; [G] group means with
+                                         n_groups > 1)
   loss_batched(params, batch) -> [M]    (``loss`` per client of a cohort:
                                          leaves and batch with a leading
                                          ``[M]`` client axis; every
                                          family)
-  prefill(params, batch, width) -> (logits [B, V], cache)
-  decode(params, batch, cache, pos, window=0) -> (logits [B, V], cache)
+  prefill(params, batch, width, mesh=None) -> (logits [B, V], cache)
+  decode(params, batch, cache, pos, window=0, mesh=None) -> (logits, cache)
+
+With a ``mesh`` (``launch/mesh.py``) the params, batch and cache are
+DTensors on it, laid out by ``launch/sharding.py``, and so are the
+results: the reference's sharded forwards (``mesh=`` in
+``repro/models/api.py``).
   init_cache(batch_size, width, device="cuda") -> zeroed cache
   batch_shapes(shape_cfg) -> {name: (shape, dtype)}
 
@@ -51,6 +58,7 @@ from repro_torch.utils import prng
 class Model:
     cfg: ModelConfig
     init: Callable
+    param_specs: Callable
     loss: Callable
     loss_batched: Callable
     prefill: Callable
@@ -81,8 +89,8 @@ def build(cfg: ModelConfig) -> Model:
     mod = {"encdec": encdec, "vlm": vlm}[cfg.family]
     dtype = transformer._dtype(cfg)
 
-    def loss(p, b, n_groups=1):
-        return mod.loss_fn(p, b, cfg, n_groups)
+    def loss(p, b, n_groups=1, mesh=None):
+        return mod.loss_fn(p, b, cfg, n_groups, mesh=mesh)
 
     def loss_batched(p, b):
         return mod.loss_fn_batched(p, b, cfg)
@@ -101,12 +109,13 @@ def build(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda rng, device="cuda": mod.init_params(
             rng, cfg, device=resolve_device(device)),
+        param_specs=lambda: mod.param_specs(cfg),
         loss=loss,
         loss_batched=loss_batched,
-        prefill=lambda p, b, width: mod.prefill(
-            p, b["tokens"], b[frontend], cfg, width),
-        decode=lambda p, b, cache, pos, window=0: mod.decode_step(
-            p, b["tokens"], cache, pos, cfg, window),
+        prefill=lambda p, b, width, mesh=None: mod.prefill(
+            p, b["tokens"], b[frontend], cfg, width, mesh=mesh),
+        decode=lambda p, b, cache, pos, window=0, mesh=None: mod.decode_step(
+            p, b["tokens"], cache, pos, cfg, window, mesh=mesh),
         init_cache=lambda batch, width, device="cuda": mod.init_cache(
             cfg, batch, width, device=resolve_device(device)),
         batch_shapes=batch_shapes,
@@ -114,8 +123,8 @@ def build(cfg: ModelConfig) -> Model:
 
 
 def _decoder_model(cfg: ModelConfig) -> Model:
-    def loss(p, b, n_groups=1):
-        return transformer.loss_fn(p, b, cfg, n_groups)
+    def loss(p, b, n_groups=1, mesh=None):
+        return transformer.loss_fn(p, b, cfg, n_groups, mesh=mesh)
 
     def loss_batched(p, b):
         return transformer.loss_fn_batched(p, b, cfg)
@@ -125,12 +134,14 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda rng, device="cuda": transformer.init_params(
             rng, cfg, device=resolve_device(device)),
+        param_specs=lambda: transformer.param_specs(cfg),
         loss=loss,
         loss_batched=loss_batched,
-        prefill=lambda p, b, width: transformer.prefill(
-            p, b["tokens"], cfg, width),
-        decode=lambda p, b, cache, pos, window=0: transformer.decode_step(
-            p, b["tokens"], cache, pos, cfg, window),
+        prefill=lambda p, b, width, mesh=None: transformer.prefill(
+            p, b["tokens"], cfg, width, mesh=mesh),
+        decode=lambda p, b, cache, pos, window=0, mesh=None:
+            transformer.decode_step(p, b["tokens"], cache, pos, cfg, window,
+                                    mesh=mesh),
         init_cache=lambda batch, width, device="cuda": transformer.init_cache(
             cfg, batch, width, device=resolve_device(device)),
         batch_shapes=lambda shape: _lm_batch_shapes(cfg, shape),

@@ -56,7 +56,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (NEG_INF, apply_rope,
@@ -64,6 +63,8 @@ from repro_torch.models.layers import (NEG_INF, apply_rope,
                                        init_norm, norm_fwd, norm_fwd_batched,
                                        rope_angles)
 from repro_torch.utils import prng
+from repro_torch.utils.shardutil import (is_dtensor, reduced, split_last,
+                                         whole)
 
 
 def init_attention(rng, cfg, dtype, *, device="cpu"):
@@ -89,11 +90,12 @@ def _qkv(p, cfg, x):
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, hq, hd)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+    if cfg.qkv_bias:   # (a bias is added to whole sums)
+        q, k, v = (reduced(t) + p[b] for t, b in ((q, "bq"), (k, "bk"),
+                                                  (v, "bv")))
+    q = split_last(q, (B, S, hq, hd))
+    k = split_last(k, (B, S, hkv, hd))
+    v = split_last(v, (B, S, hkv, hd))
     if cfg.qk_norm:
         q = norm_fwd(p["q_norm"], q)
         k = norm_fwd(p["k_norm"], k)
@@ -123,6 +125,38 @@ def init_kv_cache(cfg, batch, width, dtype, *, device="cpu"):
                              device=device)}
 
 
+def _pad_seq(t, width):
+    """``t [B, S, ...]`` zero-padded along S to ``width`` rows: a
+    concatenation with zeros, whose rule every DTensor release has. A
+    DTensor's partial sums are reduced first (a cache holds its sums)."""
+    t = reduced(t)
+    return torch.cat([t, t.new_zeros((t.shape[0], width - t.shape[1])
+                                     + tuple(t.shape[2:]))], dim=1)
+
+
+def _write_slot(cache, slot, new):
+    """``cache [B, W, ...]``'s slot ``slot`` (a ``[1]`` tensor) set to
+    ``new [B, 1, ...]`` in place. A DTensor cache (its W dim may be
+    sharded: context parallelism) takes an elementwise select over the
+    whole ring, which keeps its layout; a plain one an ``index_copy_``."""
+    new = new.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache.index_copy_(1, slot, new)
+        return
+    if any(p.is_partial() for p in cache.placements):
+        raise ValueError(f"a decode cache laid out {cache.placements}: "
+                         f"reduce its partial sums first")
+    from torch.distributed.tensor import Replicate
+    # new laid out as the cache, whole along the ring's W dim
+    want = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+    if tuple(new.placements) != tuple(want):
+        new = new.redistribute(new.device_mesh, want)
+    W = cache.shape[1]
+    hit = torch.arange(W, device=cache.device) == slot
+    hit = hit.reshape((1, W) + (1,) * (cache.ndim - 2))
+    cache.copy_(torch.where(hit, new, cache))
+
+
 def attention_prefill(p, cfg, x, width):
     """Prefill: the full causal attention (the config's sliding window) and
     the cache of the last ``width`` keys and values: slots ``[0, S)`` when
@@ -136,8 +170,7 @@ def attention_prefill(p, cfg, x, width):
     out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
     out = out.reshape(B, S, -1) @ p["wo"]
     if width >= S:  # straight copy into slots [0, S)
-        pad = (0, 0, 0, 0, 0, width - S)
-        cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+        cache = {"k": _pad_seq(k, width), "v": _pad_seq(v, width)}
     else:  # ring layout: slot = pos % width for the last `width` positions
         shift = S % width
         cache = {"k": torch.roll(k[:, -width:], shift, dims=1),
@@ -156,8 +189,8 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     slot = torch.remainder(pos, W).reshape(1)
-    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    _write_slot(cache["k"], slot, k)
+    _write_slot(cache["v"], slot, v)
     idx = torch.arange(W, device=x.device)
     valid = (idx <= pos) | (pos >= W)
     if window:
@@ -230,16 +263,16 @@ def cross_kv(p, cfg, memory):
     (a kernel launch whatever ``cfg.norm`` is), v not."""
     B, Sm, _ = memory.shape
     hq, hd = cfg.n_heads, cfg.head_dim
-    k = norm_fwd(p["k_norm"], (memory @ p["wk"]).reshape(B, Sm, hq, hd))
-    v = (memory @ p["wv"]).reshape(B, Sm, hq, hd)
+    k = norm_fwd(p["k_norm"], split_last(memory @ p["wk"], (B, Sm, hq, hd)))
+    v = split_last(memory @ p["wv"], (B, Sm, hq, hd))
     return {"k": k, "v": v}
 
 
 def cross_q(p, cfg, x):
     """The RMS-normed cross queries ``[B, S, Hq, hd]`` of x ``[B, S, d]``."""
     B, S, _ = x.shape
-    return norm_fwd(p["q_norm"], (x @ p["wq"]).reshape(
-        B, S, cfg.n_heads, cfg.head_dim))
+    return norm_fwd(p["q_norm"], split_last(
+        x @ p["wq"], (B, S, cfg.n_heads, cfg.head_dim)))
 
 
 def cross_attend(p, q, k, v):
@@ -322,7 +355,7 @@ def _mla_q(p, cfg, x, positions):
     m, h = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
     q = norm_fwd(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
-    q = q.reshape(B, S, h, m.qk_nope_dim + m.qk_rope_dim)
+    q = split_last(q, (B, S, h, m.qk_nope_dim + m.qk_rope_dim))
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, cos, sin)
@@ -347,8 +380,8 @@ def mla_fwd(p, cfg, x, *, window=0):
     positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_kv(p, cfg, x, positions)  # 1 shared rope head
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, m.qk_nope_dim)
-    v = (c_kv @ p["wv_b"]).reshape(B, S, h, m.v_head_dim)
+    k_nope = split_last(c_kv @ p["wk_b"], (B, S, h, m.qk_nope_dim))
+    v = split_last(c_kv @ p["wv_b"], (B, S, h, m.v_head_dim))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_dim)], dim=-1)
     out = ops.attention(q, k, v, causal=True, window=window,
@@ -399,7 +432,7 @@ def mla_prefill(p, cfg, x, width):
     S = x.shape[1]
     out, latent = mla_fwd(p, cfg, x)
     if width >= S:
-        latent = F.pad(latent, (0, 0, 0, width - S))
+        latent = _pad_seq(latent, width)
     else:
         latent = torch.roll(latent[:, -width:], S % width, dims=1)
     return out, {"latent": latent}
@@ -417,9 +450,10 @@ def mla_decode(p, cfg, x, cache, pos, *, window=0):
     c_kv, k_rope = _mla_kv(p, cfg, x, pos[None, None])
     new_latent = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
     slot = torch.remainder(pos, W).reshape(1)
-    latent.index_copy_(1, slot, new_latent.to(latent.dtype))
-    c_cache = latent[..., :m.kv_lora_rank].to(torch.float32)   # [B, W, r]
-    r_cache = latent[..., m.kv_lora_rank:].to(torch.float32)   # [B, W, rope]
+    _write_slot(latent, slot, new_latent)
+    lat = whole(latent, 2)      # a sharded latent dim is gathered to slice
+    c_cache = lat[..., :m.kv_lora_rank].to(torch.float32)   # [B, W, r]
+    r_cache = lat[..., m.kv_lora_rank:].to(torch.float32)   # [B, W, rope]
     # absorb W_k^b into q: q_eff[b,h,r] = sum_n q_nope[b,h,n] * wk_b[r, h, n]
     wk_b = p["wk_b"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
     q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].to(torch.float32),

@@ -49,6 +49,7 @@ from repro_torch.models.transformer import (_dtype, _layer, _layer_batched,
                                             _stack, _stack_init,
                                             check_family, repeat_rows)
 from repro_torch.utils import prng
+from repro_torch.utils.shardutil import constrain_batch, on_mesh
 
 
 def init_enc_block(rng, cfg, dtype, *, device="cpu"):
@@ -90,9 +91,16 @@ def init_params(rng, cfg, *, device="cpu"):
     }
 
 
-def encode(params, cfg, src_embeds):
+def param_specs(cfg):
+    """The parameter tree on the ``meta`` device: the paths, shapes and
+    dtypes of ``init_params`` with no allocation and no draw (the
+    reference's ``jax.eval_shape`` of its init; the dry-run's input)."""
+    return init_params(prng.key(0), cfg, device="meta")
+
+
+def encode(params, cfg, src_embeds, mesh=None):
     """The bidirectional encoder over frame embeddings ``[B, S_src, d]``."""
-    h = src_embeds
+    h = constrain_batch(src_embeds, mesh)
     for i in range(cfg.encoder_layers):
         lp = _layer(params["enc_blocks"], i)
         hn = norm_fwd(lp["norm1"], h, cfg.norm)
@@ -111,11 +119,17 @@ def _dec_block(lp, cfg, h, memory_kv):
     return h + mlp_fwd(lp["mlp"], hn, cfg.act)
 
 
-def loss_fn(params, batch, cfg, n_groups=1):
+def loss_fn(params, batch, cfg, n_groups=1, *, mesh=None):
     """Mean next-token cross entropy of the decoder over the encoded
-    ``src_embeds`` (``[G]`` group means with ``n_groups > 1``)."""
-    memory = encode(params, cfg, batch["src_embeds"])
-    h = embed_fwd(params["embed"], batch["tokens"])
+    ``src_embeds`` (``[G]`` group means with ``n_groups > 1``); with a
+    ``mesh``, on DTensors (``transformer.loss_fn``)."""
+    with on_mesh(mesh):
+        return _loss_fn(params, batch, cfg, n_groups, mesh)
+
+
+def _loss_fn(params, batch, cfg, n_groups, mesh):
+    memory = encode(params, cfg, batch["src_embeds"], mesh)
+    h = constrain_batch(embed_fwd(params["embed"], batch["tokens"]), mesh)
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_blocks"], i)
         h = _dec_block(lp, cfg, h, attn.cross_kv(lp["xattn"], cfg, memory))
@@ -192,13 +206,18 @@ def init_cache(cfg, batch, width, *, device="cpu"):
             "cross_v": torch.zeros(xkv, dtype=dtype, device=device)}
 
 
-def prefill(params, tokens, src_embeds, cfg, width):
+def prefill(params, tokens, src_embeds, cfg, width, *, mesh=None):
     """Encode the source and prefill the decoder's self and cross caches:
     tokens ``[B, S]``, src_embeds ``[B, S_src, d]`` -> (last-token logits
     ``[B, V]``, cache)."""
     check_family(cfg)
-    memory = encode(params, cfg, src_embeds)
-    h = embed_fwd(params["embed"], tokens)
+    with on_mesh(mesh):
+        return _prefill(params, tokens, src_embeds, cfg, width, mesh)
+
+
+def _prefill(params, tokens, src_embeds, cfg, width, mesh):
+    memory = encode(params, cfg, src_embeds, mesh)
+    h = constrain_batch(embed_fwd(params["embed"], tokens), mesh)
     selfs, xk, xv = [], [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_blocks"], i)
@@ -220,12 +239,17 @@ def prefill(params, tokens, src_embeds, cfg, width):
                           "cross_v": torch.stack(xv)}
 
 
-def decode_step(params, token, cache, pos, cfg, window=0):
+def decode_step(params, token, cache, pos, cfg, window=0, *, mesh=None):
     """token ``[B, 1]``; ``pos`` a 0-d int tensor on the parameters' device
     (an int is moved there) -> (logits ``[B, V]``, cache), the self cache's
     slot written in place. The cross-attention is the flash kernel at Sq =
     1 over the cached cross K/V."""
     check_family(cfg)
+    with on_mesh(mesh):
+        return _decode_step(params, token, cache, pos, cfg, window)
+
+
+def _decode_step(params, token, cache, pos, cfg, window):
     h = embed_fwd(params["embed"], token)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
     for i in range(cfg.n_layers):

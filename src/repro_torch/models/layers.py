@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.utils import prng
+from repro_torch.utils.shardutil import divisible, is_dtensor, reduced
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -50,7 +51,7 @@ def init_norm(d, kind="rmsnorm", dtype=torch.float32, *, device="cpu"):
 
 def norm_fwd(p, x, kind="rmsnorm", eps=1e-6):
     if kind == "layernorm":
-        xf = x.to(torch.float32)
+        xf = reduced(x).to(torch.float32)   # (a DTensor's whole sums)
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
         out = (xf - mu) * torch.rsqrt(var + eps)
@@ -170,7 +171,11 @@ def embed_fwd(p, tokens):
     index, then a mask: no branch on the ids' values."""
     table = p["tok"]
     valid, idx = _take_index(tokens, table.shape[0])
-    return torch.where(valid[..., None], table[idx], float("nan"))
+    # a DTensor table sharded over the vocab takes F.embedding, whose rule
+    # is the vocab-parallel masked lookup and sum (the reference's GSPMD
+    # partition of its take); the same rows as the indexing
+    rows = F.embedding(idx, table) if is_dtensor(table) else table[idx]
+    return torch.where(valid[..., None], rows, float("nan"))
 
 
 def _take_index(tokens, rows):
@@ -227,6 +232,16 @@ def softmax_xent(logits, labels, n_groups=1):
     tok = _token_xent(logits, labels)
     if n_groups == 1:
         return torch.mean(tok)
+    if is_dtensor(tok):
+        # each group's mean as a masked sum over the batch rows, which
+        # partitions over rows sharded across pods (a reshape into groups
+        # would split the sharded batch dim unevenly)
+        B = tok.shape[0]
+        rows = torch.sum(tok, dim=tuple(range(1, tok.ndim)))
+        grp = torch.arange(B, device=tok.device) // (B // n_groups)
+        w = (grp[:, None] == torch.arange(n_groups, device=tok.device))
+        return torch.sum(torch.where(w, rows[:, None], 0.0), dim=0) \
+            / (tok.numel() // n_groups)
     return torch.mean(tok.reshape(n_groups, -1), dim=1)
 
 
@@ -241,7 +256,15 @@ def _token_xent(logits, labels):
     lf = logits.to(torch.float32)
     m = torch.amax(lf, dim=-1)
     lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
-    ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+    if is_dtensor(lf):
+        # the reference's masked sum, which partitions over a vocab
+        # sharded on ``model`` (a partial sum per shard) where a gather
+        # would not
+        iota = torch.arange(lf.shape[-1], device=lf.device)
+        hit = iota == labels.to(torch.int64)[..., None]
+        ll = torch.sum(torch.where(hit, lf, 0.0), dim=-1)
+    else:
+        ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
     return lse - ll
 
 
@@ -261,9 +284,23 @@ def decode_attention(q, k_cache, v_cache, length_mask, scale=None):
     _, W, Hkv, Dv = v_cache.shape
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qf = (q.to(torch.float32) * scale).reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.to(torch.float32))
+    qf = (divisible(q, 2, Hkv).to(torch.float32) * scale).reshape(
+        B, Hkv, G, D)
+    kf, vf = k_cache.to(torch.float32), v_cache.to(torch.float32)
+    if is_dtensor(kf):
+        # the same sums as broadcast products and reductions: every DTensor
+        # release partitions them over sharded heads and a sharded ring W
+        # (context parallelism), where the reshapes inside matmul and
+        # einsum would flatten a sharded dim
+        s = torch.sum(qf[:, :, :, None, :]
+                      * kf.permute(0, 2, 1, 3)[:, :, None], dim=-1)
+    else:
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, kf)
     s = torch.where(length_mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
+    if is_dtensor(vf):
+        out = torch.sum(p[..., None] * vf.permute(0, 2, 1, 3)[:, :, None],
+                        dim=-2)
+    else:
+        out = torch.einsum("bhgk,bkhd->bhgd", p, vf)
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)

@@ -1,13 +1,31 @@
-"""Mixture-of-Experts with sort-based capacity dispatch, on one device.
+"""Mixture-of-Experts with sort-based capacity dispatch and expert
+parallelism.
 
-Counterpart of ``repro/models/moe.py:40-210`` with ``mesh=None``:
-``init_moe``, ``_capacity``, ``_route_and_compute`` and ``moe_fwd``; and
-``moe_fwd_batched``, the reference's ``moe_fwd`` under ``jax.vmap`` over
-the clients of a flat or wide round (each client routing its own tokens
-with its own router). The
-reference's expert-parallel ``shard_map`` branch (tokens over ``data``,
-experts over ``model``) is not ported: ``moe_fwd`` given a mesh raises
-``NotImplementedError``.
+Counterpart of ``repro/models/moe.py``: ``init_moe``, ``_capacity``,
+``_route_and_compute`` and ``moe_fwd``; and ``moe_fwd_batched``, the
+reference's ``moe_fwd`` under ``jax.vmap`` over the clients of a flat or
+wide round (each client routing its own tokens with its own router).
+
+``moe_fwd`` given a mesh with a ``model`` axis is the reference's
+expert-parallel ``shard_map``: its inputs and outputs are DTensors on the
+mesh (``launch/sharding.py``) and its body works on each rank's local
+tensors with functional collectives on the mesh's sub-groups, as
+``local_map`` would. Experts are split over ``model``, each rank routing
+its tokens to the ``e_local = E / n_model`` experts it owns (``e_offset =
+model rank · e_local``; the others are the dustbin) and the partial
+outputs summed over ``model``:
+
+- train and prefill layout, when the B·S tokens divide over the data axes
+  (and there is more than one data rank): tokens over the data axes, the
+  expert FFN dim FSDP over the last data axis and all-gathered over it
+  just in time, the capacity of the shard's token count, and the
+  load-balance stats ``me`` and ``ce`` summed over the data axes;
+- decode layout otherwise: tokens replicated, only the output summed.
+
+Capacity counts the shard's tokens (``_capacity(T / n_data, …)``), so a
+sharded and an unsharded forward agree only where nothing is dropped
+(capacity factor E/k); at 1.25 they differ, in the same way in both
+packages. ``mesh=None`` is the one-device path.
 
 Routing is the reference's, integer for integer:
 
@@ -49,6 +67,8 @@ import torch
 from repro_torch.models.layers import (_act, dense_init, init_mlp, mlp_fwd,
                                        mlp_fwd_batched)
 from repro_torch.utils import prng
+from repro_torch.utils.shardutil import (P, constrain, dp_axes, is_dtensor,
+                                         local, placements)
 
 
 def init_moe(rng, cfg, dtype, *, device="cpu"):
@@ -82,6 +102,14 @@ def _capacity(n_tokens, cfg, e_local):
     return max(c, cfg.top_k)  # floor so tiny smoke shapes don't drop everything
 
 
+def _count(ids, n):
+    """``torch.bincount(ids, minlength=n)`` for ids in ``[0, n)``: a
+    scatter-add of ones, whose length is known without reading the ids
+    (so it runs on ``meta`` shards in the dry-run); the same integers."""
+    out = torch.zeros(n, dtype=torch.int64, device=ids.device)
+    return out.scatter_add_(0, ids, torch.ones_like(ids))
+
+
 def _sort_assignments(fe, ft, fg, n_exp, capacity):
     """Sort the assignments (expert id ``fe``, token ``ft``, gate ``fg``,
     each ``[A]``; ``n_exp`` is the dustbin id) stably by expert: ``order``,
@@ -89,7 +117,7 @@ def _sort_assignments(fe, ft, fg, n_exp, capacity):
     sorted order, and ``starts``, ``counts`` ``[n_exp + 1]``."""
     order = torch.argsort(fe, stable=True)
     se, st, sg = fe[order], ft[order], fg[order]
-    counts = torch.bincount(se, minlength=n_exp + 1)
+    counts = _count(se, n_exp + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(fe.shape[0], device=fe.device) - starts[se]
     keep = (se < n_exp) & (pos < capacity)
@@ -209,7 +237,7 @@ def _route_and_compute(x_flat, p_router, w_gate, w_up, w_down, *, cfg,
     # Switch-style load-balance stats (partial; the caller normalizes);
     # ce counts every routed assignment, dropped ones included
     me = torch.sum(r["probs"], dim=0)                       # [E]
-    ce = torch.bincount(r["fe"], minlength=cfg.n_experts).to(torch.float32)
+    ce = _count(r["fe"], cfg.n_experts).to(torch.float32)
     return out, (me, ce)
 
 
@@ -221,24 +249,105 @@ def _aux(me, ce, cfg, n_tok):
     return cfg.router_aux_coef * cfg.n_experts * torch.sum(me * ce, dim=-1)
 
 
-def moe_fwd(p, cfg, x, mesh=None):
-    """x [B, S, d] -> (out [B, S, d], aux_loss scalar float32)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_fwd over a mesh (the reference's expert-parallel shard_map) "
-            "is not ported; call it with mesh=None")
+def moe_fwd(p, cfg, x, mesh=None, data_axes=None, model_axis="model"):
+    """x [B, S, d] -> (out [B, S, d], aux_loss scalar float32). With a
+    ``mesh``: the expert-parallel forward (x and the leaves DTensors on
+    it, or plain tensors on a one-member mesh)."""
     B, S, d = x.shape
-    x_flat = x.reshape(B * S, d)
     E = cfg.n_experts
-    cap = _capacity(B * S, cfg, E)
-    out, (me, ce) = _route_and_compute(
-        x_flat, p["router"], p["w_gate"], p["w_up"], p["w_down"],
-        cfg=cfg, e_offset=0, e_local=E, capacity=cap)
+    if mesh is not None:
+        out, me, ce = _moe_mesh(p, cfg, x.reshape(B * S, d), mesh,
+                                dp_axes(mesh) if data_axes is None
+                                else tuple(data_axes), model_axis)
+    else:
+        cap = _capacity(B * S, cfg, E)
+        out, (me, ce) = _route_and_compute(
+            x.reshape(B * S, d), p["router"], p["w_gate"], p["w_up"],
+            p["w_down"], cfg=cfg, e_offset=0, e_local=E, capacity=cap)
     aux = _aux(me, ce, cfg, B * S)
     out = out.reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + mlp_fwd(p["shared"], x, cfg.act)
     return out, aux
+
+
+def _psum(t, mesh, axes):
+    """``t`` summed over the mesh's ``axes`` (one functional all-reduce a
+    sub-group; nothing on a one-member mesh)."""
+    import torch.distributed._functional_collectives as funcol
+    for a in axes:
+        g = mesh.axis_group(a)
+        if g is not None and mesh.shape[a] > 1:
+            t = funcol.wait_tensor(funcol.all_reduce(t, "sum", g))
+    return t
+
+
+def _gather(t, mesh, axis, dim):
+    """The shards of ``t`` along ``dim`` concatenated over ``axis``."""
+    import torch.distributed._functional_collectives as funcol
+    g = mesh.axis_group(axis)
+    if g is None or mesh.shape[axis] == 1:
+        return t
+    return funcol.wait_tensor(funcol.all_gather_tensor(t.contiguous(), dim,
+                                                       g))
+
+
+def _moe_mesh(p, cfg, x_flat, mesh, data_axes, model_axis):
+    """The reference's ``shard_map`` body over ``mesh``: (out ``[T, d]``,
+    me ``[E]``, ce ``[E]``), DTensors when x is one."""
+    T = x_flat.shape[0]
+    E = cfg.n_experts
+    n_data = 1
+    for a in data_axes:
+        n_data *= mesh.shape[a]
+    n_model = mesh.shape[model_axis]
+    e_local = max(E // n_model, 1)
+    shard_tokens = T % n_data == 0 and n_data > 1
+    dspec = (data_axes if len(data_axes) > 1 else data_axes[0]) \
+        if shard_tokens else None
+    if shard_tokens:
+        # train/prefill layout: tokens over data, experts over model, the
+        # expert FFN dim FSDP over the last data axis
+        fsdp = data_axes[-1]
+        cap = _capacity(T // n_data, cfg, e_local)
+        w_specs = ((model_axis, None, fsdp), (model_axis, None, fsdp),
+                   (model_axis, fsdp, None))
+    else:
+        # decode layout: tokens replicated, experts over model
+        cap = _capacity(T, cfg, e_local)
+        w_specs = ((model_axis, None, None),) * 3
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_flat, p["router"], p["w_gate"])):
+        raise NotImplementedError("the expert-parallel moe_fwd has no "
+                                  "backward (a first-order step on a mesh "
+                                  "takes the dense families)")
+    xl = local(constrain(x_flat, mesh, dspec, None))
+    rw = local(constrain(p["router"], mesh, None, None))
+    wg, wu, wd = (local(constrain(p[k], mesh, *spec)) for k, spec in
+                  zip(("w_gate", "w_up", "w_down"), w_specs))
+    # the manual region: local tensors and collectives on sub-groups
+    if shard_tokens:
+        wg = _gather(wg, mesh, fsdp, 2)
+        wu = _gather(wu, mesh, fsdp, 2)
+        wd = _gather(wd, mesh, fsdp, 1)
+    e_off = mesh.axis_rank(model_axis) * e_local
+    out, (me, ce) = _route_and_compute(
+        xl, rw, wg, wu, wd, cfg=cfg, e_offset=e_off, e_local=e_local,
+        capacity=cap)
+    out = _psum(out, mesh, (model_axis,))
+    if shard_tokens:
+        me = _psum(me, mesh, data_axes)
+        ce = _psum(ce, mesh, data_axes)
+    if not is_dtensor(x_flat):
+        return out, me, ce
+    from torch.distributed.tensor import DTensor
+    dm = x_flat.device_mesh
+    rep = placements(mesh, P())
+    out = DTensor.from_local(out, dm, placements(mesh, P(dspec, None)),
+                             run_check=False, shape=x_flat.shape,
+                             stride=x_flat.stride())
+    return (out, DTensor.from_local(me, dm, rep, run_check=False),
+            DTensor.from_local(ce, dm, rep, run_check=False))
 
 
 def moe_fwd_batched(p, cfg, x):

@@ -49,6 +49,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (dense_init, init_norm, norm_fwd,
                                        norm_fwd_batched)
 from repro_torch.utils import prng
+from repro_torch.utils.shardutil import (as_dtensor, is_dtensor, reduced,
+                                         split_last)
 
 WKV_CHUNK = 16
 DECAY_CLAMP = 4.0
@@ -91,21 +93,58 @@ def _tmix_project(p, cfg, x, x_prev):
     xr, xk, xv, xg, xw = (x + delta * p["mu"][i] for i in range(5))
     B, T, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    r = (xr @ p["wr"]).reshape(B, T, H, hd)
-    k = (xk @ p["wk"]).reshape(B, T, H, hd)
-    v = (xv @ p["wv"]).reshape(B, T, H, hd)
+    r = split_last(xr @ p["wr"], (B, T, H, hd))
+    k = split_last(xk @ p["wk"], (B, T, H, hd))
+    v = split_last(xv @ p["wv"], (B, T, H, hd))
     g = F.silu(xg @ p["wg"])
     # the data-dependent decay (the RWKV-6 signature feature)
     w_raw = p["w0"] + (torch.tanh(xw @ p["w_lora_a"])
                        @ p["w_lora_b"]).to(_F32)
     logw = torch.clamp(-torch.exp(w_raw), -DECAY_CLAMP, -1e-6)
-    return r, k, v, g, logw.reshape(B, T, H, hd)
+    return r, k, v, g, split_last(logw, (B, T, H, hd))
+
+
+def _scan_shards(scan, seqs, s0, per_head=()):
+    """``scan(*seqs, *per_head, s0)`` of DTensors on each rank's batch rows
+    and dim-2 block (heads or channels: the WKV and selective scans mix
+    neither): seqs ``[B, T, H, ...]`` laid out over dims 0 and 2 only,
+    each of ``per_head`` (``[H, ...]``) and the entry state s0 (``[B, H,
+    ...]``) cut to the local rows and block; the outputs, a sequence of
+    seqs' shape and the final state, DTensors of that layout. A plain or
+    replicated state would gather every row and block instead."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    want = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in seqs[0].placements]
+    seqs = [t if tuple(t.placements) == tuple(want)
+            else t.redistribute(t.device_mesh, want) for t in seqs]
+    mesh, shape = seqs[0].device_mesh, tuple(seqs[0].shape)
+    ls, off = compute_local_shape_and_global_offset(shape, mesh, want)
+    rows, heads = slice(off[0], off[0] + ls[0]), slice(off[2],
+                                                       off[2] + ls[2])
+
+    def whole(t):
+        if is_dtensor(t):
+            t = t.full_tensor()
+            return t.wait() if hasattr(t, "wait") else t
+        return t
+    out, s = scan(*(t.to_local() for t in seqs),
+                  *(whole(t)[heads] for t in per_head),
+                  whole(s0)[rows, heads])
+    s_want = [Shard(1) if p.is_shard(2) else p for p in want]
+    return (as_dtensor(out, mesh, want, shape),
+            as_dtensor(s, mesh, s_want, (shape[0], shape[2])
+                       + tuple(s.shape[2:])))
 
 
 def wkv_chunked(r, k, v, logw, u, s0):
     """Chunked WKV. r/k/v/logw ``[B, T, H, hd]``; u ``[H, hd]``, or ``[B,
     H, hd]`` (a bonus per row: the cohort's rows); s0 ``[B, H, hd, hd]``.
-    Returns (out ``[B, T, H, hd]`` float32, s_final)."""
+    Returns (out ``[B, T, H, hd]`` float32, s_final). DTensors run on each
+    rank's rows and heads (``_scan_shards``)."""
+    if is_dtensor(r):
+        return _scan_shards(wkv_chunked, (r, k, v, logw), s0, per_head=(u,))
     B, T, H, hd = r.shape
     C = min(WKV_CHUNK, T)
     pad = (-T) % C
@@ -144,10 +183,17 @@ def wkv_chunked(r, k, v, logw, u, s0):
 
 
 def wkv_step(r, k, v, logw, u, s):
-    """One decode step. r/k/v/logw ``[B, H, hd]``; s ``[B, H, hd, hd]``."""
-    kv = torch.einsum("bhd,bhv->bhdv", k.to(_F32), v.to(_F32))
-    out = torch.einsum("bhd,bhdv->bhv", r.to(_F32), s + u[None, ..., None]
-                       * kv)
+    """One decode step. r/k/v/logw ``[B, H, hd]``; s ``[B, H, hd, hd]``.
+    DTensors take the same sums as broadcast products and a reduction
+    (the einsums' reshapes would flatten sharded heads)."""
+    if is_dtensor(r):
+        kv = k.to(_F32)[..., :, None] * v.to(_F32)[..., None, :]
+        out = torch.sum(r.to(_F32)[..., None]
+                        * (s + u[None, ..., None] * kv), dim=-2)
+    else:
+        kv = torch.einsum("bhd,bhv->bhdv", k.to(_F32), v.to(_F32))
+        out = torch.einsum("bhd,bhdv->bhv", r.to(_F32),
+                           s + u[None, ..., None] * kv)
     s_new = torch.exp(logw.to(_F32))[..., None] * s + kv
     return out, s_new
 
@@ -284,9 +330,9 @@ def _mamba_abc(p, xz):
     """The decay a and input b ``[B, T, d, n]`` (float32) and C ``[B, T,
     n]`` of the ``x`` branch xz ``[B, T, d]``."""
     n = p["a_log"].shape[1]
-    bcdt = xz @ p["w_bcdt"]
+    bcdt = reduced(xz @ p["w_bcdt"])    # (sliced next: whole sums)
     Bm, Cm, dt = bcdt[..., :n], bcdt[..., n:2 * n], bcdt[..., 2 * n]
-    dt = _softplus(dt.to(_F32) + p["dt_bias"].mean())[..., None]
+    dt = _softplus(dt.to(_F32) + reduced(p["dt_bias"].mean()))[..., None]
     A = -torch.exp(p["a_log"])                              # [d, n], < 0
     a = torch.exp(dt[..., None] * A)                        # [B, T, d, n]
     b = (dt * Bm.to(_F32))[:, :, None, :] * xz.to(_F32)[..., None]
@@ -337,7 +383,11 @@ def diag_ssm_scan(a, b, s0, chunk=SSM_CHUNK):
     """h_t = a_t ⊙ h_{t-1} + b_t over T; a, b ``[B, T, d, n]``; s0 ``[B, d,
     n]``. Within each chunk the associative scan (all chunks at once), then
     the chunks chained by the state. Returns (h ``[B, T, d, n]``,
-    s_final)."""
+    s_final). DTensors run on each rank's rows and channels
+    (``_scan_shards``)."""
+    if is_dtensor(a):
+        return _scan_shards(
+            lambda a_, b_, s_: diag_ssm_scan(a_, b_, s_, chunk), (a, b), s0)
     B, T, d, n = a.shape
     C = min(chunk, T)
     pad = (-T) % C

@@ -87,6 +87,8 @@ from repro_torch.models.layers import (dense_init, embed_fwd,
 from repro_torch.models.moe import init_moe, moe_fwd, moe_fwd_batched
 from repro_torch.models.simple import mean_xent, mean_xent_batched
 from repro_torch.utils import prng
+from repro_torch.utils.shardutil import (constrain, constrain_batch, dp_axes,
+                                         on_mesh)
 from repro_torch.utils.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -209,6 +211,13 @@ def init_params(rng, cfg, *, device="cpu"):
     return p
 
 
+def param_specs(cfg):
+    """The parameter tree on the ``meta`` device: the paths, shapes and
+    dtypes of ``init_params`` with no allocation and no draw (the
+    reference's ``jax.eval_shape`` of its init; the dry-run's input)."""
+    return init_params(prng.key(0), cfg, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # block forward (full sequence)
 
@@ -227,9 +236,10 @@ def _rwkv_block(p, cfg, h):
     return h, {"s": s, "ts_att": last, "ts_ffn": hn[:, -1]}
 
 
-def block_fwd(p, cfg, h, *, moe_layer=False):
+def block_fwd(p, cfg, h, *, moe_layer=False, mesh=None):
     """Pre-norm block on h [B, S, d]. Returns (h, aux): the MoE layer's
     load-balance loss, None for any other layer."""
+    h = constrain_batch(h, mesh)
     if cfg.family == "ssm":
         return _rwkv_block(p, cfg, h)[0], None
     hn = norm_fwd(p["norm1"], h, cfg.norm)
@@ -242,7 +252,7 @@ def block_fwd(p, cfg, h, *, moe_layer=False):
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
     if moe_layer:
-        o, aux = moe_fwd(p["moe"], cfg, hn)
+        o, aux = moe_fwd(p["moe"], cfg, hn, mesh=mesh)
         return h + o, aux
     return h + mlp_fwd(p["mlp"], hn, cfg.act), None
 
@@ -257,21 +267,23 @@ def _add_aux(total, a):
     return a if total is None else (total if a is None else total + a)
 
 
-def _scan_blocks(stacked, cfg, h, n, *, moe_layer=False):
+def _scan_blocks(stacked, cfg, h, n, *, moe_layer=False, mesh=None):
     """The ``n`` stacked layers in turn -> (h, the sum of their aux in
     layer order, or None)."""
     aux = None
     for i in range(n):
-        h, a = block_fwd(_layer(stacked, i), cfg, h, moe_layer=moe_layer)
+        h, a = block_fwd(_layer(stacked, i), cfg, h, moe_layer=moe_layer,
+                         mesh=mesh)
         aux = _add_aux(aux, a)
     return h, aux
 
 
-def backbone(params, cfg, h):
+def backbone(params, cfg, h, *, mesh=None):
     """Embeddings already applied; h [B, S, d] -> (h_normed, aux)."""
     aux = None
     for name, _, moe_layer, n in _groups(cfg):
-        h, a = _scan_blocks(params.get(name), cfg, h, n, moe_layer=moe_layer)
+        h, a = _scan_blocks(params.get(name), cfg, h, n, moe_layer=moe_layer,
+                            mesh=mesh)
         aux = _add_aux(aux, a)
     return norm_fwd(params["final_norm"], h, cfg.norm), aux
 
@@ -284,21 +296,42 @@ def _embed_scale(h, cfg):
     return h
 
 
-def loss_fn(params, batch, cfg, n_groups=1):
+def logits_constraint(logits, mesh):
+    """The vocab-parallel logits: batch over the data axes, vocab over
+    ``model``."""
+    if mesh is None:
+        return logits
+    return constrain(logits, mesh, dp_axes(mesh),
+                     *([None] * (logits.ndim - 2)), "model")
+
+
+def loss_fn(params, batch, cfg, n_groups=1, *, mesh=None):
     """Mean next-token cross entropy (+ the MoE aux, + 0.3 x the MTP
     block's): FedZO's F(x, ξ). ``n_groups > 1`` returns the ``[G]``
-    per-group means (the pod round's silos)."""
+    per-group means (the pod round's silos). With a ``mesh``, params and
+    batch are DTensors on it (``launch/sharding.py``) and so is the loss."""
+    with on_mesh(mesh):
+        return _loss_fn(params, batch, cfg, n_groups, mesh)
+
+
+def _loss_fn(params, batch, cfg, n_groups, mesh):
     tokens, labels = batch["tokens"], batch["labels"]
-    h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
-    hf, aux = backbone(params, cfg, h)
+    h = embed_fwd(params["embed"], tokens)
+    h = _embed_scale(constrain_batch(h, mesh), cfg)
+    hf, aux = backbone(params, cfg, h, mesh=mesh)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
+    logits = logits_constraint(logits, mesh)
     loss = softmax_xent(logits, labels, n_groups)
     if cfg.mtp:
         # multi-token prediction: one extra block predicts token t+2 from
         # (h_t, embed(token_{t+1})), DeepSeek-V3 style, depth 1
         emb_next = torch.cat([h[:, 1:], h[:, -1:]], dim=1)
         h2 = norm_fwd(params["mtp_norm"], hf + emb_next, cfg.norm)
-        h2, _ = block_fwd(params["mtp_block"], cfg, h2)
+        h2, _ = block_fwd(params["mtp_block"], cfg, h2, mesh=mesh)
+        # the block's partial sums reduced first: a partial input would
+        # gather the vocab-parallel unembedding and give every rank the
+        # whole vocab (GSPMD lays it out so by itself)
+        h2 = constrain_batch(h2, mesh)
         logits2 = unembed_fwd(params["embed"], h2, cfg.tie_embeddings,
                               cfg.vocab)
         labels2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
@@ -345,8 +378,9 @@ def init_cache(cfg, batch, width, *, device="cpu"):
             for _, ckey, _, n in _groups(cfg)}
 
 
-def block_prefill(p, cfg, h, width, *, moe_layer=False):
+def block_prefill(p, cfg, h, width, *, moe_layer=False, mesh=None):
     """Full-sequence block forward that also returns its decode cache."""
+    h = constrain_batch(h, mesh)
     if cfg.family == "ssm":
         return _rwkv_block(p, cfg, h)
     hn = norm_fwd(p["norm1"], h, cfg.norm)
@@ -360,15 +394,17 @@ def block_prefill(p, cfg, h, width, *, moe_layer=False):
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
     if moe_layer:
-        o, _ = moe_fwd(p["moe"], cfg, hn)
+        o, _ = moe_fwd(p["moe"], cfg, hn, mesh=mesh)
     else:
         o = mlp_fwd(p["mlp"], hn, cfg.act)
     return h + o, cache
 
 
-def block_decode(p, cfg, h, cache, pos, *, moe_layer=False, window=0):
+def block_decode(p, cfg, h, cache, pos, *, moe_layer=False, window=0,
+                 mesh=None):
     """One-token block forward; writes ``cache``'s slot (and an ssm or
     hybrid layer's state and token shifts) in place."""
+    h = constrain_batch(h, mesh)
     if cfg.family == "ssm":
         hn = norm_fwd(p["norm1"], h, cfg.norm)
         o, (s, last) = ssm.rwkv_tmix_step(p["tmix"], cfg, hn, cache["s"],
@@ -394,24 +430,45 @@ def block_decode(p, cfg, h, cache, pos, *, moe_layer=False, window=0):
     h = h + o
     hn = norm_fwd(p["norm2"], h, cfg.norm)
     if moe_layer:
-        o, _ = moe_fwd(p["moe"], cfg, hn)
+        o, _ = moe_fwd(p["moe"], cfg, hn, mesh=mesh)
     else:
         o = mlp_fwd(p["mlp"], hn, cfg.act)
     return h + o, cache
 
 
-def prefill(params, tokens, cfg, width):
+def prefill(params, tokens, cfg, width, *, mesh=None):
     """tokens [B, S] -> (last-token logits [B, V], cache of width
     ``width``)."""
     check_decoder(cfg)
-    h = _embed_scale(embed_fwd(params["embed"], tokens), cfg)
+    with on_mesh(mesh):
+        return _prefill(params, tokens, cfg, width, mesh)
+
+
+def _as_cache_slice(c, ckey, n, mesh, cfg):
+    """Layer cache ``c`` laid out as its slice of the stacked cache's
+    ``launch/sharding.cache_shardings`` (each spec less its layer axis), as
+    the reference's compiler lays a scan's output out by the step's output
+    shardings: the layers' caches never stand whole beside their stack.
+    ``c`` itself without a multi-axis mesh."""
+    if mesh is None or getattr(mesh, "device_mesh", None) is None:
+        return c
+    from types import SimpleNamespace
+    from repro_torch.launch.sharding import cache_shardings
+    csh = cache_shardings({ckey: {k: SimpleNamespace(shape=(n,) + tuple(
+        v.shape)) for k, v in c.items()}}, mesh, cfg)[ckey]
+    return {k: constrain(v, mesh, *csh[k].spec[1:]) for k, v in c.items()}
+
+
+def _prefill(params, tokens, cfg, width, mesh):
+    h = embed_fwd(params["embed"], tokens)
+    h = _embed_scale(constrain_batch(h, mesh), cfg)
     cache = {}
     for name, ckey, moe_layer, n in _groups(cfg):
         caches = []
         for i in range(n):
             h, c = block_prefill(_layer(params[name], i), cfg, h, width,
-                                 moe_layer=moe_layer)
-            caches.append(c)
+                                 moe_layer=moe_layer, mesh=mesh)
+            caches.append(_as_cache_slice(c, ckey, n, mesh, cfg))
         cache[ckey] = _stack(caches) if caches else None
     hf = norm_fwd(params["final_norm"], h, cfg.norm)
     logits = unembed_fwd(params["embed"], hf[:, -1:], cfg.tie_embeddings,
@@ -419,18 +476,25 @@ def prefill(params, tokens, cfg, width):
     return logits[:, 0], cache
 
 
-def decode_step(params, token, cache, pos, cfg, window=0):
+def decode_step(params, token, cache, pos, cfg, window=0, *, mesh=None):
     """token [B, 1] int; ``pos`` the absolute position (a 0-d int tensor on
     the parameters' device; an int is moved there) -> (logits [B, V],
     cache), the cache updated in place."""
     check_decoder(cfg)
-    h = _embed_scale(embed_fwd(params["embed"], token), cfg)
+    with on_mesh(mesh):
+        return _decode_step(params, token, cache, pos, cfg, window, mesh)
+
+
+def _decode_step(params, token, cache, pos, cfg, window, mesh):
+    h = embed_fwd(params["embed"], token)
+    h = _embed_scale(constrain_batch(h, mesh), cfg)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
     for name, ckey, moe_layer, n in _groups(cfg):
         for i in range(n):
             h, _ = block_decode(_layer(params[name], i), cfg, h,
                                 _layer(cache[ckey], i), pos,
-                                moe_layer=moe_layer, window=window)
+                                moe_layer=moe_layer, window=window,
+                                mesh=mesh)
     hf = norm_fwd(params["final_norm"], h, cfg.norm)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
     return logits[:, 0], cache

@@ -49,6 +49,7 @@ from repro_torch.models.layers import (embed_fwd, embed_fwd_batched,
                                        softmax_xent_batched, unembed_fwd,
                                        unembed_fwd_batched)
 from repro_torch.utils import prng
+from repro_torch.utils.shardutil import constrain_batch, on_mesh
 
 
 def _n_groups(cfg):
@@ -94,6 +95,13 @@ def init_params(rng, cfg, *, device="cpu"):
     }
 
 
+def param_specs(cfg):
+    """The parameter tree on the ``meta`` device: the paths, shapes and
+    dtypes of ``init_params`` with no allocation and no draw (the
+    reference's ``jax.eval_shape`` of its init; the dry-run's input)."""
+    return init_params(prng.key(0), cfg, device="meta")
+
+
 def _gate(g, h):
     """tanh of a float32 gate, cast to h's dtype (the carry's)."""
     return torch.tanh(g).to(h.dtype)
@@ -118,25 +126,32 @@ def cross_block_fwd(p, cfg, h, kv):
     return h + _gate(p["gate_mlp"], h) * mlp_fwd(p["mlp"], hn, cfg.act)
 
 
-def backbone(params, cfg, h, vision):
+def backbone(params, cfg, h, vision, mesh=None):
     """Embeddings applied; h ``[B, S, d]`` over vision ``[B, n_img, d]`` ->
     the normed hidden states."""
     n_self = cfg.cross_attn_every - 1
     for g in range(_n_groups(cfg)):
         selfs = tfm._layer(params["self_blocks"], g)
         for i in range(n_self):
-            h, _ = tfm.block_fwd(tfm._layer(selfs, i), cfg, h)
+            h, _ = tfm.block_fwd(tfm._layer(selfs, i), cfg, h, mesh=mesh)
         cross = tfm._layer(params["cross_blocks"], g)
         h = cross_block_fwd(cross, cfg, h,
                             attn.cross_kv(cross["xattn"], cfg, vision))
+        h = constrain_batch(h, mesh)
     return norm_fwd(params["final_norm"], h, cfg.norm)
 
 
-def loss_fn(params, batch, cfg, n_groups=1):
+def loss_fn(params, batch, cfg, n_groups=1, *, mesh=None):
     """Mean next-token cross entropy over ``vision_embeds`` (``[G]`` group
-    means with ``n_groups > 1``)."""
-    h = _embed(params, batch["tokens"], cfg)
-    hf = backbone(params, cfg, h, batch["vision_embeds"])
+    means with ``n_groups > 1``); with a ``mesh``, on DTensors
+    (``transformer.loss_fn``)."""
+    with on_mesh(mesh):
+        return _loss_fn(params, batch, cfg, n_groups, mesh)
+
+
+def _loss_fn(params, batch, cfg, n_groups, mesh):
+    h = constrain_batch(_embed(params, batch["tokens"], cfg), mesh)
+    hf = backbone(params, cfg, h, batch["vision_embeds"], mesh)
     logits = unembed_fwd(params["embed"], hf, cfg.tie_embeddings, cfg.vocab)
     return softmax_xent(logits, batch["labels"], n_groups)
 
@@ -216,10 +231,15 @@ def init_cache(cfg, batch, width, *, device="cpu"):
             "cross_v": torch.zeros(xkv, dtype=dtype, device=device)}
 
 
-def prefill(params, tokens, vision, cfg, width):
+def prefill(params, tokens, vision, cfg, width, *, mesh=None):
     """tokens ``[B, S]``, vision ``[B, n_img, d]`` -> (last-token logits
     ``[B, V]``, cache of self width ``width``)."""
     tfm.check_family(cfg)
+    with on_mesh(mesh):
+        return _prefill(params, tokens, vision, cfg, width)
+
+
+def _prefill(params, tokens, vision, cfg, width):
     h = _embed(params, tokens, cfg)
     n_self = cfg.cross_attn_every - 1
     selfs_c, xk, xv = [], [], []
@@ -243,12 +263,17 @@ def prefill(params, tokens, vision, cfg, width):
                           "cross_v": torch.stack(xv)}
 
 
-def decode_step(params, token, cache, pos, cfg, window=0):
+def decode_step(params, token, cache, pos, cfg, window=0, *, mesh=None):
     """token ``[B, 1]``; ``pos`` a 0-d int tensor on the parameters' device
     (an int is moved there) -> (logits ``[B, V]``, cache), each self
     layer's slot written in place; the cross layers attend with the flash
     kernel at Sq = 1 over the cached cross K/V."""
     tfm.check_family(cfg)
+    with on_mesh(mesh):
+        return _decode_step(params, token, cache, pos, cfg, window)
+
+
+def _decode_step(params, token, cache, pos, cfg, window):
     h = _embed(params, token, cfg)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
     n_self = cfg.cross_attn_every - 1

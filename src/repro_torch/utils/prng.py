@@ -375,15 +375,62 @@ def random_bits_range(k: torch.Tensor, start: int, stop: int, *,
     impl = impl_of(k, impl)
     dev = k.device if device is None else torch.device(device)
     if impl is THREEFRY:
-        k0, k1 = k.tolist()
-        hi, lo = threefry_counters(
-            torch.arange(start, stop, dtype=torch.int64, device=dev))
-        x0, x1 = threefry2x32(k0, k1, hi, lo)
-        return x0 ^ x1
+        return random_bits_at(k, torch.arange(start, stop, dtype=torch.int64,
+                                              device=dev))
     from repro_torch.kernels import ops as kops
     b = kops.philox_bits(_first_key(k), stop - start, device=dev,
                          start=start)
     return b.to(torch.int64) & MASK32
+
+
+def random_bits_at(k: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Elements ``idx`` (int64 flat indices, any shape) of the threefry
+    ``random_bits(k, shape)`` of a shape holding them: bits1 ^ bits2 of
+    the counters ``threefry_counters(idx)``, the partitionable Threefry's
+    element map. A shard of a draw takes its own flat indices and is
+    bitwise the slice of the whole draw."""
+    if impl_of(k) is not THREEFRY:
+        raise NotImplementedError("shard-local draws take threefry keys")
+    k0, k1 = k.tolist()
+    hi, lo = threefry_counters(idx)
+    x0, x1 = threefry2x32(k0, k1, hi, lo)
+    return x0 ^ x1
+
+
+def normal_shard(k: torch.Tensor, shape, offset, local_shape, *,
+                 dtype=torch.float32, device=None,
+                 chunk: int = None) -> torch.Tensor:
+    """The block ``[offset, offset + local_shape)`` of ``normal(k, shape,
+    dtype=dtype)``, bitwise the slice of the whole draw, drawn from the
+    block's own flat indices in chunks of about ``chunk`` elements (default
+    ``DRAW_CHUNK``) along its leading dim. On ``meta`` only the shape."""
+    local_shape = tuple(int(n) for n in local_shape)
+    out = torch.empty(local_shape, dtype=dtype, device=device)
+    if out.device.type == "meta" or out.numel() == 0:
+        return out
+    chunk = DRAW_CHUNK if chunk is None else chunk
+    nd = len(local_shape)
+    strides = [1] * nd
+    for d in range(nd - 2, -1, -1):
+        strides[d] = strides[d + 1] * int(shape[d + 1])
+    if nd == 0:
+        idx = torch.zeros((), dtype=torch.int64, device=out.device)
+        return out.copy_(_normal_of_bits(random_bits_at(k, idx), dtype))
+    tail = torch.zeros((), dtype=torch.int64, device=out.device)
+    for d in range(1, nd):
+        r = torch.arange(int(offset[d]), int(offset[d]) + local_shape[d],
+                         dtype=torch.int64, device=out.device)
+        tail = tail + (r * strides[d]).reshape(
+            (-1,) + (1,) * (nd - 1 - d))
+    per_row = max(1, math.prod(local_shape[1:]))
+    step = max(1, chunk // per_row)
+    for a in range(0, local_shape[0], step):
+        b = min(a + step, local_shape[0])
+        rows = torch.arange(int(offset[0]) + a, int(offset[0]) + b,
+                            dtype=torch.int64, device=out.device)
+        idx = rows.reshape((-1,) + (1,) * (nd - 1)) * strides[0] + tail
+        out[a:b] = _normal_of_bits(random_bits_at(k, idx), dtype)
+    return out
 
 
 def _mul32(a, b):
@@ -501,12 +548,17 @@ def normal(k: torch.Tensor, shape, *, dtype=torch.float32, impl=None,
     meta = _meta(k, shape, dtype, device)
     if meta is not None:
         return meta
+    return _normal_of_bits(_bits(k, shape, impl, device), dtype)
+
+
+def _normal_of_bits(bits, dtype):
+    """Normals in ``dtype`` (float32 or bfloat16) from 32-bit words."""
     if dtype == torch.float32:
-        return _normal_from_bits(_bits(k, shape, impl, device))
+        return _normal_from_bits(bits)
     if dtype != torch.bfloat16:
         raise NotImplementedError(f"normal draws in {dtype}: float32 and "
                                   f"bfloat16 are ported")
-    bits = _bits(k, shape, impl, device) & 0xFF
+    bits = bits & 0xFF
     fbits = ((bits >> 1) | 0x3F80).to(torch.int16)
     floats = fbits.view(torch.bfloat16) - 1.0
     # bfloat16 arithmetic with exact bfloat16 scalars (torch rounds each

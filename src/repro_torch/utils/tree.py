@@ -9,8 +9,11 @@ level (``utils/flatparams._leaves``), so leaf i here is leaf i of
 ``tree_axpy`` runs the ``zo_axpy`` kernel on every leaf (its plain version
 for a leaf on the CPU). The normal draws are whole leaves at once: the
 reference's chunked form only starts at ``CHUNK_ELEMS = 1 << 62`` elements,
-so it never runs. Draws are float32 (within a few ulp of the reference's)
-or bfloat16 (bitwise).
+so it never runs. A DTensor leaf (the sharded train step, ``launch/
+sharding.py``) draws on each rank only its own shard of the leaf's
+direction, bitwise the slice of the whole draw (``leaf_normal_like``), and
+its axpys run on the local shards. Draws are float32 (within a few ulp of
+the reference's) or bfloat16 (bitwise).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import _leaves
+from repro_torch.utils.shardutil import is_dtensor
 
 
 def tree_leaves(tree) -> list:
@@ -126,17 +130,32 @@ def leaf_normal(key, shape, dtype=torch.float32, *, device=None,
     return prng.normal(key, shape, dtype=dtype, device=device, impl=impl)
 
 
+def leaf_normal_like(key, leaf, dtype=torch.float32, impl=None):
+    """``leaf_normal(key, leaf.shape)`` on the leaf's device; for a DTensor
+    leaf a DTensor of the leaf's layout whose every rank draws only its
+    own shard, from the shard's flat indices (``prng.normal_shard``):
+    bitwise the slice of the whole draw."""
+    if not is_dtensor(leaf):
+        return leaf_normal(key, leaf.shape, dtype, device=leaf.device,
+                           impl=impl)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    prng.impl_of(key, impl)
+    shape = tuple(leaf.shape)
+    local_shape, offset = compute_local_shape_and_global_offset(
+        shape, leaf.device_mesh, leaf.placements)
+    g = prng.normal_shard(key, shape, offset, local_shape, dtype=dtype,
+                          device=leaf.to_local().device)
+    return DTensor.from_local(g, leaf.device_mesh, leaf.placements,
+                              run_check=False, shape=leaf.shape,
+                              stride=leaf.stride())
+
+
 def add_leaf_normal(x, key, coef, dtype=torch.float32, impl=None):
     """x + coef·N(0,1)(key), cast to x's dtype."""
-    g = leaf_normal(key, x.shape, dtype, device=x.device, impl=impl)
+    g = leaf_normal_like(key, x, dtype, impl=impl)
     return (x + coef * g).to(x.dtype)
-
-
-def leaf_normal_sq_norm(key, shape, dtype=torch.float32, *, device=None,
-                        impl=None):
-    """‖N(0,1)(key)‖² in float32."""
-    g = leaf_normal(key, shape, dtype, device=device, impl=impl)
-    return torch.sum(torch.square(g.float()))
 
 
 def normal_like_tree(rng, tree, dtype=None, impl=None):
@@ -145,8 +164,8 @@ def normal_like_tree(rng, tree, dtype=None, impl=None):
     pairs = _leaves(tree)
     return tree_unflatten(
         [p for p, _ in pairs],
-        [leaf_normal(prng.fold_in(rng, i, impl), leaf.shape,
-                     dtype or leaf.dtype, device=leaf.device, impl=impl)
+        [leaf_normal_like(prng.fold_in(rng, i, impl), leaf,
+                          dtype or leaf.dtype, impl=impl)
          for i, (_, leaf) in enumerate(pairs)])
 
 
@@ -154,11 +173,11 @@ def tree_random_sq_norm(rng, tree, dtype=torch.float32, impl=None):
     """‖normal_like_tree(rng, tree)‖², summed leaf by leaf in order,
     without keeping the tree."""
     leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    total = None
     for i, leaf in enumerate(leaves):
-        total = total + leaf_normal_sq_norm(
-            prng.fold_in(rng, i, impl), leaf.shape, dtype,
-            device=leaf.device, impl=impl)
+        g = leaf_normal_like(prng.fold_in(rng, i, impl), leaf, dtype, impl)
+        sq = torch.sum(torch.square(g.float()))
+        total = sq if total is None else total + sq
     return total
 
 

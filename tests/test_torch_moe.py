@@ -183,8 +183,9 @@ def test_moe_fwd_matches_the_reference(case):
 
 
 def test_moe_shared_expert_and_mesh():
-    """DeepSeek's shared expert is added on top of the routed output; a
-    mesh (the reference's expert-parallel branch) is not ported."""
+    """DeepSeek's shared expert is added on top of the routed output; on a
+    one-member mesh the expert-parallel branch (one data rank: the decode
+    layout, every expert local) is the one-device forward, bitwise."""
     jcfg = jget_config("deepseek-v3-671b-smoke")
     cfg = get_config("deepseek-v3-671b-smoke")
     jp = jax.device_get(jmoe.init_moe(jax.random.key(3), jcfg, jnp.float32))
@@ -196,8 +197,10 @@ def test_moe_shared_expert_and_mesh():
     to, ta = tmoe.moe_fwd(tp, cfg, torch.from_numpy(x))
     _close(to, jo)
     np.testing.assert_allclose(float(ta), float(ja), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmoe.moe_fwd(tp, cfg, torch.from_numpy(x), mesh=object())
+    from repro_torch.launch.mesh import make_host_mesh
+    mo, ma = tmoe.moe_fwd(tp, cfg, torch.from_numpy(x),
+                          mesh=make_host_mesh(device="cpu"))
+    assert torch.equal(mo, to) and torch.equal(ma, ta)
 
 
 def test_expert_partition_equivalence():
