@@ -335,11 +335,18 @@ each of which raises on a failure (the script then exits non-zero):
        (the train layout: tokens over data, experts over model, the FFN dim
        gathered over data) and 3 x 1 (the decode layout) at capacity
        factor E/k, held against the one-rank forward within PROD_MOE_ATOL
-       (the train layout also bitwise a second run), and the train layout
-       at 1.25 (each rank's dropped share printed).
+       (the train layout also bitwise a second run: the forward of its
+       backward below), and the train layout
+       at 1.25 (each rank's dropped share printed); then the layer's
+       backward in both layouts at E/k: the gradient of ``sum(out · w) +
+       aux`` (w a fixed random tensor) with respect to x, the router and
+       the expert weights, each rank's block held against the same block
+       of one rank's autograd within PROD_GRAD_REL of that gradient's
+       largest magnitude.
    (b) qwen3-moe-30b-a3b cut in depth only to 1 of 48 layers, full width,
-       float32: the loss, a prefill of 4 x 128 and 4 decode steps on the
-       mesh against one rank (PROD_LOSS_REL, PROD_LOGIT_REL), exact
+       float32: the loss, a prefill of 4 x 128 and PROD_DECODE_STEPS decode
+       steps on the mesh against one rank (PROD_LOSS_REL, PROD_LOGIT_REL),
+       exact
        per-rank rmsnorm and flash_attention launches (the kernels on each
        rank's local shards), the kernels then held against their plain
        versions at every local shape they saw; one FedZO train step on the
@@ -347,12 +354,20 @@ each of which raises on a failure (the script then exits non-zero):
        its shards' directions), its coefficients held to their recomputation
        without a ZO kernel as ``check_estimator`` holds them, 2.b2 zo_axpy
        a leaf; ``ops.tree_axpy2`` over the sharded tree bitwise its plain
-       version, one zo_axpy2 a leaf.
+       version, one zo_axpy2 a leaf; one FedAvg step (``fedavg.
+       make_train_step``, lr 1e-3: the kernels forward, the plain
+       recompute backward, the expert-parallel MoE's backward) against one
+       rank's step, the loss within PROD_LOSS_REL and each rank's block of
+       every updated leaf within PROD_STEP_ATOL of one rank's (some weight
+       moving by ten times that), the forward's rmsnorm and
+       flash_attention launches exact a rank, its ms and each rank's peak.
    (c) ``launch/dryrun.run_case`` on torch's fake 256- and 512-rank group:
        qwen2-0.5b x train_4k (single pod and multi-pod, with the delta
-       program) and qwen3-moe-30b-a3b x prefill_32k and decode_32k, the
-       records printed (roofline seconds from H100 data-sheet peaks); in a
-       thread of the parent while the ranks run.
+       program), qwen3-moe-30b-a3b x prefill_32k and decode_32k, and
+       qwen3-moe-30b-a3b x train_4k with ``algo="fedavg"``, the records
+       printed (roofline seconds from H100 data-sheet peaks); in a thread
+       of the parent while the ranks run, the FedAvg case in a process of
+       its own beside them.
 
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` adds torch.profiler
@@ -6245,11 +6260,27 @@ PROD_LOSS_REL = 1e-5
 # under CHECK_MIN_ULPS; at 64 the step is mu/sqrt(d) = 1.8e-3 a weight,
 # below the weights' 0.02
 PROD_MU = 64.0
-# the dry-run cases of part (c): (arch, shape, multi_pod)
-PROD_DRYRUN = (("qwen2-0.5b", "train_4k", False),
-               ("qwen2-0.5b", "train_4k", True),
-               (PROD_ARCH, "prefill_32k", False),
-               (PROD_ARCH, "decode_32k", False))
+# decode steps of part (b) on the mesh (4 before the FedAvg step joined the
+# phase: each sharded step is 2.0-2.3 s of gloo bridge on one card)
+PROD_DECODE_STEPS = 1
+# the MoE layer's gradients on the mesh against one rank's, relative to each
+# gradient's largest magnitude: float32 sums in other orders (the expert
+# GEMMs at the shard's capacity, the reduce-scatters and the partial sums
+# over ranks); 3e-7 at smoke size on the CPU
+# (tests/test_torch_sharded_fedavg.py), while a backward that misses a sum
+# over a mesh axis is off by tens of percent
+PROD_GRAD_REL = 1e-4
+# an updated leaf of the FedAvg step on the mesh against one rank's: lr 1e-3
+# times the gradients' float32 differences (7.5e-9 on an H100 at this
+# phase's shapes); the largest move of a weight is 1.26e-5, 126 times it
+PROD_STEP_ATOL = 1e-7
+PROD_LR = 1e-3
+# the dry-run cases of part (c): (arch, shape, multi_pod, algo)
+PROD_DRYRUN = (("qwen2-0.5b", "train_4k", False, "fedzo"),
+               ("qwen2-0.5b", "train_4k", True, "fedzo"),
+               (PROD_ARCH, "prefill_32k", False, "fedzo"),
+               (PROD_ARCH, "decode_32k", False, "fedzo"),
+               (PROD_ARCH, "train_4k", False, "fedavg"))
 
 
 def _spy_kernels(ops):
@@ -6302,6 +6333,84 @@ def _hold_local_kernels(torch, ops, seen):
     return worst
 
 
+def _block(whole, dt):
+    """The block of the whole tensor ``whole`` that DTensor ``dt``'s local
+    shard holds on this rank."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    ls, off = compute_local_shape_and_global_offset(
+        tuple(whole.shape), dt.device_mesh, dt.placements)
+    return whole[tuple(slice(o, o + n) for o, n in zip(off, ls))]
+
+
+def _moe_backward(torch, dist, moe, shr, prng, mesh, p, dp, cfg, lay, B, S,
+                  sync_ms):
+    """Part (a)'s backward: the gradient of ``sum(out · w) + aux`` of the
+    expert-parallel layer with respect to x and every leaf, each gradient
+    laid out as its input (partial sums reduced), against one rank's
+    autograd on this rank's block. Returns (ms, worst relative error a
+    gradient, largest magnitude a gradient, the forward's local out and
+    aux), the errors over all ranks."""
+    from repro_torch.utils.shardutil import on_dtensors
+    dev = mesh.device
+    x = 0.5 * prng.normal(prng.key(1), (B, S, cfg.d_model), device=dev)
+    w = prng.normal(prng.key(2), (B, S, cfg.d_model), device=dev)
+    db = shr.distribute({"x": x, "w": w},
+                        shr.batch_shardings({"x": x, "w": w}, mesh))
+    names = sorted(dp)
+    ins = [db["x"].detach().requires_grad_()] + [
+        dp[n].detach().requires_grad_() for n in names]
+
+    def sharded():
+        o, aux = moe.moe_fwd(dict(zip(names, ins[1:])), cfg, ins[0],
+                             mesh=mesh)
+        with on_dtensors(ins):
+            g = torch.autograd.grad(torch.sum(o * db["w"]) + aux, ins)
+        return [t.redistribute(t.device_mesh, i.placements)
+                if tuple(t.placements) != tuple(i.placements) else t
+                for t, i in zip(g, ins)], (o.detach().to_local(),
+                                            aux.detach().to_local())
+    (got, fwd), ms = sync_ms(sharded)
+    one = [x.detach().requires_grad_()] + [
+        p[n].detach().requires_grad_() for n in names]
+    o1, a1 = moe.moe_fwd(dict(zip(names, one[1:])), cfg, one[0])
+    want = torch.autograd.grad(torch.sum(o1 * w) + a1, one)
+    errs = {n: float((g.to_local() - _block(t, g)).abs().max())
+            for n, g, t in zip(["x"] + names, got, want)}
+    tops = {n: float(t.abs().max()) for n, t in zip(["x"] + names, want)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, errs)
+    worst = {n: max(e[n] for e in every) / tops[n] for n in errs}
+    return ms, worst, tops, fwd
+
+
+def _fedavg_vs_one_rank(torch, dist, fedavg, FedZOConfig, model, params,
+                        dparams, train, new, key):
+    """Each rank in turn runs one rank's FedAvg step on the whole tree (a
+    step holds three copies of it: one at a time fits the card) and holds
+    its block of every updated leaf of the sharded step ``new`` against
+    the same block of that step's. Returns (one rank's loss, the largest
+    error of a leaf over all ranks, the largest move of a weight)."""
+    from repro_torch.utils.tree import tree_leaves
+    rank = dist.get_rank()
+    res = None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            step = fedavg.make_train_step(model.loss, FedZOConfig(lr=PROD_LR))
+            new1, m1 = step(params, train, key)
+            err = max(float((a.to_local() - _block(b, a)).abs().max())
+                      for a, b in zip(tree_leaves(new), tree_leaves(new1)))
+            moved = max(float((b - b0).abs().max()) for b, b0 in zip(
+                tree_leaves(new1), tree_leaves(params)))
+            res = (float(m1["loss"]), err, moved)
+            del new1, step
+            torch.cuda.empty_cache()
+        dist.barrier()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, res)
+    return every[0][0], max(e[1] for e in every), every[0][2]
+
+
 def _production_rank(rank, world, out, src):
     """A spawned rank of phase 14 (a) and (b): 4 gloo ranks on the one card
     as ``make_host_mesh(model_axis=2)``. Rank 0 also runs the one-rank
@@ -6314,7 +6423,7 @@ def _production_rank(rank, world, out, src):
     torch.set_num_threads(2)
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FedZOConfig
-    from repro_torch.core import estimator, fedzo
+    from repro_torch.core import estimator, fedavg, fedzo
     from repro_torch.kernels import ops
     from repro_torch.kernels.zo_axpy import zo_axpy2_plain
     from repro_torch.launch import sharding as shr
@@ -6326,7 +6435,7 @@ def _production_rank(rank, world, out, src):
 
     mesh = make_host_mesh(2)
     dev = mesh.device
-    res = {"moe": [], "lm": {}}
+    res = {"moe": [], "moe_bwd": [], "lm": {}}
     t_rank = time.perf_counter()
 
     def say(what):
@@ -6348,11 +6457,17 @@ def _production_rank(rank, world, out, src):
         return r, 1e3 * (time.perf_counter() - t0)
 
     # (a) the MoE layer at full width: both layouts at factor E/k, the
-    # train layout (where the shard's capacity binds) at 1.25
+    # train layout (where the shard's capacity binds) at 1.25; the layer is
+    # the one of part (b)'s 1-layer model, drawn once
     torch.cuda.reset_peak_memory_stats()
     base = get_config(PROD_ARCH).replace(dtype="float32")
     E, k = base.n_experts, base.top_k
-    p = moe.init_moe(prng.key(0), base, torch.float32, device=dev)
+    cfg = get_config(PROD_ARCH).replace(n_layers=1, dtype="float32",
+                                        capacity_factor=E / k)
+    model = api.build(cfg)
+    params = model.init(prng.key(0), device=dev)
+    p = {n: v[0] for n, v in params["moe_blocks"]["moe"].items()}
+    say("the 1-layer model initialised")
     psh = {n: shr.NamedSharding(mesh, shr.leaf_spec(
         shr.keystr(("moe", n)), tuple(v.shape), mesh)) for n, v in p.items()}
     dp = shr.distribute(p, psh)
@@ -6369,12 +6484,8 @@ def _production_rank(rank, world, out, src):
         rec = {"factor": factor, "layout": lay, "ms": ms,
                "placements": str(o1.placements)}
         if factor == E / k and lay == "train":
-            o2, a2 = moe.moe_fwd(dp, cfg, dx, mesh=mesh)
-            same = torch.equal(o1.to_local(), o2.to_local()) and \
-                torch.equal(a1.to_local(), a2.to_local())
-            flags = torch.tensor([0.0 if same else 1.0], device=dev)
-            dist.all_reduce(flags)
-            rec["bitwise_twice"] = float(flags) == 0.0
+            # held bitwise against the forward of the backward below
+            first = (o1.to_local(), a1.to_local())
         # each shard's dropped share of its local assignments
         T = B * S
         n_data = mesh.shape["data"]
@@ -6401,25 +6512,31 @@ def _production_rank(rank, world, out, src):
                        top=float(ref[0].abs().max()))
         res["moe"].append(rec)
         say(f"moe_fwd {lay} at factor {factor:g}")
+    for lay, (B, S) in (("train", (4, 128)), ("decode", (3, 1))):
+        ms, worst, tops, again = _moe_backward(
+            torch, dist, moe, shr, prng, mesh, p, dp,
+            base.replace(capacity_factor=E / k), lay, B, S, sync_ms)
+        res["moe_bwd"].append({"layout": lay, "ms": ms, "rel": worst,
+                               "top": tops})
+        if lay == "train":
+            same = all(torch.equal(u_, v_) for u_, v_ in zip(first, again))
+            flags = torch.tensor([0.0 if same else 1.0], device=dev)
+            dist.all_reduce(flags)
+            res["moe"][0]["bitwise_twice"] = float(flags) == 0.0
+        say(f"moe_fwd backward {lay} {ms:.1f} ms")
     part = {"a": (time.perf_counter() - t_rank,
                   torch.cuda.max_memory_allocated())}
-    del p, dp, psh
+    del p, dp, psh, first, again
     torch.cuda.empty_cache()
     say("the MoE layer done")
     t_b = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
 
     # (b) the model cut in depth to 1 of 48 layers, full width, float32
-    cfg = get_config(PROD_ARCH).replace(n_layers=1, dtype="float32",
-                                        capacity_factor=E / k)
-    model = api.build(cfg)
-    params = model.init(prng.key(0), device=dev)
     dparams = shr.distribute(params, shr.param_shardings(
         model.param_specs(), mesh))
-    if rank:
-        params = None
     torch.cuda.empty_cache()
-    say("the 1-layer model initialised and laid out")
+    say("the 1-layer model laid out")
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def toks(*shape):
@@ -6427,7 +6544,7 @@ def _production_rank(rank, world, out, src):
                              dtype=torch.int32)
     B, S, W = 4, 128, 160
     train = {"tokens": toks(B, S), "labels": toks(B, S)}
-    steps = [toks(B, 1) for _ in range(4)]
+    steps = [toks(B, 1) for _ in range(PROD_DECODE_STEPS)]
 
     def put(b):
         return shr.distribute(b, shr.batch_shardings(b, mesh))
@@ -6469,7 +6586,7 @@ def _production_rank(rank, world, out, src):
             tops.append(float(lg.abs().max()))
         res["lm"].update(one_rank_loss=float(l1), one_rank_loss_ms=ms1,
                          logit_errs=errs, logit_tops=tops)
-        del params, c1
+        del c1
     del cache
     torch.cuda.empty_cache()
 
@@ -6489,7 +6606,9 @@ def _production_rank(rank, world, out, src):
     say(f"train step {ms:.1f} ms")
     n_leaves = len(tree_leaves(dparams))
     d = sum(t.numel() for t in tree_leaves(dparams))
-    l0 = full(lossm(dparams, dtrain)).float()
+    # the base loss: the same sharded forward as the loss above, whose
+    # value it is bitwise (the layer is bitwise a second run, part (a))
+    l0 = res["lm"]["loss"].float()
     ulp = float(torch.nextafter(l0, torch.full_like(l0, math.inf)) - l0)
     ref, diffs = [], []
     for n in range(fcfg.b2):
@@ -6524,6 +6643,28 @@ def _production_rank(rank, world, out, src):
     res["kernel_shapes"] = {k_: sorted(map(str, v_)) for k_, v_ in
                             seen.items()}
     part["b"] = (time.perf_counter() - t_b, torch.cuda.max_memory_allocated())
+    del out2, u
+    torch.cuda.empty_cache()
+
+    # one FedAvg step on the sharded tree against one rank's
+    t_fa = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    (new, mets), ms = sync_ms(lambda: fedavg.make_train_step(
+        lossm, FedZOConfig(lr=PROD_LR))(dparams, dtrain, key))
+    counts["fedavg_step"] = dict(ops.LAUNCHES)
+    res["lm"]["fedavg_step_ms"] = ms
+    say(f"FedAvg step {ms:.1f} ms")
+    peak_fa = torch.cuda.max_memory_allocated()
+    loss_fa = float(full(mets["loss"]))
+    one_loss, err, moved = _fedavg_vs_one_rank(
+        torch, dist, fedavg, FedZOConfig, model, params, dparams, train, new,
+        key)
+    res["lm"]["fedavg"] = dict(loss=loss_fa, one_rank_loss=one_loss,
+                               err=err, moved=moved)
+    del new, params
+    part["fedavg"] = (time.perf_counter() - t_fa, peak_fa)
+    say("FedAvg step held against one rank's")
     all_counts, all_parts = [None] * world, [None] * world
     dist.all_gather_object(all_counts, counts)
     dist.all_gather_object(all_parts, part)
@@ -6532,6 +6673,17 @@ def _production_rank(rank, world, out, src):
     if rank == 0:
         res["worst_local"] = _hold_local_kernels(torch, ops, seen)
         torch.save(res, out)
+
+
+def _dry_case(src, arch, shape, multi_pod, algo):
+    """One ``launch/dryrun.run_case`` record and its seconds (a module-level
+    function: part (c) runs the FedAvg case in a spawned process)."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.launch import dryrun
+    t = time.perf_counter()
+    rec = dryrun.run_case(arch, shape, multi_pod=multi_pod, algo=algo)
+    return rec, time.perf_counter() - t
 
 
 def _expected_lm_launches(cfg):
@@ -6547,47 +6699,55 @@ def _expected_lm_launches(cfg):
 def run_production_mesh(torch, ops, FedZOConfig, smi, rows):
     """Phase "production mesh": parts (a) to (c); budget PROD_BUDGET_S.
     Returns the launches of its main-path runs (the ranks' sharded
-    forwards, train step and tree_axpy2, each rank's own)."""
+    forwards, train steps and tree_axpy2, each rank's own)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
     t_phase = time.perf_counter()
     total = dict.fromkeys(ops.LAUNCHES, 0)
     import threading
-    from repro_torch.launch import dryrun
     tmp = tempfile.mkdtemp(prefix="chip_smoke_prod_")
     out = os.path.join(tmp, "prod.pt")
-    # (c), the dry-run on the host, runs in a thread of this process while
-    # the 4 ranks work on the card
+    # (c), the dry-run on the host, runs while the 4 ranks work on the card:
+    # the FedAvg cases (a backward on every layer, about a minute each) in a
+    # process of their own, the others in a thread of this one
     dry = []
 
     def dry_cases():
         try:
-            for arch, shape, mp in PROD_DRYRUN:
-                t = time.perf_counter()
-                dry.append((dryrun.run_case(arch, shape, multi_pod=mp),
-                            time.perf_counter() - t))
+            for case in PROD_DRYRUN:
+                if case[3] != "fedavg":
+                    dry.append(_dry_case(SRC, *case))
         except BaseException as e:  # noqa: BLE001 — re-raised below
             dry.append(e)
-    worker = threading.Thread(target=dry_cases)
-    t0 = time.perf_counter()
-    worker.start()
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
     try:
-        run_ranks(_production_rank, 4, backend="gloo", init_dir=tmp,
-                  args=(out, SRC), timeout=600)
+        pending = [pool.apply_async(_dry_case, (SRC,) + case)
+                   for case in PROD_DRYRUN if case[3] == "fedavg"]
+        worker = threading.Thread(target=dry_cases)
+        t0 = time.perf_counter()
+        worker.start()
+        try:
+            run_ranks(_production_rank, 4, backend="gloo", init_dir=tmp,
+                      args=(out, SRC), timeout=600)
+        finally:
+            worker.join()
+        spawn_s = time.perf_counter() - t0
+        dry += [job.get(timeout=600) for job in pending]
     finally:
-        worker.join()
-    spawn_s = time.perf_counter() - t0
+        pool.terminate()
+        pool.join()
     res = torch.load(out, weights_only=False)
     base = get_config(PROD_ARCH)
     E, k = base.n_experts, base.top_k
     print(f"(a)+(b) 4 gloo ranks on the card as make_host_mesh(2): "
           f"{spawn_s:.1f} s spawned, joined, (c) beside them [{smi}]")
-    for name in ("a", "b"):
+    for name in ("a", "b", "fedavg"):
         each = [rp[name] for rp in res["rank_parts"]]
         print(f"({name}) per rank: seconds {[round(s_, 1) for s_, _ in each]}"
               f", peak memory {[round(b_ / 2**30, 2) for _, b_ in each]} "
-              f"GiB (rank 0 also holds the one-rank model) [{smi}]")
+              f"GiB (every rank also holds the whole one-rank tree) [{smi}]")
     for rec in res["moe"]:
         if rec["factor"] == E / k:
             check(rec["err"] <= PROD_MOE_ATOL, f"sharded moe_fwd {rec}")
@@ -6605,7 +6765,18 @@ def run_production_mesh(torch, ops, FedZOConfig, smi, rows):
               f"f {base.moe_d_ff}) fp32, {rec['layout']} layout, capacity "
               f"factor {rec['factor']:g}: {rec['ms']:.2f} ms sharded"
               f"{twice}, out {rec['placements']}{extra}; dropped share per "
-              f"rank {[round(s, 4) for s in rec['dropped']]}")
+              f"rank {[round(s, 4) for s in rec['dropped']]} [{smi}]")
+    for rec in res["moe_bwd"]:
+        for name, rel in rec["rel"].items():
+            check(rel <= PROD_GRAD_REL, f"sharded moe_fwd backward "
+                  f"{rec['layout']} d{name}: {rel:.3e} of its largest "
+                  f"magnitude {rec['top'][name]:.3e} (> {PROD_GRAD_REL})")
+        print(f"(a) moe_fwd backward {PROD_ARCH} layer fp32, "
+              f"{rec['layout']} layout, capacity factor E/k: "
+              f"{rec['ms']:.2f} ms sharded (forward and backward); max "
+              f"|sharded - one rank| over each gradient's largest magnitude "
+              f"{ {n: f'{v:.2e}' for n, v in rec['rel'].items()} } "
+              f"(PROD_GRAD_REL {PROD_GRAD_REL}) [{smi}]")
     lm = res["lm"]
     cfg = get_config(PROD_ARCH).replace(n_layers=1)
     exp = _expected_lm_launches(cfg)
@@ -6621,6 +6792,12 @@ def run_production_mesh(torch, ops, FedZOConfig, smi, rows):
               f"rank {r} train step zo_axpy {counts['train_step']}")
         check(counts["tree_axpy2"]["zo_axpy2"] == n_leaves,
               f"rank {r} tree_axpy2 {counts['tree_axpy2']}")
+        fa = counts["fedavg_step"]
+        for kern, n in exp["loss"].items():
+            check(fa[kern] == n, f"rank {r} FedAvg step: {kern} {fa[kern]} "
+                  f"!= {n}")
+        check(fa["zo_axpy"] == 0 and fa["zo_axpy2"] == 0,
+              f"rank {r} FedAvg step {fa}")
         for c in counts.values():
             for kern in total:
                 total[kern] += c[kern]
@@ -6639,23 +6816,37 @@ def run_production_mesh(torch, ops, FedZOConfig, smi, rows):
     check(est["max_err_over_tol"] <= 1.0, f"sharded estimator {est}")
     check(lm["tree_axpy2_bitwise"], "tree_axpy2 on the sharded tree is not "
           "its plain version bitwise")
+    n_dec = PROD_DECODE_STEPS
     print(f"(b) {PROD_ARCH} 1 of 48 layers, full width, fp32, (2, 2) mesh: "
           f"loss {float(lm['loss']):.6f} (one rank {lm['one_rank_loss']:.6f},"
           f" rel {lrel:.1e}) {lm['loss_ms']:.1f} ms (one rank "
           f"{lm['one_rank_loss_ms']:.1f}); prefill 4 x 128 "
-          f"{lm['prefill_ms']:.1f} ms, 4 decode steps "
-          f"{[round(lm[f'decode{i}_ms'], 1) for i in range(4)]} ms; max "
+          f"{lm['prefill_ms']:.1f} ms, {n_dec} decode steps "
+          f"{[round(lm[f'decode{i}_ms'], 1) for i in range(n_dec)]} "
+          f"ms; max "
           f"|logits - one rank| {[f'{e:.2e}' for e in lm['logit_errs']]} "
           f"(of max |logits| {[round(t, 2) for t in lm['logit_tops']]}); "
-          f"per-rank launches {exp} on every rank")
+          f"per-rank launches {exp} on every rank [{smi}]")
     print(f"(b) FedZO train step on the sharded tree (b2 2, mu "
           f"{PROD_MU:g}): {lm['train_step_ms']:.1f} ms, "
           f"{2 * 2 * est['n_leaves']} zo_axpy a rank; loss differences "
           f"{[round(u) for u in est['diff_ulps']]} ulps, coefficients "
           f"{[f'{c:.4e}' for c in est['coeffs']]} (max err / tol "
-          f"{est['max_err_over_tol']:.3f}); tree_axpy2 bitwise")
+          f"{est['max_err_over_tol']:.3f}); tree_axpy2 bitwise [{smi}]")
+    fa = lm["fedavg"]
+    frel = abs(fa["loss"] - fa["one_rank_loss"]) / fa["one_rank_loss"]
+    check(frel <= PROD_LOSS_REL, f"sharded FedAvg loss {fa}")
+    check(fa["err"] <= PROD_STEP_ATOL, f"sharded FedAvg step {fa}")
+    check(fa["moved"] >= 10 * PROD_STEP_ATOL, f"FedAvg step moved no "
+          f"weight by 10 x {PROD_STEP_ATOL}: {fa}")
+    print(f"(b) FedAvg step on the sharded tree (lr {PROD_LR:g}): "
+          f"{lm['fedavg_step_ms']:.1f} ms, loss {fa['loss']:.6f} (one rank "
+          f"{fa['one_rank_loss']:.6f}, rel {frel:.1e}); max |updated leaf - "
+          f"one rank's| {fa['err']:.3e} (atol {PROD_STEP_ATOL}), largest "
+          f"move of a weight {fa['moved']:.3e}; per-rank launches "
+          f"{exp['loss']} in its forward, no ZO kernel [{smi}]")
     print(f"(b) kernels at the local shards' shapes {res['kernel_shapes']}: "
-          f"worst relative error {res['worst_local']}")
+          f"worst relative error {res['worst_local']} [{smi}]")
     # (c) the dry-run on the fake group, in this process
     for item in dry:
         if isinstance(item, BaseException):
@@ -6675,8 +6866,9 @@ def run_production_mesh(torch, ops, FedZOConfig, smi, rows):
               and rec["memory"]["total_bytes_per_device"] > 0,
               f"dry-run {arch} {shape}: {rec}")
         print(f"(c) dry-run {arch} x {shape} x {rec['mesh']} "
+              f"({rec['algo']}) "
               f"({took_s:.1f} s, beside the ranks; H100 data-sheet peaks): "
-              f"{json.dumps(keep)}")
+              f"{json.dumps(keep)} [{smi}]")
     took = time.perf_counter() - t_phase
     print(f"production mesh: {took:.1f} s of the {PROD_BUDGET_S:.0f} s "
           f"budget [{smi}]")

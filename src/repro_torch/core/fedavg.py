@@ -32,7 +32,8 @@ from repro_torch.core.aircomp import (aircomp_aggregate, mask_stats,
 from repro_torch.core.estimator import _device
 from repro_torch.utils import prng
 from repro_torch.utils.flatparams import _leaves
-from repro_torch.utils.shardutil import on_dtensors
+from repro_torch.utils.shardutil import (is_dtensor, on_dtensors,
+                                         reduce_fanout_partials)
 from repro_torch.utils.tree import (tree_add, tree_axpy_plain, tree_map,
                                     tree_scale, tree_sub, tree_unflatten)
 
@@ -40,13 +41,23 @@ from repro_torch.utils.tree import (tree_add, tree_axpy_plain, tree_map,
 def value_and_grad(loss_fn, params, batch):
     """(loss, gradient tree) of ``loss_fn(params, batch)`` by autograd, both
     detached. The loss may be a scalar or a vector (``[M]`` cohort losses:
-    the gradient is then that of their sum)."""
+    the gradient is then that of their sum). A DTensor leaf's gradient is
+    laid out as the leaf (DTensor's backward leaves a replicated leaf's
+    gradient a partial sum, or sharded where the leaf is not): its partial
+    sums reduced, as jit gives a gradient its parameter's sharding, so the
+    updated parameters keep their layout."""
     pairs = _leaves(params)
     leaves = [leaf.detach().requires_grad_() for _, leaf in pairs]
     loss = loss_fn(tree_unflatten([p for p, _ in pairs], leaves), batch)
+    total = loss.sum()
+    if is_dtensor(total):
+        reduce_fanout_partials(total)
     with on_dtensors(leaves):   # a sharded forward's backward
-        grads = torch.autograd.grad(loss.sum(), leaves)
-    return loss.detach(), tree_unflatten([p for p, _ in pairs], list(grads))
+        grads = torch.autograd.grad(total, leaves)
+    grads = [g.redistribute(g.device_mesh, leaf.placements)
+             if is_dtensor(g) and tuple(g.placements) != tuple(
+                 leaf.placements) else g for g, leaf in zip(grads, leaves)]
+    return loss.detach(), tree_unflatten([p for p, _ in pairs], grads)
 
 
 def local_phase(loss_fn, params, batches, cfg: FedZOConfig):

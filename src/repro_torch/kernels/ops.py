@@ -33,7 +33,11 @@ on and an input requires a gradient, the call goes through an
 the card, counted, or the plain version on the CPU) and which saves only
 its inputs; its backward recomputes the plain version from them under
 ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it. Calls
-that need no gradient (every ZO path) take the direct dispatch.
+that need no gradient (every ZO path) take the direct dispatch. On
+``meta`` tensors (the dry-run) that forward allocates only the output and
+reports the kernel's work, and the backward runs the same plain recompute
+and gradient on ``meta``: the dry-run's counter sees the ops and the
+storages the card's backward would run and hold.
 """
 from __future__ import annotations
 
@@ -387,7 +391,12 @@ def _rmsnorm(x, scale, eps):
     """RMSNorm over the last dim of x ``[..., D]``: ``x · rsqrt(mean(x²) +
     eps) · scale`` in float32, returned in x's dtype. x and scale float32 or
     bfloat16. ``scale`` is ``[D]``, or ``[G, D]`` (any row stride) for G
-    equal contiguous groups of x's rows, group g scaled by ``scale[g]``."""
+    equal contiguous groups of x's rows, group g scaled by ``scale[g]``.
+    On ``meta`` only the output is allocated and the work reported."""
+    if x.device.type == "meta":
+        out = torch.empty_like(x)
+        _meta_work("rmsnorm", 4 * x.numel(), _nbytes(x, scale, out))
+        return out
     if _on_cpu(x):
         return rmsnorm_plain(x, scale, eps=eps)
     D = x.shape[-1]
@@ -426,8 +435,17 @@ def _attention(q, k, v, causal, window, scale):
     ``q_pos − k_pos < window``; ``scale`` defaults to 1/√D. Any Sq, Sk:
     the kernel masks its own ragged edge, so there is no padding and no
     restriction on non-causal calls. A pair (D, Dv) the kernel does not
-    build raises ``ValueError`` on the card.
+    build raises ``ValueError`` on the card. On ``meta`` only the output is
+    allocated and the work reported.
     """
+    if q.device.type == "meta":
+        B, Sq, Hq, D = q.shape
+        Sk, Dv = k.shape[1], v.shape[3]
+        out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device="meta")
+        pairs = _attention_pairs(Sq, Sk, causal, window)
+        _meta_work("flash_attention", 2 * B * Hq * pairs * (D + Dv),
+                   _nbytes(q, k, v, out))
+        return out
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -585,10 +603,6 @@ def rmsnorm(x, scale, *, eps=1e-6):
     runs on its local shards (module docstring)."""
     if is_dtensor(x):
         return _rmsnorm_shards(x, scale, eps)
-    if x.device.type == "meta":
-        out = torch.empty_like(x)
-        _meta_work("rmsnorm", 4 * x.numel(), _nbytes(x, scale, out))
-        return out
     if _wants_grad(x, scale):
         return _RMSNormFn.apply(x, scale, eps)
     return _rmsnorm(x, scale, eps)
@@ -603,14 +617,6 @@ def attention(q, k, v, *, causal=True, window=0, scale=None):
     on their local shards (module docstring)."""
     if is_dtensor(q):
         return _attention_shards(q, k, v, causal, window, scale)
-    if q.device.type == "meta":
-        B, Sq, Hq, D = q.shape
-        Sk, Dv = k.shape[1], v.shape[3]
-        out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device="meta")
-        pairs = _attention_pairs(Sq, Sk, causal, window)
-        _meta_work("flash_attention", 2 * B * Hq * pairs * (D + Dv),
-                   _nbytes(q, k, v, out))
-        return out
     if _wants_grad(q, k, v):
         return _AttentionFn.apply(q, k, v, causal, window, scale)
     return _attention(q, k, v, causal, window, scale)

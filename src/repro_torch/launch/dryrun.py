@@ -105,8 +105,10 @@ class StepCounter:
     ``flops``, ``hbm_bytes``, collective ``coll_bytes``/``coll_counts`` by
     name, and the ``peak`` of the bytes of the storages allocated while it
     is on (``live`` at exit). Ops on DTensors pass through to DTensor,
-    whose local ops it then sees; ops on tensors off the ``device`` (the
-    sharding propagator's own fake tensors) are not counted. Enter it with
+    whose local ops it then sees; ops on tensors off the ``device``, and
+    the sharding propagator's own fake tensors of the global shapes (on
+    ``meta`` too: a backward's cast of a whole-vocab logit gradient stood
+    112.5 GiB in rwkv6-7b's FedAvg peak), are not counted. Enter it with
     ``with``; it sets ``kernels/ops.META_WORK`` meanwhile."""
 
     def __init__(self, device="meta"):
@@ -141,8 +143,10 @@ class StepCounter:
         self.kernels[name] = self.kernels.get(name, 0) + 1
 
     def _op(self, func, args, kwargs, out, flop_registry):
+        from torch._subclasses.fake_tensor import FakeTensor
         outs = _tensors(out)
-        if not outs or any(t.device != self.device for t in outs):
+        if not outs or any(t.device != self.device
+                           or isinstance(t, FakeTensor) for t in outs):
             return
         ins = _tensors(args) + _tensors(kwargs)
         name = func._schema.name.split("::")[-1]

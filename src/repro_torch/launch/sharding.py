@@ -218,12 +218,14 @@ def explain(param_specs, mesh, max_rows=0):
 def distribute(tree, shardings):
     """Each leaf of ``tree`` as a DTensor laid out by its ``NamedSharding``
     in ``shardings`` (the same structure); every rank passes the same
-    whole leaf and keeps its shard. A ``dict`` batch takes a ``dict`` of
+    whole leaf and keeps its shard, cut from it locally (no collective:
+    ``src_data_rank=None``). A ``dict`` batch takes a ``dict`` of
     shardings."""
     from torch.distributed.tensor import distribute_tensor
 
     def one(leaf, sh):
-        return distribute_tensor(leaf, sh.mesh.device_mesh, sh.placements)
+        return distribute_tensor(leaf, sh.mesh.device_mesh, sh.placements,
+                                 src_data_rank=None)
 
     pairs = _leaves_any(tree)
     flat_sh = dict(_leaves_any(shardings))

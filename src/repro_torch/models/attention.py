@@ -63,8 +63,8 @@ from repro_torch.models.layers import (NEG_INF, apply_rope,
                                        init_norm, norm_fwd, norm_fwd_batched,
                                        rope_angles)
 from repro_torch.utils import prng
-from repro_torch.utils.shardutil import (is_dtensor, reduced, split_last,
-                                         whole)
+from repro_torch.utils.shardutil import (is_dtensor, merge_last, reduced,
+                                         split_last, whole)
 
 
 def init_attention(rng, cfg, dtype, *, device="cpu"):
@@ -114,7 +114,7 @@ def attention_fwd(p, cfg, x, *, causal=True):
     k = apply_rope(k, cos, sin)
     out = ops.attention(q, k, v, causal=causal,
                         window=cfg.sliding_window if causal else 0)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return merge_last(out) @ p["wo"]
 
 
 def init_kv_cache(cfg, batch, width, dtype, *, device="cpu"):
@@ -168,7 +168,7 @@ def attention_prefill(p, cfg, x, width):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
-    out = out.reshape(B, S, -1) @ p["wo"]
+    out = merge_last(out) @ p["wo"]
     if width >= S:  # straight copy into slots [0, S)
         cache = {"k": _pad_seq(k, width), "v": _pad_seq(v, width)}
     else:  # ring layout: slot = pos % width for the last `width` positions
@@ -281,7 +281,7 @@ def cross_attend(p, q, k, v):
     projection -> ``[B, S, d]``."""
     B, S = q.shape[:2]
     out = ops.attention(q, k, v, causal=False)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return merge_last(out) @ p["wo"]
 
 
 def cross_attention_fwd(p, cfg, x, kv):
@@ -386,7 +386,7 @@ def mla_fwd(p, cfg, x, *, window=0):
     k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_dim)], dim=-1)
     out = ops.attention(q, k, v, causal=True, window=window,
                         scale=_mla_scale(m))
-    out = out.reshape(B, S, -1) @ p["wo"]
+    out = merge_last(out) @ p["wo"]
     latent = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
     return out, latent
 

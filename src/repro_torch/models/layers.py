@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.utils import prng
-from repro_torch.utils.shardutil import divisible, is_dtensor, reduced
+from repro_torch.utils.shardutil import (as_dtensor, divisible, is_dtensor,
+                                         reduced)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -253,19 +254,77 @@ def softmax_xent_batched(logits, labels):
 
 
 def _token_xent(logits, labels):
+    if is_dtensor(logits):
+        return _token_xent_shards(logits, labels)
     lf = logits.to(torch.float32)
     m = torch.amax(lf, dim=-1)
     lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
-    if is_dtensor(lf):
-        # the reference's masked sum, which partitions over a vocab
-        # sharded on ``model`` (a partial sum per shard) where a gather
-        # would not
-        iota = torch.arange(lf.shape[-1], device=lf.device)
-        hit = iota == labels.to(torch.int64)[..., None]
-        ll = torch.sum(torch.where(hit, lf, 0.0), dim=-1)
-    else:
-        ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+    ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
     return lse - ll
+
+
+class _VocabXentFn(torch.autograd.Function):
+    """Token cross-entropy of one rank's logit block ``lf [b, .., v]``
+    (float32) whose vocab slice is ``iota [v]``: the max, the sum of
+    exponentials and the masked label logit summed over the vocab shards
+    (``groups``: functional all-reduces, nothing for an unsharded vocab).
+    The backward is each rank's own block of the gradient, ``g ·
+    (softmax − mask)``."""
+
+    @staticmethod
+    def forward(ctx, lf, labels, iota, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        def over(t, op):
+            for g in groups:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+            return t
+        m = over(torch.amax(lf, dim=-1), "max")
+        lse = m + torch.log(over(torch.sum(torch.exp(lf - m[..., None]),
+                                           dim=-1), "sum"))
+        hit = iota == labels.to(torch.int64)[..., None]
+        ll = over(torch.sum(torch.where(hit, lf, 0.0), dim=-1), "sum")
+        ctx.save_for_backward(lf, lse, labels, iota)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse, labels, iota = ctx.saved_tensors
+        hit = iota == labels.to(torch.int64)[..., None]
+        p = torch.exp(lf - lse[..., None])
+        return g[..., None] * (p - hit.to(p.dtype)), None, None, None
+
+
+def _token_xent_shards(logits, labels):
+    """``_token_xent`` of DTensor logits on each rank's block: rows laid
+    out as the logits' leading dim, the vocab as their last dim (the
+    reference's vocab-parallel masked sum, whose iota and mask are the
+    rank's vocab slice); the token losses come out laid out as the rows.
+    Differentiable in the logits, each rank's gradient its own block."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    nd = logits.ndim
+    mesh = logits.device_mesh
+    want = [p if p.is_shard(0) or p.is_shard(nd - 1) else Replicate()
+            for p in logits.placements]
+    lf = logits.to(torch.float32)
+    if tuple(lf.placements) != tuple(want):
+        lf = lf.redistribute(mesh, want)
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in want]
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * len(rows),
+                                    run_check=False)
+    if tuple(labels.placements) != tuple(rows):
+        labels = labels.redistribute(mesh, rows)
+    groups = tuple((mesh, i) for i, p in enumerate(want)
+                   if p.is_shard(nd - 1))
+    ls, off = compute_local_shape_and_global_offset(tuple(lf.shape), mesh,
+                                                    want)
+    lf = lf.to_local()
+    iota = torch.arange(off[-1], off[-1] + ls[-1], device=lf.device)
+    tok = _VocabXentFn.apply(lf, labels.to_local(), iota, groups)
+    return as_dtensor(tok, mesh, rows, tuple(logits.shape[:-1]))
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,12 @@ sharded and an unsharded forward agree only where nothing is dropped
 (capacity factor E/k); at 1.25 they differ, in the same way in both
 packages. ``mesh=None`` is the one-device path.
 
+The expert-parallel forward is differentiable (a FedAvg step on the
+mesh): its collectives are ``autograd.Function``s with the transposes of
+jax's autodiff of the ``shard_map`` (``_moe_mesh``), on the functional
+collectives that ``launch/mesh.bridge_gloo_cuda`` serves on a gloo mesh on
+the card.
+
 Routing is the reference's, integer for integer:
 
 - the router matmul runs in the activation dtype and the softmax in
@@ -68,7 +74,7 @@ from repro_torch.models.layers import (_act, dense_init, init_mlp, mlp_fwd,
                                        mlp_fwd_batched)
 from repro_torch.utils import prng
 from repro_torch.utils.shardutil import (P, constrain, dp_axes, is_dtensor,
-                                         local, placements)
+                                         placements)
 
 
 def init_moe(rng, cfg, dtype, *, device="cpu"):
@@ -271,30 +277,104 @@ def moe_fwd(p, cfg, x, mesh=None, data_axes=None, model_axis="model"):
     return out, aux
 
 
-def _psum(t, mesh, axes):
-    """``t`` summed over the mesh's ``axes`` (one functional all-reduce a
-    sub-group; nothing on a one-member mesh)."""
-    import torch.distributed._functional_collectives as funcol
-    for a in axes:
-        g = mesh.axis_group(a)
-        if g is not None and mesh.shape[a] > 1:
+def _groups(mesh, axes):
+    """The sub-groups of the mesh's ``axes`` that have more than one
+    member."""
+    return tuple(mesh.axis_group(a) for a in axes
+                 if mesh.axis_group(a) is not None and mesh.shape[a] > 1)
+
+
+class _PsumFn(torch.autograd.Function):
+    """A sum over sub-groups (one functional all-reduce each); its
+    cotangent passes through unchanged: the sum stands replicated over
+    those ranks, each holding the whole cotangent (the transpose of jax's
+    ``psum`` in a ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        import torch.distributed._functional_collectives as funcol
+        for g in groups:
             t = funcol.wait_tensor(funcol.all_reduce(t, "sum", g))
-    return t
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFn(torch.autograd.Function):
+    """The shards of ``t`` along ``dim`` concatenated over a sub-group; its
+    cotangent reduce-scattered back along ``dim`` (the transpose of jax's
+    tiled ``all_gather``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        import torch.distributed._functional_collectives as funcol
+        ctx.group, ctx.dim = group, dim
+        return funcol.wait_tensor(funcol.all_gather_tensor(t.contiguous(),
+                                                           dim, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+            g.contiguous(), "sum", ctx.dim, ctx.group)), None, None
+
+
+class _ScaleGradFn(torch.autograd.Function):
+    """The identity forward; the cotangent times ``c`` backward."""
+
+    @staticmethod
+    def forward(ctx, t, c):
+        ctx.c = c
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def _psum(t, mesh, axes):
+    """``t`` summed over the mesh's ``axes`` (nothing on a one-member
+    mesh)."""
+    groups = _groups(mesh, axes)
+    return _PsumFn.apply(t, groups) if groups else t
 
 
 def _gather(t, mesh, axis, dim):
     """The shards of ``t`` along ``dim`` concatenated over ``axis``."""
-    import torch.distributed._functional_collectives as funcol
-    g = mesh.axis_group(axis)
-    if g is None or mesh.shape[axis] == 1:
+    groups = _groups(mesh, (axis,))
+    return _GatherFn.apply(t, groups[0], dim) if groups else t
+
+
+def _manual(t, mesh, spec, partial=()):
+    """This rank's shard of ``t`` laid out as ``spec``, entering the manual
+    region. Its gradient is a partial sum over the mesh axes in
+    ``partial``: axes that replicate ``t`` while the body splits its work
+    over them (so each rank's gradient is a share), as the ``psum`` that
+    jax's autodiff puts on such an input of a ``shard_map``."""
+    t = constrain(t, mesh, *spec)
+    if not is_dtensor(t):
         return t
-    return funcol.wait_tensor(funcol.all_gather_tensor(t.contiguous(), dim,
-                                                       g))
+    from torch.distributed.tensor import Partial
+    return t.to_local(grad_placements=[
+        Partial() if a in partial else pl
+        for a, pl in zip(mesh.axis_names, t.placements)])
 
 
 def _moe_mesh(p, cfg, x_flat, mesh, data_axes, model_axis):
     """The reference's ``shard_map`` body over ``mesh``: (out ``[T, d]``,
-    me ``[E]``, ce ``[E]``), DTensors when x is one."""
+    me ``[E]``, ce ``[E]``), DTensors when x is one.
+
+    Differentiable in x, the router and the expert weights, with the
+    transposes of jax's autodiff of the ``shard_map``: the FSDP gathers
+    reduce-scatter their cotangent, the sums of ``out`` and ``me`` pass it
+    through, and x (over ``model``), the router (over every axis the body
+    splits: ``model``, and the data axes in the train layout) and the
+    expert weights (over data axes other than the FSDP one) take partial
+    gradients. ``me`` is computed alike on every ``model`` rank, so its
+    cotangent is cut by ``1/n_model`` there: the partial sums over
+    ``model`` then count it once. Routing integers carry no gradient."""
     T = x_flat.shape[0]
     E = cfg.n_experts
     n_data = 1
@@ -312,18 +392,16 @@ def _moe_mesh(p, cfg, x_flat, mesh, data_axes, model_axis):
         cap = _capacity(T // n_data, cfg, e_local)
         w_specs = ((model_axis, None, fsdp), (model_axis, None, fsdp),
                    (model_axis, fsdp, None))
+        split = (*data_axes, model_axis)
+        w_partial = tuple(a for a in data_axes if a != fsdp)
     else:
         # decode layout: tokens replicated, experts over model
         cap = _capacity(T, cfg, e_local)
         w_specs = ((model_axis, None, None),) * 3
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x_flat, p["router"], p["w_gate"])):
-        raise NotImplementedError("the expert-parallel moe_fwd has no "
-                                  "backward (a first-order step on a mesh "
-                                  "takes the dense families)")
-    xl = local(constrain(x_flat, mesh, dspec, None))
-    rw = local(constrain(p["router"], mesh, None, None))
-    wg, wu, wd = (local(constrain(p[k], mesh, *spec)) for k, spec in
+        split, w_partial = (model_axis,), ()
+    xl = _manual(x_flat, mesh, (dspec, None), (model_axis,))
+    rw = _manual(p["router"], mesh, (None, None), split)
+    wg, wu, wd = (_manual(p[k], mesh, spec, w_partial) for k, spec in
                   zip(("w_gate", "w_up", "w_down"), w_specs))
     # the manual region: local tensors and collectives on sub-groups
     if shard_tokens:
@@ -335,6 +413,8 @@ def _moe_mesh(p, cfg, x_flat, mesh, data_axes, model_axis):
         xl, rw, wg, wu, wd, cfg=cfg, e_offset=e_off, e_local=e_local,
         capacity=cap)
     out = _psum(out, mesh, (model_axis,))
+    if me.requires_grad and n_model > 1:
+        me = _ScaleGradFn.apply(me, 1.0 / n_model)
     if shard_tokens:
         me = _psum(me, mesh, data_axes)
         ce = _psum(ce, mesh, data_axes)

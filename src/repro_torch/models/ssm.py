@@ -49,8 +49,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (dense_init, init_norm, norm_fwd,
                                        norm_fwd_batched)
 from repro_torch.utils import prng
-from repro_torch.utils.shardutil import (as_dtensor, is_dtensor, reduced,
-                                         split_last)
+from repro_torch.utils.shardutil import (as_dtensor, is_dtensor, merge_last,
+                                         reduced, split_last)
 
 WKV_CHUNK = 16
 DECAY_CLAMP = 4.0
@@ -111,24 +111,47 @@ def _scan_shards(scan, seqs, s0, per_head=()):
     each of ``per_head`` (``[H, ...]``) and the entry state s0 (``[B, H,
     ...]``) cut to the local rows and block; the outputs, a sequence of
     seqs' shape and the final state, DTensors of that layout. A plain or
-    replicated state would gather every row and block instead."""
-    from torch.distributed.tensor import Replicate, Shard
+    replicated state would gather every row and block instead.
+
+    A mesh axis on which the sequences are partial sums (a projection
+    contracted over a sharded d) splits dim 2 where it divides: a
+    reduce-scatter onto the heads or channels, as GSPMD lays out the
+    reference's scan, where an all-reduce would run every head or channel
+    on every rank of that axis. A replicated axis stays replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
-    want = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
-            for p in seqs[0].placements]
+    mesh, shape = seqs[0].device_mesh, tuple(seqs[0].shape)
+    n2 = 1
+    for i, p in enumerate(seqs[0].placements):
+        if p.is_shard(2):
+            n2 *= mesh.size(i)
+    want = []
+    for i, p in enumerate(seqs[0].placements):
+        if p.is_shard(0) or p.is_shard(2):
+            want.append(p)
+        elif p.is_partial() and shape[2] % (n2 * mesh.size(i)) == 0:
+            want.append(Shard(2))
+            n2 *= mesh.size(i)
+        else:
+            want.append(Replicate())
     seqs = [t if tuple(t.placements) == tuple(want)
             else t.redistribute(t.device_mesh, want) for t in seqs]
-    mesh, shape = seqs[0].device_mesh, tuple(seqs[0].shape)
     ls, off = compute_local_shape_and_global_offset(shape, mesh, want)
     rows, heads = slice(off[0], off[0] + ls[0]), slice(off[2],
                                                        off[2] + ls[2])
 
+    # each rank reads its block of the whole per-head leaves and entry
+    # state, so their gradient is a partial sum over the axes that split
+    # the rows or the heads (and whole over the others)
+    grads = [Partial() if p.is_shard() else Replicate() for p in want]
+
     def whole(t):
-        if is_dtensor(t):
-            t = t.full_tensor()
-            return t.wait() if hasattr(t, "wait") else t
-        return t
+        if not is_dtensor(t):
+            return t
+        t = t.redistribute(mesh, [Replicate()] * len(want)).to_local(
+            grad_placements=grads)
+        return t.wait() if hasattr(t, "wait") else t
     out, s = scan(*(t.to_local() for t in seqs),
                   *(whole(t)[heads] for t in per_head),
                   whole(s0)[rows, heads])
@@ -209,7 +232,7 @@ def rwkv_tmix_fwd(p, cfg, x, *, state=None, x_prev_last=None):
     s0 = torch.zeros((B, H, hd, hd), dtype=_F32, device=x.device) \
         if state is None else state
     out, s_fin = wkv_chunked(r, k, v, logw, p["u"], s0)
-    out = norm_fwd(p["ln_x"], out.reshape(B, T, d).to(x.dtype), "layernorm")
+    out = norm_fwd(p["ln_x"], merge_last(out).to(x.dtype), "layernorm")
     return (out * g) @ p["wo"], (s_fin, x[:, -1])
 
 

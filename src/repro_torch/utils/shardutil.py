@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import contextlib
 
+import torch
+
 
 class P(tuple):
     """A partition spec: ``P("model", None)``; an entry is an axis name, a
@@ -114,6 +116,48 @@ def on_dtensors(tensors):
     return _implicit(any(is_dtensor(t) for t in tensors))
 
 
+def reduce_fanout_partials(root):
+    """Before a backward from ``root``: every gradient that autograd will
+    add to another (a tensor the forward used more than once) has its
+    partial sums reduced first. The two addends of such a sum can come out
+    of DTensor's backward rules partial and sharded over crossed mesh axes
+    (``(Shard(2), Partial())`` and ``(Partial(), Shard(2))`` for a hidden
+    state two branches read); a release's rule for the add may then ask to
+    turn a shard into a partial sum, which no release can (torch 2.11 asks
+    it of hymba's and qwen3-moe's hidden states). Reduced, the addends meet
+    in a layout every release adds. The sums' values are unchanged."""
+    from collections import Counter
+    from torch.distributed.tensor import Replicate
+    uses, edges, seen, todo = Counter(), [], set(), [root.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for i, (nxt, nr) in enumerate(node.next_functions):
+            if nxt is not None:
+                uses[(nxt, nr)] += 1
+                edges.append((node, i, (nxt, nr)))
+                todo.append(nxt)
+    fan = {}
+    for node, i, key in edges:
+        if uses[key] > 1:
+            fan.setdefault(node, set()).add(i)
+
+    def hook(idx):
+        def reduce(grad_inputs, grad_outputs):
+            return tuple(
+                g.redistribute(g.device_mesh, [
+                    Replicate() if p.is_partial() else p
+                    for p in g.placements])
+                if i in idx and is_dtensor(g)
+                and any(p.is_partial() for p in g.placements) else g
+                for i, g in enumerate(grad_inputs))
+        return reduce
+    for node, idx in fan.items():
+        node.register_hook(hook(idx))
+
+
 def divisible(t, dim, size):
     """DTensor ``t`` with dim ``dim`` gathered unless the mesh axes that
     shard it divide ``size`` (the dim a reshape splits it into first);
@@ -156,6 +200,32 @@ def split_last(t, shape):
     return divisible(t, d, shape[d]).reshape(shape)
 
 
+class _MergeLastFn(torch.autograd.Function):
+    """A DTensor's last dims merged into one; the gradient split back by
+    ``split_last``."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.shape = tuple(t.shape)
+        return t.reshape(ctx.shape[:-n] + (-1,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_last(g, ctx.shape), None
+
+
+def merge_last(t, n=2):
+    """``t``'s last ``n`` dims merged into one (heads into the output
+    projection's input): ``reshape`` itself. On a DTensor that needs a
+    gradient, the backward splits the gradient with ``split_last``, which
+    first gathers the merged dim where the mesh axes that shard it do not
+    divide the leading split dim (DTensor's view rule refuses to split a
+    dim sharded unevenly: qwen2's 14 heads on a 16-way ``model`` axis)."""
+    if is_dtensor(t) and t.requires_grad and torch.is_grad_enabled():
+        return _MergeLastFn.apply(t, n)
+    return t.reshape(tuple(t.shape[:-n]) + (-1,))
+
+
 def as_dtensor(t, mesh, placements, shape):
     """Local shard ``t`` as the contiguous DTensor of global ``shape`` laid
     out by ``placements`` on ``mesh`` (a ``DeviceMesh``), unchecked across
@@ -176,6 +246,7 @@ def local(x):
     return x.to_local() if is_dtensor(x) else x
 
 
-__all__ = ["P", "as_dtensor", "constrain", "constrain_batch", "divisible", "dp_axes",
-           "is_dtensor", "local", "on_dtensors", "on_mesh",
+__all__ = ["P", "as_dtensor", "constrain", "constrain_batch",
+           "divisible", "dp_axes", "is_dtensor", "local", "merge_last",
+           "on_dtensors", "on_mesh", "reduce_fanout_partials",
            "placements", "reduced", "split_last", "strip", "whole"]

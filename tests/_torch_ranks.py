@@ -124,11 +124,11 @@ def lm_mesh_run(rank, world, out, arch, train, prefill, steps, width,
 
 
 def train_step_mesh_run(rank, world, out, arch, batch, cfg_kw, key,
-                        algo="fedzo", model_axis=2):
+                        algo="fedzo", model_axis=2, model_kw=None):
     """One cross-silo train step (``fedzo``/``fedavg.make_train_step``) of
-    the ``arch`` model with its params laid out on a host mesh by
-    ``launch/sharding.py``; rank 0 saves the new params and metrics whole
-    (or returns them when ``out`` is None)."""
+    the ``arch`` model (its config replaced by ``model_kw``) with its params
+    laid out on a host mesh by ``launch/sharding.py``; rank 0 saves the new
+    params and metrics whole (or returns them when ``out`` is None)."""
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
     from repro_torch.core import fedavg
@@ -137,7 +137,8 @@ def train_step_mesh_run(rank, world, out, arch, batch, cfg_kw, key,
     from repro_torch.models import api
     from repro_torch.utils import prng
     from repro_torch.utils.tree import tree_map
-    model = api.build(get_config(arch))
+    cfg = get_config(arch)
+    model = api.build(cfg.replace(**model_kw) if model_kw else cfg)
     mesh = make_host_mesh(model_axis, device="cpu")
     params = model.init(prng.key(0), device="cpu")
     dp = shr.distribute(params, shr.param_shardings(model.param_specs(),
@@ -149,6 +150,80 @@ def train_step_mesh_run(rank, world, out, arch, batch, cfg_kw, key,
     new, mets = step(dp, db, key)
     res = {"params": tree_map(_full, new),
            "metrics": {k: _full(v) for k, v in mets.items()}}
+    if out is None:
+        return res
+    if rank == 0:
+        torch.save(res, out)
+
+
+def sharded_fedavg_run(rank, world, out, grad_cases, step_cases, xent):
+    """``moe_grad_run`` of ``grad_cases``, ``train_step_mesh_run`` of each
+    of ``step_cases`` and ``xent_mesh_run`` of ``xent``, in one group;
+    rank 0 saves the three results."""
+    res = (moe_grad_run(rank, world, None, grad_cases),
+           [train_step_mesh_run(rank, world, None, *c) for c in step_cases],
+           xent_mesh_run(rank, world, *xent))
+    if rank == 0:
+        torch.save(res, out)
+
+
+def xent_mesh_run(rank, world, logits, labels, model_axis=2):
+    """The token cross-entropy (``models/layers._token_xent``) of logits laid
+    out vocab-parallel on a host mesh (rows over data, vocab over model),
+    and the masked sum it replaced (a whole-vocab iota and mask on every
+    rank) on the same DTensors; both whole."""
+    torch.set_num_threads(1)
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import _token_xent
+    from repro_torch.utils.shardutil import on_mesh
+    mesh = make_host_mesh(model_axis, device="cpu")
+    d = shr.distribute({"l": logits, "y": labels}, {
+        "l": shr.NamedSharding(mesh, shr.P("data", None, "model")),
+        "y": shr.NamedSharding(mesh, shr.P("data", None))})
+    with on_mesh(mesh):
+        new = _token_xent(d["l"], d["y"])
+        lf = d["l"].to(torch.float32)
+        m = torch.amax(lf, dim=-1)
+        lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
+        hit = torch.arange(lf.shape[-1]) == d["y"].to(torch.int64)[..., None]
+        old = lse - torch.sum(torch.where(hit, lf, 0.0), dim=-1)
+    return {"new": _full(new), "old": _full(old),
+            "placements": str(new.placements)}
+
+
+def moe_grad_run(rank, world, out, cases, model_axis=2):
+    """The gradient of ``sum(out · w) + aux`` of the expert-parallel
+    ``moe_fwd`` (leaves and x laid out as ``moe_mesh_run`` lays them out)
+    with respect to x and every leaf, for each ``(cfg, p, x, w)`` of
+    ``cases``; rank 0 saves the whole gradients."""
+    torch.set_num_threads(1)
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import moe_fwd
+    from repro_torch.utils.flatparams import _leaves
+    from repro_torch.utils.shardutil import on_dtensors
+    from repro_torch.utils.tree import tree_unflatten
+    mesh = make_host_mesh(model_axis, device="cpu")
+    res = []
+    for cfg, p, x, w in cases:
+        pairs = _leaves(p)
+        psh = tree_unflatten([k for k, _ in pairs], [shr.NamedSharding(
+            mesh, shr.leaf_spec(shr.keystr(("moe",) + tuple(k)),
+                                tuple(v.shape), mesh)) for k, v in pairs])
+        dp = shr.distribute(p, psh)
+        b = shr.distribute({"x": x, "w": w},
+                           shr.batch_shardings({"x": x, "w": w}, mesh))
+        leaves = [v.detach().requires_grad_() for _, v in _leaves(dp)]
+        xin = b["x"].detach().requires_grad_()
+        o, aux = moe_fwd(tree_unflatten([k for k, _ in pairs], leaves), cfg,
+                         xin, mesh=mesh)
+        f = torch.sum(o * b["w"]) + aux
+        with on_dtensors(leaves):
+            g = torch.autograd.grad(f, [xin] + leaves)
+        res.append({"f": _full(f), "x": _full(g[0]),
+                    "p": {"/".join(k): _full(t)
+                          for (k, _), t in zip(pairs, g[1:])}})
     if out is None:
         return res
     if rank == 0:
